@@ -1,0 +1,88 @@
+"""Dominance primitives and the orders built on them.
+
+Counterpart of ``repro.core.dominance``.  Point sets are masked:
+``(pts: (N, d) f32, mask: (N,) bool)``.  Invalid rows also carry the
+``SENTINEL`` coordinate, so a sentinel row can never dominate a real
+point even where a mask is dropped.
+
+The orders are bit-for-bit those of the reference:
+
+* ``monotone_score`` adds the attributes left to right in f32, from a
+  +0.0 accumulator, as XLA:CPU's reduce does.  ``torch.sum`` uses another
+  order and gives other bits on a third or more of the rows for several d.
+* every sort is stable and compares ``-0.0`` equal to ``+0.0`` (the
+  reference's sorts canonicalise signed zeros); :func:`sort_key` makes
+  that hold on every device, whatever its sort does with the sign bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "SENTINEL", "dominates", "monotone_score",
+    "canonical_order", "apply_sentinel", "sort_key", "stable_argsort",
+]
+
+# Large but finite.  Sums of sentinels overflow to inf once d >= 3; an
+# overflowed sentinel score still sorts last, which is all that is needed.
+SENTINEL = 1.7e38
+
+
+def dominates(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Scalar predicate: does point t dominate point s?"""
+    return torch.all(t <= s) & torch.any(t < s)
+
+
+def monotone_score(pts: torch.Tensor,
+                   mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The strictly monotone SFS presort score (sum of the attributes).
+
+    Invalid rows score +inf so they sort last.  A one-attribute sum is
+    the attribute itself (XLA folds that reduce to a copy, keeping -0.0);
+    wider sums start from +0.0."""
+    d = pts.shape[-1]
+    if d == 1:
+        s = pts[..., 0].clone()
+    else:
+        s = torch.zeros(pts.shape[:-1], dtype=pts.dtype, device=pts.device)
+        for k in range(d):
+            s = s + pts[..., k]
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, float("inf")))
+    return s
+
+
+def sort_key(v: torch.Tensor) -> torch.Tensor:
+    """``v`` with -0.0 replaced by +0.0, so that any sort ranks the two
+    zeros as equal and a stable sort keeps them in input order."""
+    return torch.where(v == 0, torch.zeros_like(v), v)
+
+
+def stable_argsort(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Stable ascending argsort with signed zeros compared equal."""
+    if v.is_floating_point():
+        v = sort_key(v)
+    return torch.sort(v, dim=dim, stable=True).indices
+
+
+def canonical_order(pts: torch.Tensor,
+                    mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Permutation sorting by monotone score, then the coordinates
+    lexicographically: a total order on point values, so the result does
+    not depend on the input permutation.  Invalid rows sort last.
+
+    ``jnp.lexsort`` becomes a chain of stable sorts from the least
+    significant key (the last coordinate) to the most (the score)."""
+    score = monotone_score(pts, mask)
+    keys = [pts[:, k] for k in reversed(range(pts.shape[1]))] + [score]
+    perm = torch.arange(pts.shape[0], device=pts.device)
+    for key in keys:
+        perm = perm[stable_argsort(key[perm])]
+    return perm
+
+
+def apply_sentinel(pts: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Overwrite invalid rows with the sentinel coordinate."""
+    return torch.where(mask[..., None], pts,
+                       torch.full_like(pts, SENTINEL))

@@ -1,0 +1,99 @@
+"""Kernel-backend registry and the device rule.
+
+Counterpart of ``repro.kernels.backend``.  One immutable
+:class:`KernelSpec` names the implementation of each kernel family,
+resolved from the ``SkyConfig.impl`` string:
+
+  ``'cuda'``     the hand-written Hopper kernel (``kernels/sfs/csrc``),
+                 for tensors on the card only;
+  ``'torch'``    the plain PyTorch version of the same function, on any
+                 device (the CPU tests run it; on the card it runs only
+                 when a caller asks for it by name);
+  ``'perpair'``  the per-pair oracle, on any device;
+  ``'auto'``     ``'cuda'`` for a tensor on the card and ``'torch'`` for
+                 a tensor on the CPU.  The choice follows where the data
+                 is, and the data is where the caller put it.
+
+Only the sweep family exists so far; the pairwise dominance family joins
+the spec with its kernel.
+
+The device rule of the public entry points lives here too
+(:func:`resolve_device`): they run on the card unless the caller passes
+``device="cpu"``, and without a card they raise instead of moving to the
+CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.kernels.sfs.kernel import D_MAX
+
+__all__ = ["KernelSpec", "resolve_spec", "resolve_device"]
+
+_SWEEP_IMPLS = ("cuda", "torch", "perpair")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    """Resolved kernel choices for one pipeline configuration.
+
+    Attributes:
+      name: registry key (what ``SkyConfig.impl`` held, after 'auto').
+      sweep: SFS sweep implementation.
+      max_d: widest attribute dimension the implementation takes
+        (None = unbounded).
+    """
+    name: str
+    sweep: str
+    max_d: int | None = None
+
+    def __post_init__(self):
+        if self.sweep not in _SWEEP_IMPLS:
+            raise ValueError(f"unknown sweep impl {self.sweep!r}; "
+                             f"valid: {_SWEEP_IMPLS}")
+
+
+_REGISTRY: dict[str, KernelSpec] = {
+    "cuda": KernelSpec("cuda", sweep="cuda", max_d=D_MAX),
+    "torch": KernelSpec("torch", sweep="torch"),
+    "perpair": KernelSpec("perpair", sweep="perpair"),
+}
+
+
+def resolve_spec(impl: str | KernelSpec, device: torch.device) -> KernelSpec:
+    """``SkyConfig.impl`` -> :class:`KernelSpec` for data on ``device``.
+
+    ``'auto'`` picks the kernel for data on the card and the plain
+    version for data on the CPU.  ``'cuda'`` for data elsewhere than on
+    the card raises: the kernel never runs on the CPU, and nothing runs
+    in its place."""
+    device = torch.device(device)
+    if isinstance(impl, KernelSpec):
+        spec = impl
+    else:
+        if impl == "auto":
+            impl = "cuda" if device.type == "cuda" else "torch"
+        try:
+            spec = _REGISTRY[impl]
+        except KeyError:
+            raise ValueError(
+                f"unknown kernel backend {impl!r}; registered: "
+                f"{', '.join(sorted(_REGISTRY))} (or 'auto')") from None
+    if spec.sweep == "cuda" and device.type != "cuda":
+        raise ValueError(f"impl {spec.name!r} runs on CUDA tensors only; "
+                         f"got data on {device}")
+    return spec
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller
+    asks for another.  Raises ``RuntimeError`` when that is the card and
+    CUDA is not available."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
