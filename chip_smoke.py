@@ -6,15 +6,19 @@ CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from the sources in the checkout
-(into build/), then:
+It builds the port's CUDA kernels from the sources in the checkout
+(into build/), one nvcc per source, all started together, then:
 
   1. prints the card (nvidia-smi name and power limit) and the versions;
   2. prints the build time and the compiler's registers / shared memory /
      spills for each kernel instantiation;
   3. holds the SFS sweep kernel against its plain PyTorch version, bit
      for bit, on the card, over ties, antichains, overflow, block 2,
-     d 2..12, -0.0 and subnormal coordinates;
+     d 2..12, -0.0 and subnormal coordinates; and the dominance kernel
+     against its plain version and the O(C x R) oracle over the shapes
+     of the JAX package's tests, lower_tri, all-masked refs, d 2..12,
+     ties, -0.0, subnormals, a batch axis with shared and per-batch refs,
+     and bf16 input;
   4. runs the main path, ``parallel_skyline`` at the default config with
      capacity 65536, on uniform, correlated and anticorrelated data at
      N = 10^7, d = 4: two sweep launches per query, no overflow, and bit
@@ -22,9 +26,19 @@ It builds the port's CUDA kernel from the sources in the checkout
      sizes, the card against the CPU on tie-heavy data with -0.0, the
      member set against the O(N^2) oracle, and overflow at the default
      capacity 4096;
-  5. times the query end to end, its stages, and each sweep call (the
-     kernel, the plain version, and the least time the card could take);
-  6. prints one JSON line per kernel, then the device line.
+  5. streams the same uniform and anticorrelated data into a live state
+     in ten inserts of 10^6 rows, with a snapshot after each: 2 sweep and
+     2 dominance launches per insert, every snapshot bit for bit the
+     plain version's, the last bit for bit the one-shot answer; then a
+     batched insert of Q = 4 states against four single ones;
+  6. runs ``parallel_skyline`` with ``rep_filter='sorted'`` (2 sweep + 3
+     dominance launches) and with ``noseq=True`` (1 + 1) on the three
+     distributions: bit for bit the default answer and the plain
+     version's, stats included;
+  7. times the queries end to end, their stages, each sweep call and
+     each dominance call of the paths above (the kernel, the plain
+     version, and the least time the card could take);
+  8. prints one JSON line with both kernels, then the device line.
 
 Every check that fails ends the run with a non-zero exit code.  The
 script needs a CUDA card; without one, or outside a checkout of the
@@ -48,9 +62,13 @@ N_MAIN = 10_000_000
 D_MAIN = 4
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+CHUNK = 1_000_000              # rows per streaming insert
 SOURCE = "src/repro_torch/kernels/sfs/csrc/sfs_sweep.cu"
 REPLACES = ("src/repro/kernels/sfs/kernel.py:272, "
             "src/repro/kernels/sfs/gpu.py:95")
+DOM_SOURCE = "src/repro_torch/kernels/dominance/csrc/dominated_mask.cu"
+DOM_REPLACES = ("src/repro/kernels/dominance/kernel.py:118, "
+                "src/repro/kernels/dominance/gpu.py:83")
 
 
 def fail(msg: str):
@@ -76,9 +94,33 @@ def leaves_equal(got, want) -> bool:
 
 
 def abs_err(got, want) -> float:
-    """Largest |difference| between two windows (0.0 when the bits agree)."""
+    """Largest |difference| between two outputs (0.0 when the bits
+    agree)."""
     return float((got.double() - want.double()).abs().max()) \
         if got.numel() else 0.0
+
+
+def stats_equal(got: dict, want: dict) -> bool:
+    return (list(got) == list(want)
+            and all(bits_equal(got[k], want[k]) for k in want))
+
+
+class Launches:
+    """The launch counts of both kernels over one run of a path: set to
+    0 when the run starts and read when it ends."""
+
+    def __init__(self, *kernels):
+        self.kernels = kernels
+        self.counts = None
+
+    def __enter__(self):
+        for k in self.kernels:
+            k.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.counts = tuple(k.launches for k in self.kernels)
 
 
 def time_ms(fn, reps: int = 3):
@@ -97,6 +139,396 @@ def time_ms(fn, reps: int = 3):
     return min(times), times
 
 
+def ptxas_report(log: str) -> dict:
+    """Registers, shared memory and spills per D instantiation, from the
+    compiler's ``-Xptxas -v`` report."""
+    entry_d = None
+    props = {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            dm = re.search(r"ILi(\d+)E", m.group(1))
+            entry_d = int(dm.group(1)) if dm else None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry_d is not None:
+            props.setdefault(entry_d, {})["spills"] = (
+                f"{m.group(1)} B spill stores, {m.group(2)} B spill loads")
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and entry_d is not None:
+            props.setdefault(entry_d, {})["used"] = (
+                f"{m.group(1)} registers, {m.group(2)} B shared memory")
+    return props
+
+
+DOM_SHAPES = [(1, 1, 2), (7, 3, 2), (64, 64, 4), (130, 513, 5), (300, 40, 7),
+              (512, 512, 8), (1000, 257, 3)]   # tests/test_dominance_kernel.py
+
+
+def dominance_cases(dev) -> float:
+    """The dominance kernel against its plain version and, where the
+    (R, C) matrix is small, the oracle, bit for bit.  Returns the largest
+    |difference| between kernel and plain outputs."""
+    from repro_torch.kernels.dominance import ops as dops
+    from repro_torch.kernels.dominance.ref import dominated_mask_ref
+    g = torch.Generator(device=dev).manual_seed(77)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def pts(kind, *shape):
+        if kind == "uniform":
+            return rand(*shape)
+        x = torch.randint(0, 4, shape, generator=g, device=dev).float()
+        x = x / 4 if kind == "ties" else x * 1e-40     # else subnormals
+        x[rand(*shape) < 0.15] = -0.0
+        return x
+
+    cases = [(f"shape C={c} R={r} d={d}", pts("uniform", c, d),
+              pts("uniform", r, d), rand(r) > 0.25, False)
+             for c, r, d in DOM_SHAPES]
+    x = pts("uniform", 200, 4)
+    cases.append(("lower_tri C=R=200 d=4", x, x, None, True))
+    cases.append(("all refs masked", pts("uniform", 50, 3),
+                  torch.zeros((20, 3), device=dev),
+                  torch.zeros(20, dtype=torch.bool, device=dev), False))
+    for d in range(2, 13):
+        x = pts("ties", 700, d)
+        cases.append((f"ties d={d}", x, pts("ties", 900, d), rand(900) > 0.3,
+                      False))
+        cases.append((f"ties lower_tri d={d}", x, x, rand(700) > 0.3, True))
+    z = torch.tensor([[-0.0, 1.0], [0.0, 1.0], [0.0, 0.5]], device=dev)
+    cases.append(("signed zeros", z, z, None, False))
+    x = pts("ties", 3000, 3)
+    cases.append(("ties and -0.0 lower_tri", x, x, rand(3000) > 0.2, True))
+    x = pts("subnormal", 2000, 3)
+    cases.append(("subnormals", x, pts("subnormal", 1500, 3),
+                  rand(1500) > 0.2, False))
+    cases.append(("subnormals lower_tri", x, x, None, True))
+    # continuous data, so that every batch's flags depend on its refs
+    x = pts("uniform", 4, 2000, 4)
+    r = pts("uniform", 300, 4)
+    cases.append(("B=4 broadcast refs (stride 0), per-batch mask", x,
+                  r.expand(4, 300, 4), rand(4, 300) > 0.5, False))
+    cases.append(("B=4 broadcast refs and mask", x, r.expand(4, 300, 4),
+                  (rand(300) > 0.5).expand(4, 300), False))
+    cases.append(("B=4 per-batch refs", x, pts("uniform", 4, 300, 4),
+                  rand(4, 300) > 0.5, False))
+    cases.append(("B=4 lower_tri", x, x, rand(4, 2000) > 0.3, True))
+    x = pts("uniform", 1000, 4).bfloat16()
+    cases.append(("bf16", x, pts("uniform", 600, 4).bfloat16(),
+                  rand(600) > 0.3, False))
+    cases.append(("bf16 lower_tri", x, x, None, True))
+    big = torch.zeros(70_000, dtype=torch.bool, device=dev)
+    big[:3000] = True           # a compacted state: a masked tail
+    cases.append(("C=100000 R=70000, 3000 valid refs first",
+                  pts("uniform", 100_000, 4), pts("uniform", 70_000, 4), big,
+                  False))
+
+    err = 0.0
+    for name, c, r, m, lt in cases:
+        got = dops.dominated_mask(c, r, m, lower_tri=lt, impl="cuda")
+        torch.cuda.synchronize()
+        want = dops.dominated_mask(c, r, m, lower_tri=lt, impl="torch")
+        err = max(err, abs_err(got.int(), want.int()))
+        check(bits_equal(got, want),
+              f"dominance kernel differs from the plain version: {name}")
+        oracle = "plain version"
+        if r.shape[-2] * (c.numel() // c.shape[-1]) <= 5 * 10 ** 7:
+            cb, rb = (c, r) if c.ndim == 3 else (c[None], r[None])
+            mb = (torch.ones(rb.shape[:2], dtype=torch.bool, device=dev)
+                  if m is None else m if m.ndim == 2 else m[None])
+            rb, mb = rb.expand(cb.shape[0], -1, -1), mb.expand(
+                cb.shape[0], -1)
+            ref = torch.stack([dominated_mask_ref(ci, ri, mi, lower_tri=lt)
+                               for ci, ri, mi in zip(cb, rb, mb)])
+            check(bits_equal(got.reshape(ref.shape), ref),
+                  f"dominance kernel differs from the oracle: {name}")
+            oracle = "plain version and oracle"
+        print(f"dominance kernel case {name}: bitwise equal to the {oracle} "
+              f"({int(got.sum())} of {got.numel()} dominated)")
+    check(not bool(dops.dominated_mask(z[:2], z[:2], impl="cuda").any()),
+          "-0.0 and +0.0 rows dominate each other on the card")
+    return err
+
+
+def record_dominance_calls(fn) -> list:
+    """Run ``fn`` once and return the arguments of every dominance
+    kernel launch it makes, for timing the calls on their own inputs.
+    The launches of this run count on the recorder, not the kernel."""
+    from repro_torch.kernels.dominance import kernel as dkernel
+    orig = dkernel.dominated_mask_cuda
+    calls = []
+
+    def recorder(cands, refs, ref_mask, *, lower_tri=False):
+        calls.append((cands, refs, ref_mask, lower_tri))
+        return orig(cands, refs, ref_mask, lower_tri=lower_tri)
+
+    recorder.launches = 0
+    dkernel.dominated_mask_cuda = recorder
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        dkernel.dominated_mask_cuda = orig
+    return calls
+
+
+def streaming_phase(data, oneshot, cfg, tag, kernels):
+    """Ten inserts of 10^6 rows into a live state, a snapshot after each,
+    on uniform and anticorrelated data; then Q = 4 states in one batched
+    insert.  Returns the recorded dominance calls of the last insert and
+    its launch counts, by distribution."""
+    from repro_torch.core import api
+    plain = dataclasses.replace(cfg, impl="torch")
+    out = {}
+    for dist in ("uniform", "anticorrelated"):
+        x = data[dist]
+        state = api.init_state(cfg, D_MAIN)
+        pstate = api.init_state(plain, D_MAIN)
+        for i in range(N_MAIN // CHUNK):
+            chunk = x[i * CHUNK:(i + 1) * CHUNK]
+            before = state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with Launches(*kernels) as run:
+                state, stats = api.insert_chunk(state, chunk, cfg=cfg)
+            t_ins = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            snap = api.finalize(state, cfg=cfg)
+            torch.cuda.synchronize()
+            t_fin = (time.perf_counter() - t0) * 1e3
+            check(run.counts == (2, 2), f"streaming {dist} insert {i + 1}: "
+                  f"{run.counts} sweep and dominance launches, expected "
+                  f"(2, 2)")
+            pstate, pstats = api.insert_chunk(pstate, chunk, cfg=plain)
+            check(leaves_equal(state, pstate) and stats_equal(stats, pstats),
+                  f"streaming {dist} insert {i + 1}: state or stats differ "
+                  f"from impl='torch'")
+            check(leaves_equal(snap, api.finalize(pstate, cfg=plain)),
+                  f"streaming {dist} snapshot {i + 1} differs from "
+                  f"impl='torch'")
+            drops = int(stats["chunk_arrivals"]) - int(stats["n_valid"])
+            print(f"{tag} streaming {dist} insert {i + 1}/{N_MAIN // CHUNK} "
+                  f"({CHUNK} rows): insert {t_ins:.3f} ms, finalize "
+                  f"{t_fin:.3f} ms; pre-filter dropped {drops}, evicted "
+                  f"{int(stats['evicted'])}, inserted "
+                  f"{int(stats['inserted'])}, skyline {int(state.count)}; "
+                  f"launches {run.counts}; state, stats and snapshot "
+                  f"bitwise equal to impl='torch'")
+        check(not bool(state.overflow), f"streaming {dist}: overflow")
+        check(int(state.seen) == N_MAIN
+              and int(state.chunks) == N_MAIN // CHUNK,
+              f"streaming {dist}: seen {int(state.seen)}, chunks "
+              f"{int(state.chunks)}")
+        check(leaves_equal(snap, oneshot[dist]), f"streaming {dist}: the "
+              f"final snapshot differs from the one-shot parallel_skyline")
+        print(f"streaming {dist} N={N_MAIN} in {N_MAIN // CHUNK} inserts: "
+              f"final snapshot (skyline {int(snap.count)}) bitwise equal to "
+              f"the one-shot parallel_skyline answer")
+        out[dist] = (record_dominance_calls(
+            lambda: api.insert_chunk(before, chunk, cfg=cfg)), run.counts)
+
+    # Q = 4 states in one batched insert against four single states
+    x = data["anticorrelated"]
+    q, steps, rows = 4, 4, N_MAIN // 40
+    streams = [x[j * steps * rows:(j + 1) * steps * rows] for j in range(q)]
+    bstate = api.init_state(cfg, D_MAIN, q=q)
+    singles = [api.init_state(cfg, D_MAIN) for _ in range(q)]
+    for i in range(steps):
+        chunk = torch.stack([s[i * rows:(i + 1) * rows] for s in streams])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with Launches(*kernels) as run:
+            bstate, _ = api.insert_chunk(bstate, chunk, cfg=cfg)
+        t_batch = (time.perf_counter() - t0) * 1e3
+        check(run.counts == (2, 2), f"batched insert {i + 1}: {run.counts} "
+              f"launches, expected (2, 2)")
+        t0 = time.perf_counter()
+        for j in range(q):
+            singles[j], _ = api.insert_chunk(singles[j], chunk[j], cfg=cfg)
+        torch.cuda.synchronize()
+        t_single = (time.perf_counter() - t0) * 1e3
+        print(f"{tag} batched insert {i + 1}/{steps} of Q={q} x {rows} rows "
+              f"(anticorrelated): {t_batch:.3f} ms in {run.counts} launches; "
+              f"{q} single inserts {t_single:.3f} ms")
+    bsnap = api.finalize(bstate, cfg=cfg)
+    for j in range(q):
+        check(leaves_equal([leaf[j] for leaf in bstate], singles[j])
+              and leaves_equal([leaf[j] for leaf in bsnap],
+                               api.finalize(singles[j], cfg=cfg)),
+              f"batched insert: stream {j} differs from its single state")
+    print(f"batched insert Q={q}: every state and snapshot bitwise equal to "
+          f"the {q} single-state inserts (skylines "
+          f"{bstate.count.tolist()})")
+    return out
+
+
+QUERY_OPTIONS = (  # name, config fields, expected (sweep, dominance) launches
+    ("rep_filter='sorted'", dict(rep_filter="sorted"), (2, 3)),
+    ("noseq=True", dict(noseq=True), (1, 1)),
+)
+
+
+def queries_phase(data, oneshot, cfg, tag, kernels):
+    """``parallel_skyline`` with representative filtering and with NoSeq
+    on every distribution.  Returns the recorded dominance calls and the
+    launch counts of each query, by (distribution, option)."""
+    from repro_torch.core import api, parallel
+    out = {}
+    for dist, x in data.items():
+        mask = torch.ones((x.shape[0],), dtype=torch.bool, device=x.device)
+        for name, fields, want in QUERY_OPTIONS:
+            qcfg = dataclasses.replace(cfg, **fields)
+            with Launches(*kernels) as run:
+                buf, stats = api.parallel_skyline(x, cfg=qcfg)
+            check(run.counts == want, f"{dist} {name}: {run.counts} sweep "
+                  f"and dominance launches, expected {want}")
+            check(leaves_equal(buf, oneshot[dist]), f"{dist} {name}: the "
+                  f"result differs from the default configuration's")
+            ref, rstats = api.parallel_skyline(
+                x, cfg=dataclasses.replace(qcfg, impl="torch"))
+            check(leaves_equal(buf, ref) and stats_equal(stats, rstats),
+                  f"{dist} {name}: result or stats differ from impl='torch'")
+            e2e, runs = time_ms(lambda: api.parallel_skyline(x, cfg=qcfg))
+            buckets, _ = parallel.partition_stage(x, mask, qcfg)
+            sky, _ = parallel.local_stage(buckets.points, buckets.mask, qcfg)
+            t_local, _ = time_ms(lambda: parallel.local_stage(
+                buckets.points, buckets.mask, qcfg))
+            t_merge, _ = time_ms(lambda: parallel.merge_stage(sky, qcfg))
+            dropped = (f", rep filter dropped "
+                       f"{int(stats['rep_filter_dropped'])}"
+                       if "rep_filter_dropped" in stats else "")
+            print(f"{tag} {name} {dist} N={N_MAIN} d={D_MAIN}: {e2e:.3f} ms "
+                  f"best of 3 ({', '.join(f'{t:.3f}' for t in runs)}); local "
+                  f"{t_local:.3f} ms, merge {t_merge:.3f} ms; skyline "
+                  f"{int(buf.count)}{dropped}; launches {run.counts}; bitwise "
+                  f"equal to the default answer and to impl='torch', stats "
+                  f"included")
+            if dist != "correlated":
+                out[dist, name] = (record_dominance_calls(
+                    lambda: api.parallel_skyline(x, cfg=qcfg)), run.counts)
+    # the other representative strategies take the same launches and give
+    # the same answer (random draws from a generator on the card)
+    x = data["anticorrelated"]
+    for strategy in ("region", "random"):
+        qcfg = dataclasses.replace(cfg, rep_filter=strategy)
+        with Launches(*kernels) as run:
+            buf, stats = api.parallel_skyline(
+                x, cfg=qcfg, generator=torch.Generator(
+                    device=x.device).manual_seed(5))
+        check(run.counts == (2, 3) and leaves_equal(buf, oneshot[
+            "anticorrelated"]), f"rep_filter={strategy!r}: launches "
+              f"{run.counts} or the answer differ")
+        print(f"rep_filter={strategy!r} anticorrelated N={N_MAIN}: rep "
+              f"filter dropped {int(stats['rep_filter_dropped'])}, launches "
+              f"{run.counts}, bitwise equal to the default answer")
+    return out
+
+
+DOM_CALL_NAMES = {
+    "insert": ("pre-filter", "evict"),
+    "rep_filter='sorted'": ("representatives", "pool", "rep filter"),
+    "noseq=True": ("noseq",),
+}
+
+
+def time_dominance_calls(paths, tag):
+    """Kernel, plain and bound of every recorded dominance call; returns
+    the sums over the anticorrelated calls and their launches."""
+    from repro_torch.kernels.dominance import kernel as dkernel
+    from repro_torch.kernels.dominance import ops as dops
+    record = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0,
+              "launches": 0, "err": 0.0}
+    for (dist, path), (calls, counts) in paths.items():
+        names = DOM_CALL_NAMES[path]
+        check(len(calls) == len(names), f"{dist} {path}: {len(calls)} "
+              f"recorded dominance calls, expected {len(names)}")
+        if dist == "anticorrelated":
+            record["launches"] += counts[1]
+        for name, (c, r, m, lt) in zip(names, calls):
+            got = dkernel.dominated_mask_cuda(c, r, m, lower_tri=lt)
+            want = dops.dominated_mask_torch(c, r, m, lower_tri=lt)
+            check(bits_equal(got, want), f"{dist} {path} {name} call: the "
+                  f"kernel differs from the plain version")
+            t_k, _ = time_ms(
+                lambda: dkernel.dominated_mask_cuda(c, r, m, lower_tri=lt))
+            t_p, _ = time_ms(
+                lambda: dops.dominated_mask_torch(c, r, m, lower_tri=lt),
+                reps=2)
+            b, n, d = c.shape
+            nr = r.shape[1]
+            nbytes = (4 * b * n * d + b * n
+                      + 4 * nr * d * (1 if r.stride(0) == 0 else b)
+                      + nr * (1 if m.stride(0) == 0 else b))
+            compares = count_dom_compares(c, r, m, lt)
+            ops_n = 2 * d * compares
+            t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+            t_ops = ops_n / F32_OPS_PER_S * 1e3
+            bound = max(t_bytes, t_ops)
+            print(f"{tag} dominated_mask {name} call ({dist} {path}: B={b}, "
+                  f"C={n}, R={nr}, d={d}, {int(m.sum())} valid ref rows "
+                  f"over the batch, lower_tri={lt}): kernel {t_k:.3f} ms, "
+                  f"plain {t_p:.3f} ms, bound {bound:.6f} ms set by "
+                  f"{'bytes' if t_bytes >= t_ops else 'operations'} "
+                  f"({nbytes} bytes -> {t_bytes:.6f} ms; {compares} compares "
+                  f"x 2d = {ops_n} ops -> {t_ops:.6f} ms)")
+            if dist == "anticorrelated":
+                record["ms"] += t_k
+                record["plain_ms"] += t_p
+                record["bytes"] += nbytes
+                record["ops"] += ops_n
+    return record
+
+
+def count_dom_compares(cands, refs, ref_mask, lower_tri: bool) -> int:
+    """The compares the dominance test needs on these inputs: for every
+    candidate, the valid references (with j < i under lower_tri) up to
+    and including its first dominator, or all of them when none
+    dominates it.  The main path never calls this."""
+    b, c, d = cands.shape
+    r = refs.shape[1]
+    if c == 0 or r == 0:
+        return 0
+    dev = cands.device
+    valid = torch.cat([torch.zeros((b, 1), dtype=torch.int64, device=dev),
+                       torch.cumsum(ref_mask.to(torch.int64), dim=1)], 1)
+    first = torch.full((b, c), r, dtype=torch.int64, device=dev)
+    # rows past the last valid one are neither compared nor dominators
+    live = ref_mask.any(dim=0)
+    r_end = int(torch.where(live, torch.arange(1, r + 1, device=dev),
+                            0).max())
+    rb = 4096
+    cb = max(1, (1 << 26) // (b * rb))
+    for c0 in range(0, c, cb):
+        c1 = min(c0 + cb, c)
+        x = cands[:, c0:c1, None, :]
+        f = first[:, c0:c1]
+        for r0 in range(0, r_end, rb):
+            r1 = min(r0 + rb, r_end)
+            y = refs[:, None, r0:r1, :]
+            le = y[..., 0] <= x[..., 0]
+            lt = y[..., 0] < x[..., 0]
+            for k in range(1, d):
+                le &= y[..., k] <= x[..., k]
+                lt |= y[..., k] < x[..., k]
+            dom = le & lt & ref_mask[:, None, r0:r1]
+            if lower_tri:
+                j = torch.arange(r0, r1, device=dev)
+                i = torch.arange(c0, c1, device=dev)
+                dom &= j[None, :] < i[:, None]
+            idx = dom.to(torch.uint8).argmax(dim=-1) + r0
+            f.copy_(torch.where(dom.any(dim=-1) & (f == r), idx, f))
+    found = first < r
+    upto = valid.gather(1, torch.where(found, first + 1, 0))
+    if lower_tri:
+        limit = torch.arange(c, device=dev).clamp(max=r).expand(b, c)
+        none = valid.gather(1, limit)
+    else:
+        none = valid[:, r:].expand(b, c)
+    return int(torch.where(found, upto, none).sum())
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA "
@@ -106,6 +538,7 @@ def main() -> None:
     from repro_torch.core import api, datagen, parallel, sfs
     from repro_torch.core.dominance import SENTINEL
     from repro_torch.kernels import build
+    from repro_torch.kernels.dominance import kernel as dkernel
     from repro_torch.kernels.sfs import kernel, ops
 
     dev = torch.device("cuda")
@@ -129,27 +562,13 @@ def main() -> None:
     print(f"{tag} built {len(libs)} CUDA librar{'y' if len(libs) == 1 else 'ies'}"
           f" in {time.perf_counter() - t0:.3f} s: "
           f"{', '.join(p.name for p in libs.values())}")
-    entry_d = None
-    props = {}
-    for line in build.build_log("sfs_sweep").splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            dm = re.search(r"ILi(\d+)E", m.group(1))
-            entry_d = int(dm.group(1)) if dm else None
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and entry_d is not None:
-            props.setdefault(entry_d, {})["spills"] = (
-                f"{m.group(1)} B spill stores, {m.group(2)} B spill loads")
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
-        if m and entry_d is not None:
-            props.setdefault(entry_d, {})["used"] = (
-                f"{m.group(1)} registers, {m.group(2)} B shared memory")
-    check(bool(props), "no -Xptxas -v report in the build log")
-    for d_inst in sorted(props):
-        p = props[d_inst]
-        print(f"ptxas sfs_sweep_kernel<D={d_inst}>: {p.get('used', '?')}, "
-              f"{p.get('spills', '?')}")
+    for lib in ("sfs_sweep", "dominated_mask"):
+        props = ptxas_report(build.build_log(lib))
+        check(bool(props), f"no -Xptxas -v report in the {lib} build log")
+        for d_inst in sorted(props):
+            p = props[d_inst]
+            print(f"ptxas {lib}_kernel<D={d_inst}>: {p.get('used', '?')}, "
+                  f"{p.get('spills', '?')}")
 
     max_err = 0.0
 
@@ -206,22 +625,27 @@ def main() -> None:
               f"block={blk}: bitwise equal to the plain version and perpair "
               f"(counts {got[2].tolist()})")
 
+    dom_err = dominance_cases(dev)
+    print(f"dominance kernel: max_abs_err {dom_err} over the kernel cases")
+
     # -- 4. the main path on the card ---------------------------------------
+    kernels = (kernel.sfs_sweep_cuda, dkernel.dominated_mask_cuda)
     cfg = parallel.SkyConfig(capacity=65536)
     plain = dataclasses.replace(cfg, impl="torch")
     data = {}
+    oneshot = {}
     launches = {}
     sky_size = {}
     for seed, dist in enumerate(("uniform", "correlated", "anticorrelated")):
         gen = torch.Generator(device=dev).manual_seed(1000 + seed)
         x = datagen.generate(dist, gen, N_MAIN, D_MAIN)
         data[dist] = x
-        kernel.sfs_sweep_cuda.launches = 0
-        buf, stats = api.parallel_skyline(x, cfg=cfg)
-        torch.cuda.synchronize()
-        launches[dist] = kernel.sfs_sweep_cuda.launches
-        check(launches[dist] == 2,
-              f"{dist}: {launches[dist]} sweep launches, expected 2")
+        with Launches(*kernels) as run:
+            buf, stats = api.parallel_skyline(x, cfg=cfg)
+        oneshot[dist] = buf
+        launches[dist] = run.counts[0]
+        check(run.counts == (2, 0), f"{dist}: {run.counts} sweep and "
+              f"dominance launches, expected (2, 0)")
         check(not bool(buf.overflow), f"{dist}: overflow at capacity 65536")
         check(buf.points.shape == (65536, D_MAIN)
               and bool(torch.isfinite(buf.points).all()),
@@ -288,7 +712,14 @@ def main() -> None:
           f"{int(over.mask.sum())} rows kept (count {int(over.count)}), "
           f"bitwise equal to impl='torch'")
 
-    # -- 5. times -----------------------------------------------------------
+    # -- 5-6. streaming, then representative filtering and NoSeq -------------
+    dom_paths = {}
+    for dist, rec in streaming_phase(data, oneshot, cfg, tag,
+                                     kernels).items():
+        dom_paths[dist, "insert"] = rec
+    dom_paths.update(queries_phase(data, oneshot, cfg, tag, kernels))
+
+    # -- 7. times -----------------------------------------------------------
     def sweep_calls(x):
         """The two sweep calls of one query, with their inputs."""
         mask = torch.ones((x.shape[0],), dtype=torch.bool, device=dev)
@@ -342,21 +773,33 @@ def main() -> None:
                 record["plain_ms"] += t_p
                 record["bytes"] += nbytes
                 record["ops"] += ops_n
+    dom = time_dominance_calls(dom_paths, tag)
     print(f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
 
-    # -- 6. the kernel record and the device line ----------------------------
-    t_bytes = record["bytes"] / MEM_BYTES_PER_S * 1e3
-    t_ops = record["ops"] / F32_OPS_PER_S * 1e3
-    print(f"{tag} kernel record: launches, ms, plain_ms and bound_ms are "
-          f"those of one anticorrelated N={N_MAIN} query (local + merge "
-          f"calls); launches per query {launches}")
-    print(json.dumps({"kernels": [{
-        "name": "sfs_sweep", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches["anticorrelated"],
-        "max_abs_err": max_err, "ms": record["ms"],
-        "plain_ms": record["plain_ms"], "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None}]}))
+    # -- 8. the kernel record and the device line ----------------------------
+    def entry(name, route, source, replaces, launches_n, err, rec):
+        t_bytes = rec["bytes"] / MEM_BYTES_PER_S * 1e3
+        t_ops = rec["ops"] / F32_OPS_PER_S * 1e3
+        return {"name": name, "route": route, "source": source,
+                "replaces": replaces, "launches": launches_n,
+                "max_abs_err": err, "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None}
+
+    print(f"{tag} kernel record: sfs_sweep's launches, ms, plain_ms and "
+          f"bound_ms are those of one anticorrelated N={N_MAIN} query "
+          f"(local + merge calls; launches per query {launches}); "
+          f"dominated_mask's are those of one anticorrelated streaming "
+          f"insert (pre-filter + evict), one rep_filter='sorted' query "
+          f"(3 calls) and one noseq=True query (1 call) added; library_ms is "
+          f"null: no single PyTorch call computes an SFS sweep or a "
+          f"dominated mask")
+    print(json.dumps({"kernels": [
+        entry("sfs_sweep", "cuda", SOURCE, REPLACES,
+              launches["anticorrelated"], max_err, record),
+        entry("dominated_mask", "cuda", DOM_SOURCE, DOM_REPLACES,
+              dom["launches"], dom_err, dom)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu, "count": torch.cuda.device_count()}}))
 

@@ -2,8 +2,9 @@
 
 The skyline system has no weights: its parameters are the pipeline
 config and the arrays.  These functions take the reference's config, as
-``dataclasses.asdict`` gives it, and a skyline buffer's four leaves, as
-numpy arrays, across in either direction, bits unchanged.
+``dataclasses.asdict`` gives it, a skyline buffer's four leaves and a
+streaming state's six, as numpy arrays, across in either direction,
+bits unchanged.  A state may carry a leading Q axis.
 """
 
 from __future__ import annotations
@@ -13,10 +14,21 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.incremental import SkylineState
 from repro_torch.core.parallel import SkyConfig
 from repro_torch.core.sfs import SkyBuffer
 
-__all__ = ["config_from_reference", "buffer_from_numpy", "buffer_to_numpy"]
+__all__ = ["config_from_reference", "buffer_from_numpy", "buffer_to_numpy",
+           "state_from_numpy", "state_to_numpy"]
+
+# dtype of each leaf of a buffer and of a state
+_BUFFER_DTYPES = (np.float32, bool, np.int32, bool)
+_STATE_DTYPES = _BUFFER_DTYPES + (np.int32, np.int32)
+
+
+def _leaves_to_device(leaves, dtypes, device):
+    return [torch.from_numpy(np.array(x, dtype=dt)).to(device)
+            for x, dt in zip(leaves, dtypes, strict=True)]
 
 
 def config_from_reference(d: dict) -> SkyConfig:
@@ -31,14 +43,20 @@ def config_from_reference(d: dict) -> SkyConfig:
 def buffer_from_numpy(leaves, *, device) -> SkyBuffer:
     """A ``SkyBuffer`` on ``device`` from its four leaves (points, mask,
     count, overflow) as arrays."""
-    points, mask, count, overflow = (np.asarray(x) for x in leaves)
-    return SkyBuffer(
-        torch.from_numpy(np.array(points, dtype=np.float32)).to(device),
-        torch.from_numpy(np.array(mask, dtype=bool)).to(device),
-        torch.from_numpy(np.array(count, dtype=np.int32)).to(device),
-        torch.from_numpy(np.array(overflow, dtype=bool)).to(device))
+    return SkyBuffer(*_leaves_to_device(leaves, _BUFFER_DTYPES, device))
 
 
 def buffer_to_numpy(buf: SkyBuffer) -> tuple[np.ndarray, ...]:
     """The four leaves of a ``SkyBuffer`` as numpy arrays."""
     return tuple(x.detach().cpu().numpy() for x in buf)
+
+
+def state_from_numpy(leaves, *, device) -> SkylineState:
+    """A ``SkylineState`` on ``device`` from its six leaves (points, mask,
+    count, overflow, seen, chunks) as arrays, batched or not."""
+    return SkylineState(*_leaves_to_device(leaves, _STATE_DTYPES, device))
+
+
+def state_to_numpy(state: SkylineState) -> tuple[np.ndarray, ...]:
+    """The six leaves of a ``SkylineState`` as numpy arrays."""
+    return tuple(x.detach().cpu().numpy() for x in state)

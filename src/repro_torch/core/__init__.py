@@ -1,8 +1,12 @@
-from repro_torch.core.api import (SkyBuffer, SkyConfig, parallel_skyline,
-                                  skyline, skyline_mask_exact)
-from repro_torch.core.sfs import block_sfs, compact, naive_skyline_mask
+from repro_torch.core.api import (SkyBuffer, SkyConfig, SkylineState,
+                                  finalize, init_state, insert_chunk,
+                                  parallel_skyline, skyline,
+                                  skyline_mask_exact)
+from repro_torch.core.sfs import (block_sfs, compact, naive_skyline_mask,
+                                  skyline_mask)
 
 __all__ = [
-    "SkyBuffer", "SkyConfig", "parallel_skyline", "skyline",
-    "skyline_mask_exact", "block_sfs", "compact", "naive_skyline_mask",
+    "SkyBuffer", "SkyConfig", "SkylineState", "parallel_skyline", "skyline",
+    "skyline_mask_exact", "init_state", "insert_chunk", "finalize",
+    "block_sfs", "compact", "naive_skyline_mask", "skyline_mask",
 ]

@@ -2,9 +2,12 @@
 
 Counterpart of ``repro.core.api``: `skyline` / `skyline_mask_exact` are
 the sequential entry points, `parallel_skyline` runs partition -> local
--> merge (``repro_torch.core.parallel``).  Every entry point runs on the
-card unless the caller passes ``device="cpu"``; without CUDA it raises
-``RuntimeError`` rather than moving to the CPU.
+-> merge (``repro_torch.core.parallel``), and `init_state` /
+`insert_chunk` / `finalize` (``repro_torch.core.incremental``) keep a
+running skyline whose snapshot is bit for bit the one-shot answer.
+Every entry point runs on the card unless the caller passes
+``device="cpu"`` (the streaming calls run where their state lies);
+without CUDA it raises ``RuntimeError`` rather than moving to the CPU.
 """
 
 from __future__ import annotations
@@ -12,11 +15,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.dominance import SENTINEL
-from repro_torch.core.parallel import SkyConfig, as_inputs, parallel_skyline
-from repro_torch.core.sfs import SkyBuffer, block_sfs, naive_skyline_mask
+from repro_torch.core.incremental import (SkylineState, finalize, init_state,
+                                          insert_chunk)
+from repro_torch.core.parallel import SkyConfig, parallel_skyline
+from repro_torch.core.sfs import (SkyBuffer, as_inputs, block_sfs,
+                                  naive_skyline_mask, skyline_mask)
 
-__all__ = ["skyline", "skyline_mask_exact", "parallel_skyline", "SkyConfig",
-           "SkyBuffer"]
+__all__ = ["skyline", "skyline_mask_exact", "skyline_mask",
+           "parallel_skyline", "SkyConfig", "SkyBuffer", "SkylineState",
+           "init_state", "insert_chunk", "finalize"]
 
 
 def skyline(pts, mask=None, *, capacity: int | None = None, block: int = 256,

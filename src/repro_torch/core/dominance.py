@@ -19,9 +19,13 @@ from __future__ import annotations
 
 import torch
 
+# the dominance entry the core modules call
+from repro_torch.kernels.dominance.ops import dominated_mask
+
 __all__ = [
-    "SENTINEL", "dominates", "monotone_score",
-    "canonical_order", "apply_sentinel", "sort_key", "stable_argsort",
+    "SENTINEL", "dominates", "dominated_mask", "region_volume",
+    "monotone_score", "canonical_order", "apply_sentinel", "sort_key",
+    "stable_argsort", "topk_order",
 ]
 
 # Large but finite.  Sums of sentinels overflow to inf once d >= 3; an
@@ -32,6 +36,17 @@ SENTINEL = 1.7e38
 def dominates(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """Scalar predicate: does point t dominate point s?"""
     return torch.all(t <= s) & torch.any(t < s)
+
+
+def region_volume(pts: torch.Tensor) -> torch.Tensor:
+    """Volume of the dominance region on [0,1]^d (paper §4.1):
+    prod_k clip(1 - t[k], 0, 1), multiplied left to right as XLA's
+    reduce does (a one-attribute product is the factor itself)."""
+    f = torch.clamp(1.0 - pts, 0.0, 1.0)
+    v = f[..., 0].clone()
+    for k in range(1, pts.shape[-1]):
+        v = v * f[..., k]
+    return v
 
 
 def monotone_score(pts: torch.Tensor,
@@ -66,19 +81,32 @@ def stable_argsort(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.sort(v, dim=dim, stable=True).indices
 
 
+def topk_order(merit: torch.Tensor) -> torch.Tensor:
+    """Argsort of the last axis in ``jax.lax.top_k``'s order: descending,
+    ``+0.0`` above ``-0.0``, and the lower index first among equal
+    values.  The f32 bits are mapped to integers in the floats' total
+    order and sorted stably, so no device's float sort can differ."""
+    bits = merit.to(torch.float32).view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return torch.sort(key, dim=-1, descending=True, stable=True).indices
+
+
 def canonical_order(pts: torch.Tensor,
                     mask: torch.Tensor | None = None) -> torch.Tensor:
     """Permutation sorting by monotone score, then the coordinates
     lexicographically: a total order on point values, so the result does
     not depend on the input permutation.  Invalid rows sort last.
+    Leading axes are batch axes: each row set is ordered on its own.
 
     ``jnp.lexsort`` becomes a chain of stable sorts from the least
     significant key (the last coordinate) to the most (the score)."""
     score = monotone_score(pts, mask)
-    keys = [pts[:, k] for k in reversed(range(pts.shape[1]))] + [score]
-    perm = torch.arange(pts.shape[0], device=pts.device)
+    keys = [pts[..., k] for k in reversed(range(pts.shape[-1]))] + [score]
+    perm = torch.arange(pts.shape[-2], device=pts.device).expand(
+        pts.shape[:-1])
     for key in keys:
-        perm = perm[stable_argsort(key[perm])]
+        perm = torch.gather(perm, -1,
+                            stable_argsort(torch.gather(key, -1, perm)))
     return perm
 
 

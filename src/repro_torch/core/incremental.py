@@ -1,38 +1,69 @@
-"""Skyline state and the fresh-state insert behind the one-shot pipeline.
+"""Incremental skyline maintenance (`SkylineState`) on one device.
 
-Counterpart of the fresh-state path of ``repro.core.incremental``.  In
-the reference, one-shot ``parallel_skyline`` is "insert everything into
-an empty state": the fresh insert skips the pre-filter and eviction
-passes, so its body is exactly partition -> local -> merge, and the
-state's buffer is the answer.  This module ports that path.  Inserting
-into a live state (pre-filter, evict, merge) raises
-``NotImplementedError`` until the streaming slice.
+Counterpart of ``repro.core.incremental`` with ``mesh=None``.  The
+retained buffer of the paper's sequential filtering IS a running
+skyline, so an arriving chunk only has to be (a) filtered against it,
+(b) reduced to its own skyline, and (c) merged back, evicting the
+members the new tuples dominate:
+
+  ``init_state``    an empty state (all-masked buffer, zeroed counters),
+                    optionally with a leading Q axis for Q live skylines;
+                    made on the card unless ``device="cpu"``.
+  ``insert_chunk``  the pre-filter against the live skyline (one
+                    dominance launch), the chunk's skyline by partition ->
+                    local -> merge (two sweep launches at the default
+                    config), the eviction (one dominance launch) and one
+                    compaction pass.  Q states take the same launches as
+                    one: Q x p partitions go to the sweep as one batch and
+                    Q to the dominance kernel's batch axis.
+  ``finalize``      the state in canonical order, bit for bit the
+                    one-shot ``parallel_skyline`` answer for the same
+                    data, however it was chunked.
+
+One-shot ``parallel_skyline`` is "insert everything into an empty
+state": the fresh insert skips the pre-filter and the eviction, so its
+body is exactly partition -> local -> merge.
+
+Exactness (by transitivity): a chunk tuple dominated by a live member
+can only lose that dominator to a new tuple that dominates it too, so
+the pre-filter is safe; any chunk tuple that dominates a live member is
+a surviving new member or dominated by one (never by a live member: the
+buffer is an antichain), so testing the buffer against the chunk's
+survivors alone evicts completely.
+
+Each insert returns a new state and the caller rebinds it, as in the
+reference; ``SkyConfig.donate`` has no effect here (in-place updates
+come with the serve loop, ROADMAP.md item 10).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch.core import parallel as par
-from repro_torch.core.dominance import SENTINEL
+from repro_torch.core.dominance import (SENTINEL, apply_sentinel,
+                                        canonical_order, dominated_mask)
 from repro_torch.core.parallel import SkyConfig
-from repro_torch.core.sfs import SkyBuffer
+from repro_torch.core.sfs import SkyBuffer, compact, gather_rows
+from repro_torch.kernels.backend import resolve_device, resolve_spec
 
-__all__ = ["SkylineState", "state_capacity"]
+__all__ = ["SkylineState", "state_capacity", "init_state", "insert_chunk",
+           "finalize"]
 
 
 class SkylineState(NamedTuple):
-    """Fixed-capacity running skyline.  The buffer is an antichain
+    """Fixed-capacity running skyline.  Leaves are unbatched (one live
+    skyline) or carry a leading Q axis.  The buffer is an antichain
     holding the skyline of every valid tuple fed so far (unless
     ``overflow`` reports that capacity was exceeded)."""
-    points: torch.Tensor    # (C, d) packed members
-    mask: torch.Tensor      # (C,) bool validity
-    count: torch.Tensor     # () int32, live skyline size
-    overflow: torch.Tensor  # () bool, capacity ever exceeded
-    seen: torch.Tensor      # () int32, valid tuples fed so far
-    chunks: torch.Tensor    # () int32, inserts absorbed
+    points: torch.Tensor    # (C, d) or (Q, C, d) packed members
+    mask: torch.Tensor      # (C,) or (Q, C) bool validity
+    count: torch.Tensor     # () or (Q,) int32, live skyline size
+    overflow: torch.Tensor  # () or (Q,) bool, capacity ever exceeded
+    seen: torch.Tensor      # () or (Q,) int32, valid tuples fed so far
+    chunks: torch.Tensor    # () or (Q,) int32, inserts absorbed
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -44,6 +75,25 @@ def state_capacity(cfg: SkyConfig) -> int:
     (capacity rounded up to the block), so the one-shot answer drops
     into a state with no reshaping."""
     return _ceil_to(max(cfg.capacity, 1), cfg.block)
+
+
+def init_state(cfg: SkyConfig, d: int, *, dtype=torch.float32,
+               q: int | None = None, device=None) -> SkylineState:
+    """Empty state for ``d``-attribute tuples; ``q`` adds a leading axis
+    (q live skylines).  Made on the card unless ``device="cpu"``; without
+    CUDA that raises ``RuntimeError``."""
+    dev = resolve_device(device)
+    lead = () if q is None else (q,)
+    c = state_capacity(cfg)
+
+    def zeros(dt):
+        return torch.zeros(lead, dtype=dt, device=dev)
+
+    return SkylineState(
+        points=torch.full(lead + (c, d), SENTINEL, dtype=dtype, device=dev),
+        mask=torch.zeros(lead + (c,), dtype=torch.bool, device=dev),
+        count=zeros(torch.int32), overflow=zeros(torch.bool),
+        seen=zeros(torch.int32), chunks=zeros(torch.int32))
 
 
 def _fit_rows(points: torch.Tensor, mask: torch.Tensor, rows: int):
@@ -64,26 +114,97 @@ def _fit_rows(points: torch.Tensor, mask: torch.Tensor, rows: int):
     return torch.cat([points, pad_p], -2), torch.cat([mask, pad_m], -1)
 
 
-def _chunk_skyline(pts, mask, *, cfg: SkyConfig):
-    """SKY(chunk) via partition -> local -> merge."""
+def _chunk_skyline(pts, mask, *, cfg: SkyConfig, generator=None):
+    """SKY of each chunk of a (Q, N, d) batch via partition -> local ->
+    merge."""
     buckets, stats = par.partition_stage(pts, mask, cfg)
-    final, s2 = par._local_merge(buckets.points, buckets.mask, cfg=cfg)
+    final, s2 = par._local_merge(buckets.points, buckets.mask, cfg=cfg,
+                                 generator=generator)
     stats.update(s2)
     overflow = buckets.overflow | stats["local_overflow"] | final.overflow
-    return SkyBuffer(final.points, final.mask, final.count, overflow), stats
+    return final._replace(overflow=overflow), stats
 
 
-def _insert(state: SkylineState | None, pts, mask, *, cfg: SkyConfig):
-    """One query's insert step; ``state=None`` is the fresh-state path,
+def _insert_batch(state: SkylineState | None, pts, mask, *, cfg: SkyConfig,
+                  generator=None):
+    """Q live skylines advanced together: (Q, N, d) chunks into a state
+    with a leading Q axis.  ``state=None`` is the fresh-state path,
     exactly the one-shot pipeline."""
+    c = state_capacity(cfg) if state is None else state.points.shape[-2]
+    dom_impl = resolve_spec(cfg.impl, pts.device).dominance
+    stats: dict[str, Any] = {}
     if state is not None:
-        raise NotImplementedError(
-            "inserting into a live SkylineState is not ported yet; see "
-            "ROADMAP.md, 'Modules still to port', item 5")
-    sky, stats = _chunk_skyline(pts, mask, cfg=cfg)
-    new_pts, new_mask = _fit_rows(sky.points, sky.mask, state_capacity(cfg))
-    nst = SkylineState(new_pts, new_mask, sky.count, sky.overflow,
-                       seen=stats["n_valid"],
-                       chunks=torch.ones((), dtype=torch.int32,
-                                         device=pts.device))
+        stats["chunk_arrivals"] = mask.sum(dim=-1).to(torch.int32)
+        # pre-filter the arriving chunks against the live skylines
+        mask = mask & ~dominated_mask(pts, state.points, state.mask,
+                                      impl=dom_impl)
+    sky, pstats = _chunk_skyline(pts, mask, cfg=cfg, generator=generator)
+    stats.update(pstats)
+    new_pts, new_mask = _fit_rows(sky.points, sky.mask, c)
+
+    if state is None:
+        nst = SkylineState(new_pts, new_mask, sky.count, sky.overflow,
+                           seen=stats["n_valid"],
+                           chunks=torch.ones_like(sky.count))
+        return nst, stats
+
+    # evict live members newly dominated by the chunks' survivors, then
+    # merge both antichains with one stable compaction pass
+    evict = state.mask & dominated_mask(state.points, new_pts, new_mask,
+                                        impl=dom_impl)
+    merged = compact(torch.cat([state.points, new_pts], dim=-2),
+                     torch.cat([state.mask & ~evict, new_mask], dim=-1), c)
+    overflow = (state.overflow | sky.overflow | merged.overflow
+                | (merged.count > cfg.capacity) | (sky.count > c))
+    nst = SkylineState(merged.points, merged.mask, merged.count, overflow,
+                       seen=state.seen + stats["chunk_arrivals"],
+                       chunks=state.chunks + 1)
+    stats["evicted"] = evict.sum(dim=-1).to(torch.int32)
+    stats["inserted"] = sky.count
     return nst, stats
+
+
+def _insert(state: SkylineState | None, pts, mask, *, cfg: SkyConfig,
+            generator=None):
+    """One live skyline's insert: the batched insert with Q = 1."""
+    if state is not None:
+        state = SkylineState(*(x[None] for x in state))
+    nst, stats = _insert_batch(state, pts[None], mask[None], cfg=cfg,
+                               generator=generator)
+    return (SkylineState(*(x[0] for x in nst)),
+            {k: v[0] for k, v in stats.items()})
+
+
+def insert_chunk(state: SkylineState, pts, mask=None, *, cfg: SkyConfig,
+                 generator: torch.Generator | None = None):
+    """Insert a chunk into one live skyline, (N, d) points, or into Q of
+    them when the state has a leading Q axis, (Q, N, d) points.
+
+    Runs where the state lies; the chunk is moved there.  Returns
+    ``(new_state, stats)``: rebind the state.  ``generator`` draws the
+    representatives of ``rep_filter='random'``."""
+    par.check_supported(cfg)
+    dev = state.points.device
+    pts = torch.as_tensor(pts, device=dev).to(state.points.dtype)
+    if pts.ndim != state.points.ndim or pts.shape[-1] != state.points.shape[-1]:
+        raise ValueError(f"chunk {tuple(pts.shape)} does not fit the state "
+                         f"{tuple(state.points.shape)}")
+    if mask is None:
+        mask = torch.ones(pts.shape[:-1], dtype=torch.bool, device=dev)
+    else:
+        mask = torch.as_tensor(mask, device=dev).bool()
+    insert = _insert_batch if state.points.ndim == 3 else _insert
+    return insert(state, pts, mask, cfg=cfg, generator=generator)
+
+
+def finalize(state: SkylineState, *, cfg: SkyConfig) -> SkyBuffer:
+    """Canonical ``SkyBuffer`` snapshot of one or Q live skylines: the
+    total order of ``canonical_order`` and sentinel fill.  The state is an
+    antichain, so no dominance test is needed, and the total order makes
+    the snapshot bit for bit the one-shot answer for the same data.  The
+    state stays live."""
+    del cfg  # the snapshot depends on the state alone
+    order = canonical_order(state.points, state.mask)
+    mask = torch.gather(state.mask, -1, order)
+    return SkyBuffer(apply_sentinel(gather_rows(state.points, order), mask),
+                     mask, state.count, state.overflow)

@@ -5,19 +5,28 @@ phases:
 
   partition  the SLICED id map and `bucketize` routing into (p, C, d)
              buckets;
-  local      per-partition block-SFS: ONE sweep launch over all p
-             partitions (`repro_torch.core.sfs.local_skyline_batch`);
-  merge      the paper's sequential pass: compact the union of the local
-             skylines and run the same sweep on it (a second launch, one
-             partition), then put the members in the canonical order.
+  local      optional Representative Filtering (paper §4.1: pick
+             ``rep_k`` representatives per partition, drop the dominated
+             ones from the shared pool, filter every partition against
+             it; three dominance launches), then per-partition block-SFS:
+             ONE sweep launch over all p partitions
+             (`repro_torch.core.sfs.local_skyline_batch`);
+  merge      the paper's sequential pass (compact the union of the local
+             skylines and run the same sweep on it: a second launch, one
+             partition), or NoSeq (paper §4.2: every partition's local
+             skyline against its potential dominators in the compacted
+             union, one dominance launch for all p); then the members go
+             into the canonical order.
 
-So a query makes two sweep launches.  Shapes depend only on the input
-size and the config, so the pipeline never waits on the device between
-stages.
+The local and merge stages take an optional leading query axis Q: the
+streaming batch insert (`repro_torch.core.incremental`) flattens Q x p
+into the sweep's partition axis and into the dominance kernel's batch
+axis, so Q queries cost the launches of one.  Shapes depend only on the
+input size and the config; the plain versions sync with the host, the
+kernels do not.
 
-This slice ports the default configuration.  The random, grid and
-angular strategies, representative filtering, NoSeq, the tree merge and
-the multi-device mesh raise ``NotImplementedError`` naming their item of
+The random, grid and angular strategies, the tree merge and the
+multi-device mesh raise ``NotImplementedError`` naming their item of
 ROADMAP.md.
 """
 
@@ -28,11 +37,12 @@ from typing import Any
 
 import torch
 
-from repro_torch.core import partition
-from repro_torch.core.dominance import canonical_order
-from repro_torch.core.sfs import (SkyBuffer, block_sfs, compact,
+from repro_torch.core import filtering, noseq, partition
+from repro_torch.core.dominance import canonical_order, dominated_mask
+from repro_torch.core.sfs import (SkyBuffer, as_inputs, compact,
+                                  compact_order, gather_rows,
                                   local_skyline_batch)
-from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.backend import resolve_spec
 
 __all__ = ["SkyConfig", "parallel_skyline", "effective_parts",
            "partition_stage", "local_stage", "compact_union", "merge_stage",
@@ -60,8 +70,8 @@ class SkyConfig:
     sliced_dim: int = 0
     impl: str = "auto"            # kernel backend (repro_torch.kernels.backend)
     merge: str = "flat"           # union merge topology: flat | tree | auto
-    donate: bool = True           # reference's buffer donation; no effect
-    #                               on the one-shot path
+    donate: bool = True           # reference's buffer donation; no effect:
+    #                               every insert returns a new state
 
 
 def _not_ported(what: str, item: str):
@@ -76,10 +86,6 @@ def check_supported(cfg: SkyConfig, mesh=None) -> None:
         raise ValueError(f"unknown strategy {cfg.strategy!r}")
     if cfg.strategy != "sliced":
         raise _not_ported(f"strategy {cfg.strategy!r}", "4a")
-    if cfg.rep_filter:
-        raise _not_ported("representative filtering", "4b")
-    if cfg.noseq:
-        raise _not_ported("the NoSeq merge", "4c")
     if cfg.merge not in ("flat", "tree", "auto"):
         raise ValueError(f"unknown merge mode {cfg.merge!r} "
                          f"(expected flat | tree | auto)")
@@ -105,8 +111,15 @@ def effective_parts(cfg: SkyConfig, d: int) -> tuple[int, int]:
 
 
 def partition_stage(pts: torch.Tensor, mask: torch.Tensor, cfg: SkyConfig):
-    """Partition-id map + routing into (p, C, d) buckets."""
+    """Partition-id map + routing into (p, C, d) buckets.  A (Q, N, d)
+    batch is routed query by query and stacked."""
     check_supported(cfg)
+    if pts.ndim == 3:
+        outs = [partition_stage(x, m, cfg) for x, m in zip(pts, mask)]
+        buckets = partition.Buckets(*(torch.stack(leaf) for leaf in
+                                      zip(*(b for b, _ in outs))))
+        return buckets, {k: torch.stack([s[k] for _, s in outs])
+                         for k in outs[0][1]}
     n, d = pts.shape
     p, _ = effective_parts(cfg, d)
     ids = partition.sliced_part_ids(pts, mask, p, cfg.sliced_dim)
@@ -121,73 +134,158 @@ def partition_stage(pts: torch.Tensor, mask: torch.Tensor, cfg: SkyConfig):
     return buckets, stats
 
 
-def local_stage(bufs: torch.Tensor, bmask: torch.Tensor, cfg: SkyConfig):
-    """Phase 1: the whole partition batch through ONE sweep launch."""
+def _drop_queries(result, stats, single: bool):
+    """Drop the leading query axis that a single query was given."""
+    if not single:
+        return result, stats
+    return (type(result)(*(x[0] for x in result)),
+            {k: v[0] for k, v in stats.items()})
+
+
+def _filter_by_local_reps(bufs, bmask, cfg: SkyConfig, generator):
+    """Representative Filtering (paper §4.1) of a (Q, p, C, d) batch: the
+    representatives of every partition in one selection (one dominance
+    launch), each query's pool cleared of dominated representatives (one
+    launch), and every partition against its query's pool (one launch).
+    Returns the filtered mask and the dropped count per query."""
+    q, p, cap, d = bufs.shape
+    dom_impl = resolve_spec(cfg.impl, bufs.device).dominance
+    if cfg.rep_filter == "random" and generator is None:
+        generator = torch.Generator(device=bufs.device).manual_seed(0)
+    flat, fmask = bufs.reshape(q * p, cap, d), bmask.reshape(q * p, cap)
+    reps, rmask = filtering.select_representatives(
+        flat, fmask, cfg.rep_k, strategy=cfg.rep_filter, generator=generator,
+        impl=dom_impl)
+    k = reps.shape[-2]
+    pool, pmask = reps.reshape(q, p * k, d), rmask.reshape(q, p * k)
+    # drop dominated representatives before sharing (paper §4.1)
+    pmask = pmask & ~dominated_mask(pool, pool, pmask, impl=dom_impl)
+    # the pool is shared by the partitions of its query (batch stride 0
+    # when Q = 1)
+    new = filtering.filter_by_representatives(
+        flat, fmask,
+        pool[:, None].expand(q, p, p * k, d).reshape(q * p, p * k, d),
+        pmask[:, None].expand(q, p, p * k).reshape(q * p, p * k),
+        impl=dom_impl).reshape(q, p, cap)
+    dropped = bmask.sum(dim=(1, 2)) - new.sum(dim=(1, 2))
+    return new, dropped.to(torch.int32)
+
+
+def local_stage(bufs: torch.Tensor, bmask: torch.Tensor, cfg: SkyConfig, *,
+                generator: torch.Generator | None = None):
+    """Phase 1 on (p, C, d) buckets, or (Q, p, C, d) for Q queries: the
+    optional representative filter, then the whole batch through ONE
+    sweep launch."""
     check_supported(cfg)
-    local_cap = cfg.local_capacity or bufs.shape[1]
-    sky = local_skyline_batch(bufs, bmask, capacity=local_cap,
+    single = bufs.ndim == 3
+    if single:
+        bufs, bmask = bufs[None], bmask[None]
+    q, p, cap, d = bufs.shape
+    stats: dict[str, Any] = {}
+    if cfg.rep_filter:
+        bmask, stats["rep_filter_dropped"] = _filter_by_local_reps(
+            bufs, bmask, cfg, generator)
+    local_cap = cfg.local_capacity or cap
+    sky = local_skyline_batch(bufs.reshape(q * p, cap, d),
+                              bmask.reshape(q * p, cap), capacity=local_cap,
                               block=cfg.block, impl=cfg.impl,
                               wtile=cfg.wtile)
-    return sky, {"local_sizes": sky.count, "local_overflow": sky.overflow.any()}
+    sky = SkyBuffer(*(x.reshape((q, p) + x.shape[1:]) for x in sky))
+    stats["local_sizes"] = sky.count
+    stats["local_overflow"] = sky.overflow.any(dim=-1)
+    return _drop_queries(sky, stats, single)
 
 
 def compact_union(sky: SkyBuffer, cfg: SkyConfig) -> SkyBuffer:
     """The union of the local skylines, valid rows first, truncated to
     the capacity: the final pass scans |union| tuples, not p x capacity
-    padded rows."""
-    flat = sky.points.reshape(-1, sky.points.shape[-1])
-    return compact(flat, sky.mask.reshape(-1),
-                   min(flat.shape[0], max(cfg.capacity, 1)))
+    padded rows.  Leaves may carry a leading query axis."""
+    flat = sky.points.flatten(-3, -2)
+    return compact(flat, sky.mask.flatten(-2),
+                   min(flat.shape[-2], max(cfg.capacity, 1)))
+
+
+def _noseq_mask(sky: SkyBuffer, cfg: SkyConfig, u: SkyBuffer):
+    """NoSeq (paper §4.2) on (Q, p, C_loc, d) local skylines: every
+    partition against its potential dominators among the compacted union
+    ``u`` of its query, all Q x p in ONE dominance launch.  Returns the
+    (Q, p * C_loc) membership mask."""
+    q, p, local_cap, d = sky.points.shape
+    cap_u = u.points.shape[-2]
+    dev = sky.points.device
+    # each union row's source partition, in the compacted order
+    parts = torch.arange(p, device=dev).repeat_interleave(local_cap)
+    ref_parts = parts[compact_order(sky.mask.reshape(q, -1), cap_u)]
+    pd = noseq.pd_row_mask(cfg.strategy, torch.arange(p, device=dev),
+                           ref_parts[:, None, :])            # (Q, p, cap_u)
+    keep = noseq.relative_skyline_mask(
+        sky.points.reshape(q * p, local_cap, d),
+        sky.mask.reshape(q * p, local_cap),
+        u.points[:, None].expand(q, p, cap_u, d).reshape(q * p, cap_u, d),
+        u.mask[:, None].expand(q, p, cap_u).reshape(q * p, cap_u),
+        pd.reshape(q * p, cap_u),
+        impl=resolve_spec(cfg.impl, dev).dominance)
+    return keep.reshape(q, p * local_cap)
 
 
 def merge_stage(sky: SkyBuffer, cfg: SkyConfig):
-    """Phase 2, the flat sequential merge: compact the union of the local
-    skylines, sweep it (the second launch), and canonicalise."""
+    """Phase 2 on (p, C_loc, d) local skylines, or (Q, p, C_loc, d): the
+    flat sequential merge (compact the union, sweep it: the second sweep
+    launch) or NoSeq (one dominance launch); then the canonical order."""
     check_supported(cfg)
-    u_compact = compact_union(sky, cfg)
-    final = block_sfs(u_compact.points, u_compact.mask,
-                      capacity=cfg.capacity, block=cfg.block, impl=cfg.impl,
-                      wtile=cfg.wtile)
-    # block-SFS breaks score ties by input order; the total canonical
-    # order makes the output independent of how the data reached it
-    order = canonical_order(final.points, final.mask)
-    final = SkyBuffer(final.points[order], final.mask[order], final.count,
-                      final.overflow | u_compact.overflow)
-    return final, {"union_size": sky.mask.sum().to(torch.int32)}
+    single = sky.points.ndim == 3
+    if single:
+        sky = SkyBuffer(*(x[None] for x in sky))
+    u = compact_union(sky, cfg)
+    union_size = sky.mask.sum(dim=(1, 2)).to(torch.int32)
+    if not cfg.noseq:
+        final = local_skyline_batch(u.points, u.mask, capacity=cfg.capacity,
+                                    block=cfg.block, impl=cfg.impl,
+                                    wtile=cfg.wtile)
+        # block-SFS breaks score ties by input order; the total canonical
+        # order makes the output independent of how the data reached it
+        order = canonical_order(final.points, final.mask)
+        final = SkyBuffer(gather_rows(final.points, order),
+                          torch.gather(final.mask, -1, order), final.count,
+                          final.overflow | u.overflow)
+    else:
+        all_pts = sky.points.flatten(1, 2)
+        all_mask = _noseq_mask(sky, cfg, u)
+        # canonical order before compaction: the same order the
+        # sequential merge emits
+        order = canonical_order(all_pts, all_mask)
+        final = compact(gather_rows(all_pts, order),
+                        torch.gather(all_mask, -1, order), cfg.capacity)
+        final = final._replace(overflow=final.overflow | u.overflow)
+    return _drop_queries(final, {"union_size": union_size}, single)
 
 
-def as_inputs(pts, mask, device):
-    """``(pts, mask)`` as float32 and bool tensors on the entry points'
-    device (:func:`repro_torch.kernels.backend.resolve_device`)."""
-    device = resolve_device(device)
-    pts = torch.as_tensor(pts, device=device).to(torch.float32)
-    if mask is not None:
-        mask = torch.as_tensor(mask, device=device).bool()
-    return pts, mask
-
-
-def _local_merge(bufs, bmask, *, cfg: SkyConfig):
-    """One query's phase 1 + phase 2."""
-    sky, s2 = local_stage(bufs, bmask, cfg)
+def _local_merge(bufs, bmask, *, cfg: SkyConfig, generator=None):
+    """Phase 1 + phase 2 of one query, or of Q with a leading axis."""
+    sky, s2 = local_stage(bufs, bmask, cfg, generator=generator)
     final, s3 = merge_stage(sky, cfg)
     return final, dict(s2, **s3)
 
 
 def parallel_skyline(pts, mask=None, *, cfg: SkyConfig = SkyConfig(),
-                     mesh=None, device=None):
+                     mesh=None, device=None,
+                     generator: torch.Generator | None = None):
     """Compute SKY(pts) with the parallel pattern of the paper.
 
     ``pts`` is an (N, d) array or tensor and ``mask`` an optional (N,)
     validity mask; both are moved to ``device``, which is the card unless
     the caller passes ``device="cpu"`` (without CUDA that raises
-    ``RuntimeError``).  Returns ``(SkyBuffer, stats)``, every leaf a
-    tensor on that device."""
+    ``RuntimeError``).  ``generator`` draws the representatives of
+    ``rep_filter='random'`` (a generator seeded with 0 on that device
+    when None).  Returns ``(SkyBuffer, stats)``, every leaf a tensor on
+    that device."""
     from repro_torch.core import incremental
     check_supported(cfg, mesh)
     pts, mask = as_inputs(pts, mask, device)
     if mask is None:
         mask = torch.ones((pts.shape[0],), dtype=torch.bool,
                           device=pts.device)
-    state, stats = incremental._insert(None, pts, mask, cfg=cfg)
+    state, stats = incremental._insert(None, pts, mask, cfg=cfg,
+                                       generator=generator)
     return SkyBuffer(state.points, state.mask, state.count,
                      state.overflow), stats

@@ -19,12 +19,15 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.dominance import (SENTINEL, apply_sentinel,
-                                        monotone_score, stable_argsort)
+                                        dominated_mask, monotone_score,
+                                        stable_argsort)
+from repro_torch.kernels.backend import resolve_device, resolve_spec
 from repro_torch.kernels.dominance.ref import dominated_mask_ref
 from repro_torch.kernels.sfs.ops import sfs_sweep
 
-__all__ = ["SkyBuffer", "naive_skyline_mask", "sweep_inputs", "block_sfs",
-           "local_skyline_batch", "compact", "compact_order"]
+__all__ = ["SkyBuffer", "naive_skyline_mask", "skyline_mask", "sweep_inputs",
+           "block_sfs", "local_skyline_batch", "compact", "compact_order",
+           "as_inputs"]
 
 # candidates per step of the O(N^2) oracle; bounds its (N, chunk)
 # temporaries
@@ -53,6 +56,29 @@ def naive_skyline_mask(pts: torch.Tensor,
     for i in range(0, n, _ORACLE_CHUNK):
         dom[i:i + _ORACLE_CHUNK] = dominated_mask_ref(
             pts[i:i + _ORACLE_CHUNK], pts, mask)
+    return mask & ~dom
+
+
+def as_inputs(pts, mask, device):
+    """``(pts, mask)`` as float32 and bool tensors on the entry points'
+    device (:func:`repro_torch.kernels.backend.resolve_device`)."""
+    device = resolve_device(device)
+    pts = torch.as_tensor(pts, device=device).to(torch.float32)
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=device).bool()
+    return pts, mask
+
+
+def skyline_mask(pts, mask=None, *, impl: str = "auto",
+                 device=None) -> torch.Tensor:
+    """Blocked O(N^2) skyline membership mask, in input order: one
+    dominance launch of the point set against itself.  Runs on the card
+    unless ``device="cpu"``."""
+    pts, mask = as_inputs(pts, mask, device)
+    if mask is None:
+        mask = torch.ones(pts.shape[:1], dtype=torch.bool, device=pts.device)
+    dom = dominated_mask(pts, pts, mask,
+                         impl=resolve_spec(impl, pts.device).dominance)
     return mask & ~dom
 
 
@@ -118,15 +144,22 @@ def block_sfs(pts: torch.Tensor, mask: torch.Tensor | None = None, *,
 
 def compact_order(mask: torch.Tensor, capacity: int) -> torch.Tensor:
     """The row order `compact` gathers by: valid rows first, stable,
-    truncated to ``capacity``."""
-    return stable_argsort((~mask).to(torch.uint8))[:capacity]
+    truncated to ``capacity`` (along the last axis)."""
+    return stable_argsort((~mask).to(torch.uint8))[..., :capacity]
+
+
+def gather_rows(pts: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """``pts[..., order, :]`` with one row order per leading index."""
+    return torch.gather(pts, -2, order[..., None].expand(
+        order.shape + pts.shape[-1:]))
 
 
 def compact(pts: torch.Tensor, mask: torch.Tensor,
             capacity: int) -> SkyBuffer:
-    """Stable-move valid rows to the front; truncate to capacity."""
+    """Stable-move valid rows to the front; truncate to capacity.
+    Leading axes are batch axes, compacted each on its own."""
     order = compact_order(mask, capacity)
-    mask_c = mask[order]
-    pts_c = apply_sentinel(pts[order], mask_c)
-    count = mask.sum().to(torch.int32)
+    mask_c = torch.gather(mask, -1, order)
+    pts_c = apply_sentinel(gather_rows(pts, order), mask_c)
+    count = mask.sum(dim=-1).to(torch.int32)
     return SkyBuffer(pts_c, mask_c, count, count > capacity)

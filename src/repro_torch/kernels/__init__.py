@@ -1,8 +1,12 @@
 """Compute kernels of the port, behind the backend registry.
 
-``repro_torch.kernels.sfs.ops.sfs_sweep`` is the fused SFS sweep, the one
-kernel family of the skyline pipeline ported so far: a hand-written CUDA
-kernel for Hopper (``sfs/csrc/sfs_sweep.cu``, built by ``build.py`` at
-first use), its plain PyTorch version, and the per-pair oracle.
+Two kernel families, each a hand-written CUDA kernel for Hopper (built
+by ``build.py`` at first use) beside its plain PyTorch version:
+
+* ``repro_torch.kernels.sfs.ops.sfs_sweep``, the fused SFS sweep
+  (``sfs/csrc/sfs_sweep.cu``), with the per-pair sweep oracle;
+* ``repro_torch.kernels.dominance.ops.dominated_mask``, the pairwise
+  dominance test (``dominance/csrc/dominated_mask.cu``).
+
 ``backend.py`` picks among them and holds the device rule.
 """

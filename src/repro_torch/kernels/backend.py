@@ -29,11 +29,17 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels.sfs.kernel import D_MAX
+from repro_torch.kernels.dominance import kernel as _dom_kernel
+from repro_torch.kernels.sfs import kernel as _sfs_kernel
 
 __all__ = ["KernelSpec", "resolve_spec", "resolve_device"]
 
 _SWEEP_IMPLS = ("cuda", "torch", "perpair")
+_DOMINANCE_IMPLS = ("cuda", "torch")
+
+# widest d each per-family implementation takes (None = unbounded)
+_SWEEP_MAX_D = {"cuda": _sfs_kernel.D_MAX}
+_DOMINANCE_MAX_D = {"cuda": _dom_kernel.D_MAX}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,23 +49,35 @@ class KernelSpec:
     Attributes:
       name: registry key (what ``SkyConfig.impl`` held, after 'auto').
       sweep: SFS sweep implementation.
-      max_d: widest attribute dimension the implementation takes
-        (None = unbounded).
+      dominance: pairwise dominance implementation.
+      max_d: widest attribute dimension the implementations take
+        (None = unbounded); the minimum over both families.
     """
     name: str
     sweep: str
+    dominance: str
     max_d: int | None = None
 
     def __post_init__(self):
         if self.sweep not in _SWEEP_IMPLS:
             raise ValueError(f"unknown sweep impl {self.sweep!r}; "
                              f"valid: {_SWEEP_IMPLS}")
+        if self.dominance not in _DOMINANCE_IMPLS:
+            raise ValueError(f"unknown dominance impl {self.dominance!r}; "
+                             f"valid: {_DOMINANCE_IMPLS}")
+
+
+def _spec(name: str, sweep: str, dominance: str) -> KernelSpec:
+    caps = [c for c in (_SWEEP_MAX_D.get(sweep),
+                        _DOMINANCE_MAX_D.get(dominance)) if c is not None]
+    return KernelSpec(name, sweep=sweep, dominance=dominance,
+                      max_d=min(caps) if caps else None)
 
 
 _REGISTRY: dict[str, KernelSpec] = {
-    "cuda": KernelSpec("cuda", sweep="cuda", max_d=D_MAX),
-    "torch": KernelSpec("torch", sweep="torch"),
-    "perpair": KernelSpec("perpair", sweep="perpair"),
+    "cuda": _spec("cuda", sweep="cuda", dominance="cuda"),
+    "torch": _spec("torch", sweep="torch", dominance="torch"),
+    "perpair": _spec("perpair", sweep="perpair", dominance="torch"),
 }
 
 
@@ -82,7 +100,7 @@ def resolve_spec(impl: str | KernelSpec, device: torch.device) -> KernelSpec:
             raise ValueError(
                 f"unknown kernel backend {impl!r}; registered: "
                 f"{', '.join(sorted(_REGISTRY))} (or 'auto')") from None
-    if spec.sweep == "cuda" and device.type != "cuda":
+    if "cuda" in (spec.sweep, spec.dominance) and device.type != "cuda":
         raise ValueError(f"impl {spec.name!r} runs on CUDA tensors only; "
                          f"got data on {device}")
     return spec

@@ -10,9 +10,9 @@ Dominance: ``t < s`` (t dominates s) iff ``all_k t[k] <= s[k]`` and
 ``j < i`` count — sound because a strictly increasing score puts every
 dominator strictly earlier.
 
-Counterpart of ``repro.kernels.dominance.ref``.  The blocked dominance
-kernel of the reference is not ported yet; these functions are the
-oracle of the sweep and of the O(N^2) membership mask.
+Counterpart of ``repro.kernels.dominance.ref``: the oracle of the
+blocked dominance entry (``ops.dominated_mask``), of the sweep and of the
+O(N^2) membership mask.
 """
 
 from __future__ import annotations

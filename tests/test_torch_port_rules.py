@@ -1,6 +1,6 @@
 """Rules the port keeps: it imports no JAX, its entry points run on the
-card unless asked for the CPU, its kernel runs on CUDA tensors only and
-checks its arguments, unported options raise, and state crosses between
+card unless asked for the CPU, its kernels run on CUDA tensors only and
+check their arguments, unported options raise, and state crosses between
 the packages with every bit kept (tolerance: zero)."""
 
 import ast
@@ -15,6 +15,8 @@ from repro.core import parallel as jpar
 from repro_torch import convert
 from repro_torch.core import api, incremental, parallel, sfs
 from repro_torch.kernels import backend
+from repro_torch.kernels.dominance import kernel as dkernel
+from repro_torch.kernels.dominance import ops as dops
 from repro_torch.kernels.sfs import kernel, ops
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -43,13 +45,35 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
 
 
 @pytest.mark.parametrize("entry", ["parallel_skyline", "skyline",
-                                   "skyline_mask_exact"])
+                                   "skyline_mask_exact", "skyline_mask"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.random.default_rng(0).random((50, 3)).astype(np.float32)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         getattr(api, entry)(x)
     getattr(api, entry)(x, device="cpu")   # the CPU only when asked
+
+
+@pytest.mark.parametrize("q", [None, 2])
+def test_streaming_entry_points_raise_without_cuda(q, monkeypatch):
+    """``init_state`` makes its state on the card unless asked for the
+    CPU; ``insert_chunk`` and ``finalize`` run where the state lies and
+    move the chunk there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = parallel.SkyConfig(capacity=64, block=32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.init_state(cfg, 3, q=q)
+    state = api.init_state(cfg, 3, q=q, device="cpu")
+    lead = () if q is None else (q,)
+    x = np.random.default_rng(0).random(lead + (40, 3)).astype(np.float32)
+    state, stats = api.insert_chunk(state, x, cfg=cfg)
+    assert all(leaf.device.type == "cpu" for leaf in state)
+    assert state.points.shape == lead + (64, 3)
+    assert state.seen.tolist() == ([40] * q if q else 40)
+    buf = api.finalize(state, cfg=cfg)
+    assert buf.points.device.type == "cpu"
+    with pytest.raises(ValueError, match="does not fit the state"):
+        api.insert_chunk(state, x[..., :2], cfg=cfg)
 
 
 def test_auto_follows_the_data():
@@ -59,6 +83,22 @@ def test_auto_follows_the_data():
         assert backend.resolve_spec(impl, torch.device("cuda")).sweep == impl
     with pytest.raises(ValueError, match="unknown kernel backend"):
         backend.resolve_spec("jnp", torch.device("cpu"))
+
+
+def test_dominance_family_in_the_registry():
+    """'cuda' -> 'cuda', 'torch' -> 'torch', 'perpair' -> 'torch' (the
+    reference maps it to 'jnp'); max_d is the minimum over both
+    families."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert backend.resolve_spec("auto", cuda).dominance == "cuda"
+    assert backend.resolve_spec("auto", cpu).dominance == "torch"
+    assert backend.resolve_spec("torch", cuda).dominance == "torch"
+    assert backend.resolve_spec("perpair", cpu).dominance == "torch"
+    assert backend.resolve_spec("cuda", cuda).max_d == min(
+        kernel.D_MAX, dkernel.D_MAX)
+    assert backend.resolve_spec("torch", cpu).max_d is None
+    with pytest.raises(ValueError, match="unknown dominance impl"):
+        backend.KernelSpec("x", sweep="torch", dominance="jnp")
 
 
 def test_cuda_impl_on_cpu_tensor_raises():
@@ -73,6 +113,64 @@ def test_cuda_impl_on_cpu_tensor_raises():
                              device="cpu")
     with pytest.raises(ValueError, match="CUDA device"):
         kernel.sfs_sweep_cuda(x, m, block=32, wcap=64, sentinel=1.7e38)
+
+
+def test_cuda_dominance_on_cpu_tensor_raises():
+    x = torch.rand(2, 64, 3)
+    m = torch.ones(2, 64, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        dops.dominated_mask(x, x, m, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        sfs.skyline_mask(x[0], impl="cuda", device="cpu")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        api.parallel_skyline(x[0], cfg=parallel.SkyConfig(
+            impl="cuda", noseq=True), device="cpu")
+    with pytest.raises(ValueError, match="CUDA device"):
+        dkernel.dominated_mask_cuda(x, x, m)
+    with pytest.raises(ValueError, match="unknown dominance impl"):
+        dops.dominated_mask(x, x, m, impl="jnp")
+
+
+@pytest.mark.parametrize("bad", [
+    dict(cands=torch.rand(2, 64, 3, dtype=torch.float64)),        # dtype
+    dict(refs=torch.rand(2, 40, 3).to(torch.bfloat16)),
+    dict(mask=torch.ones(2, 40, dtype=torch.uint8)),              # mask dtype
+    dict(cands=torch.rand(2, 3, 64).transpose(1, 2)),             # layout
+    dict(refs=torch.rand(2, 3, 40).transpose(1, 2)),
+    dict(mask=torch.ones(2, 80, dtype=torch.bool)[:, ::2]),
+    dict(mask=torch.ones(2, 39, dtype=torch.bool)),               # shape
+    dict(refs=torch.rand(3, 40, 3)),
+    dict(cands=torch.rand(64, 3)),                                # rank
+    dict(cands=torch.rand(2, 64, 13), refs=torch.rand(2, 40, 13)),  # d > 12
+    dict(cands=torch.rand(0, 64, 3), refs=torch.rand(0, 40, 3),
+         mask=torch.ones(0, 40, dtype=torch.bool)),               # B = 0
+])
+def test_dominance_kernel_argument_checks(bad):
+    args = dict(cands=torch.rand(2, 64, 3), refs=torch.rand(2, 40, 3),
+                mask=torch.ones(2, 40, dtype=torch.bool))
+    dkernel.check_args(args["cands"], args["refs"], args["mask"])
+    # references and mask broadcast over the batch are taken
+    dkernel.check_args(args["cands"], args["refs"][:1].expand(2, 40, 3),
+                       args["mask"][:1].expand(2, 40))
+    args.update(bad)
+    with pytest.raises(ValueError):
+        dkernel.check_args(args["cands"], args["refs"], args["mask"])
+
+
+def test_dominance_entry_argument_checks():
+    x = torch.rand(2, 64, 3)
+    with pytest.raises(ValueError, match="expected cands"):
+        dops.dominated_mask(x[0, 0], x[0])
+    with pytest.raises(ValueError, match="d=3, refs d=2"):
+        dops.dominated_mask(x, x[..., :2])
+    with pytest.raises(ValueError, match="does not fit"):
+        dops.dominated_mask(x, x, torch.ones(63, dtype=torch.bool))
+    with pytest.raises(ValueError, match="expected cands"):
+        dops.dominated_mask(x[0], x)
+    with pytest.raises(ValueError, match="needs batched cands"):
+        dops.dominated_mask(x[0], x[0], torch.ones(2, 64, dtype=torch.bool))
+    with pytest.raises(ValueError, match="float64"):
+        dops.dominated_mask(x, x.double())
 
 
 @pytest.mark.parametrize("bad", [
@@ -107,31 +205,51 @@ def test_sweep_entry_argument_checks():
 
 
 @pytest.mark.parametrize("cfg_kw,what", [
-    (dict(strategy="grid"), "strategy 'grid'"),
-    (dict(strategy="random"), "strategy 'random'"),
-    (dict(strategy="angular"), "strategy 'angular'"),
-    (dict(rep_filter="sorted"), "representative filtering"),
-    (dict(noseq=True), "NoSeq"),
-    (dict(merge="tree"), "tree merge"),
+    (dict(strategy="grid"), "strategy 'grid'.*item 4a"),
+    (dict(strategy="random"), "strategy 'random'.*item 4a"),
+    (dict(strategy="angular"), "strategy 'angular'.*item 4a"),
+    (dict(merge="tree"), "tree merge.*item 4d"),
+    (dict(merge="tree", noseq=True, rep_filter="sorted"),
+     "tree merge.*item 4d"),
 ])
 def test_unported_options_raise(cfg_kw, what):
     x = np.random.default_rng(1).random((40, 3)).astype(np.float32)
     with pytest.raises(NotImplementedError, match=what):
         api.parallel_skyline(x, cfg=parallel.SkyConfig(**cfg_kw),
                              device="cpu")
+    with pytest.raises(NotImplementedError, match=what):
+        cfg = parallel.SkyConfig(**cfg_kw)
+        api.insert_chunk(api.init_state(cfg, 3, device="cpu"), x, cfg=cfg)
+
+
+@pytest.mark.parametrize("cfg_kw", [
+    dict(rep_filter="sorted"), dict(rep_filter="region"),
+    dict(rep_filter="random"), dict(noseq=True),
+    dict(rep_filter="sorted", noseq=True)])
+def test_ported_options_no_longer_raise(cfg_kw):
+    """Representative filtering (4b) and the flat NoSeq merge (4c) run;
+    the answer is the default configuration's."""
+    x = np.random.default_rng(1).random((40, 3)).astype(np.float32)
+    got, _ = api.parallel_skyline(x, cfg=parallel.SkyConfig(**cfg_kw),
+                                  device="cpu")
+    want, _ = api.parallel_skyline(x, device="cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_mesh_and_live_state_raise():
+    """The mesh still raises; a live state now takes inserts (it raised
+    before the streaming slice)."""
     x = np.random.default_rng(2).random((40, 3)).astype(np.float32)
     with pytest.raises(NotImplementedError, match="mesh"):
         api.parallel_skyline(x, mesh=object(), device="cpu")
     state, _ = incremental._insert(None, torch.from_numpy(x),
                                    torch.ones(40, dtype=torch.bool),
                                    cfg=parallel.SkyConfig())
-    with pytest.raises(NotImplementedError, match="live SkylineState"):
-        incremental._insert(state, torch.from_numpy(x),
-                            torch.ones(40, dtype=torch.bool),
-                            cfg=parallel.SkyConfig())
+    state, stats = incremental._insert(state, torch.from_numpy(x),
+                                       torch.ones(40, dtype=torch.bool),
+                                       cfg=parallel.SkyConfig())
+    assert int(state.chunks) == 2 and int(stats["evicted"]) == 0
     with pytest.raises(ValueError, match="unknown strategy"):
         api.parallel_skyline(x, cfg=parallel.SkyConfig(strategy="nope"),
                              device="cpu")
