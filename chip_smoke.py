@@ -458,8 +458,11 @@ def time_dominance_calls(paths, tag):
                 reps=2)
             b, n, d = c.shape
             nr = r.shape[1]
-            nbytes = (4 * b * n * d + b * n
-                      + 4 * nr * d * (1 if r.stride(0) == 0 else b)
+            # the mask is read whole, a reference row's coordinates only
+            # where it is valid: a masked row sets no bit.  Shared refs
+            # (batch stride 0) are read once per row valid in some batch.
+            ref_rows = int((m.any(dim=0) if r.stride(0) == 0 else m).sum())
+            nbytes = (4 * b * n * d + b * n + 4 * d * ref_rows
                       + nr * (1 if m.stride(0) == 0 else b))
             compares = count_dom_compares(c, r, m, lt)
             ops_n = 2 * d * compares
@@ -467,8 +470,8 @@ def time_dominance_calls(paths, tag):
             t_ops = ops_n / F32_OPS_PER_S * 1e3
             bound = max(t_bytes, t_ops)
             print(f"{tag} dominated_mask {name} call ({dist} {path}: B={b}, "
-                  f"C={n}, R={nr}, d={d}, {int(m.sum())} valid ref rows "
-                  f"over the batch, lower_tri={lt}): kernel {t_k:.3f} ms, "
+                  f"C={n}, R={nr}, d={d}, {ref_rows} valid ref rows "
+                  f"read, lower_tri={lt}): kernel {t_k:.3f} ms, "
                   f"plain {t_p:.3f} ms, bound {bound:.6f} ms set by "
                   f"{'bytes' if t_bytes >= t_ops else 'operations'} "
                   f"({nbytes} bytes -> {t_bytes:.6f} ms; {compares} compares "
@@ -485,7 +488,9 @@ def count_dom_compares(cands, refs, ref_mask, lower_tri: bool) -> int:
     """The compares the dominance test needs on these inputs: for every
     candidate, the valid references (with j < i under lower_tri) up to
     and including its first dominator, or all of them when none
-    dominates it.  The main path never calls this."""
+    dominates it.  Blocked as the plain version is; the main path never
+    calls this."""
+    from repro_torch.kernels.dominance import ops as dops
     b, c, d = cands.shape
     r = refs.shape[1]
     if c == 0 or r == 0:
@@ -495,11 +500,9 @@ def count_dom_compares(cands, refs, ref_mask, lower_tri: bool) -> int:
                        torch.cumsum(ref_mask.to(torch.int64), dim=1)], 1)
     first = torch.full((b, c), r, dtype=torch.int64, device=dev)
     # rows past the last valid one are neither compared nor dominators
-    live = ref_mask.any(dim=0)
-    r_end = int(torch.where(live, torch.arange(1, r + 1, device=dev),
-                            0).max())
-    rb = 4096
-    cb = max(1, (1 << 26) // (b * rb))
+    r_end = dops._last_valid_row(ref_mask)
+    rb = dops._REF_BLOCK
+    cb = max(1, dops._PAIR_BUDGET // (b * rb))
     for c0 in range(0, c, cb):
         c1 = min(c0 + cb, c)
         x = cands[:, c0:c1, None, :]

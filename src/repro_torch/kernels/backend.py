@@ -4,8 +4,9 @@ Counterpart of ``repro.kernels.backend``.  One immutable
 :class:`KernelSpec` names the implementation of each kernel family,
 resolved from the ``SkyConfig.impl`` string:
 
-  ``'cuda'``     the hand-written Hopper kernel (``kernels/sfs/csrc``),
-                 for tensors on the card only;
+  ``'cuda'``     the hand-written Hopper kernel (``kernels/sfs/csrc``
+                 and ``kernels/dominance/csrc``), for tensors on the card
+                 only;
   ``'torch'``    the plain PyTorch version of the same function, on any
                  device (the CPU tests run it; on the card it runs only
                  when a caller asks for it by name);
@@ -13,9 +14,6 @@ resolved from the ``SkyConfig.impl`` string:
   ``'auto'``     ``'cuda'`` for a tensor on the card and ``'torch'`` for
                  a tensor on the CPU.  The choice follows where the data
                  is, and the data is where the caller put it.
-
-Only the sweep family exists so far; the pairwise dominance family joins
-the spec with its kernel.
 
 The device rule of the public entry points lives here too
 (:func:`resolve_device`): they run on the card unless the caller passes

@@ -27,8 +27,8 @@ Implementations, picked by ``repro_torch.kernels.backend``:
                  over candidates and references.  The CPU tests run it,
                  and the kernel is held against it on the card.
 
-bfloat16 and float16 inputs are widened to float32 first: the widening
-is exact and keeps the order, so no bit of the answer changes.
+bfloat16 inputs are widened to float32 first: the widening is exact and
+keeps the order, so no bit of the answer changes.
 """
 
 from __future__ import annotations
@@ -94,7 +94,7 @@ def dominated_mask_torch(cands: torch.Tensor, refs: torch.Tensor,
 
 
 def _widen(x: torch.Tensor) -> torch.Tensor:
-    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 def dominated_mask(cands: torch.Tensor, refs: torch.Tensor,
