@@ -11,10 +11,16 @@ It builds the port's CUDA kernels from the sources in the checkout
 
   1. prints the card (nvidia-smi name and power limit) and the versions;
   2. prints the build time and the compiler's registers / shared memory /
-     spills for each kernel instantiation;
-  3. holds the SFS sweep kernel against its plain PyTorch version, bit
-     for bit, on the card, over ties, antichains, overflow, block 2,
-     d 2..12, -0.0 and subnormal coordinates; and the dominance kernel
+     spills for each kernel instantiation, the sweep's beside its
+     footprint law (held against what the built kernel computes);
+  3. holds the SFS sweep kernel against its plain PyTorch version and
+     the per-pair oracle, bit for bit, on the card, over ties,
+     antichains, overflow, block 2, d 2..12, -0.0, subnormal
+     coordinates, f32 score ties between dominating rows, and partitions
+     longer than the kernel's prefix (overflow in each of its last
+     stage's two branches, an antichain its filter cannot thin, an
+     all-masked partition), through the entry and through its three
+     grids at prefixes of 0, 1 and 3 blocks; and the dominance kernel
      against its plain version and the O(C x R) oracle over the shapes
      of the JAX package's tests, lower_tri, all-masked refs, d 2..12,
      ties, -0.0, subnormals, a batch axis with shared and per-batch refs,
@@ -37,7 +43,9 @@ It builds the port's CUDA kernels from the sources in the checkout
      version's, stats included;
   7. times the queries end to end, their stages, each sweep call and
      each dominance call of the paths above (the kernel, the plain
-     version, and the least time the card could take);
+     version, and the least time the card could take), each sweep
+     call's three grids with its prefix count, survivors and branch per
+     partition, and the anticorrelated local call at other prefixes;
   8. prints one JSON line with both kernels, then the device line.
 
 Every check that fails ends the run with a non-zero exit code.  The
@@ -140,25 +148,162 @@ def time_ms(fn, reps: int = 3):
 
 
 def ptxas_report(log: str) -> dict:
-    """Registers, shared memory and spills per D instantiation, from the
-    compiler's ``-Xptxas -v`` report."""
-    entry_d = None
+    """Registers, static shared memory and spills per (kernel, D)
+    instantiation, from the compiler's ``-Xptxas -v`` report."""
+    entry = None
     props = {}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            dm = re.search(r"ILi(\d+)E", m.group(1))
-            entry_d = int(dm.group(1)) if dm else None
+            km = re.search(r"([a-z_]+_kernel)ILi(\d+)E", m.group(1))
+            entry = (km.group(1), int(km.group(2))) if km else None
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m and entry_d is not None:
-            props.setdefault(entry_d, {})["spills"] = (
+        if m and entry is not None:
+            props.setdefault(entry, {})["spills"] = (
                 f"{m.group(1)} B spill stores, {m.group(2)} B spill loads")
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
-        if m and entry_d is not None:
-            props.setdefault(entry_d, {})["used"] = (
-                f"{m.group(1)} registers, {m.group(2)} B shared memory")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            sm = re.search(r"(\d+) bytes smem", line)
+            props.setdefault(entry, {})["used"] = (
+                f"{m.group(1)} registers, {sm.group(1) if sm else 0} B "
+                f"static shared memory")
     return props
+
+
+def smem_law(kernel, name: str, d: int) -> str:
+    """The footprint law of one sweep grid at D = d, held against what the
+    built kernel computes for its launches."""
+    parts = []
+    for block in (256, kernel.MAX_BLOCK):
+        law = kernel.sweep_smem_bytes(d, block)
+        built = kernel.kernel_smem_bytes(d, block, 2 ** 31 - 1)
+        check(law == built, f"footprint law {law} differs from the kernel's "
+              f"{built} at d={d} block={block}")
+        check(max(law.values()) <= kernel.SMEM_LIMIT,
+              f"d={d} block={block}: {law} above {kernel.SMEM_LIMIT}")
+        stage = "filter" if "filter" in name else "prefix"
+        parts.append(f"{law[stage]} B at block {block}")
+    return (f"law {', '.join(parts)} of dynamic shared memory (the kernel "
+            f"computes the same)")
+
+
+def case_data(dev, kind, p, n, d, seed):
+    """Points and mask of one sweep kernel case, made on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def simplex():                 # an antichain: every valid row is kept
+        x = rand(p, n, d) + 1e-3
+        return x / x.sum(-1, keepdim=True)
+
+    if kind == "ties":
+        x = torch.randint(0, 5, (p, n, d), generator=g, device=dev) / 5
+    elif kind == "simplex":
+        x = simplex()
+    elif kind == "negzero":
+        x = torch.tensor([[[-0.0, 0.5], [0.25, 0.25], [0.5, -0.0],
+                           [0.75, -1.0], [1.0, 1.0], [0.125, 0.625]]],
+                         device=dev).expand(p, n, d).contiguous()
+    elif kind == "scoretie":       # f32 scores tie between dominating rows
+        x = torch.randint(0, 6, (p, n, d), generator=g, device=dev).float()
+        x[..., 0] += 1e8
+    elif kind == "mixed":          # partition 0 an antichain, the rest not
+        x = rand(p, n, d)
+        x[0] = simplex()[0]
+    elif kind in ("uniform", "masked"):
+        x = rand(p, n, d)
+    else:                          # subnormal and zero coordinates
+        x = torch.randint(0, 4, (p, n, d), generator=g, device=dev) * 1e-40
+        x[rand(p, n, d) < 0.2] = -0.0
+    mask = rand(p, n) > 0.1
+    if kind == "negzero":
+        mask[:] = True
+    if kind == "masked":
+        mask[p // 2] = False
+    return x.float(), mask
+
+
+SWEEP_CASES = [  # kind, P, n, d, capacity, block
+    ("ties", 8, 1000, 4, 1000, 256),
+    ("simplex", 8, 2000, 4, 64, 32),       # capacity << n: overflow
+    ("simplex", 1, 3000, 7, 4096, 512),
+    ("simplex", 8, 120, 2, 48, 2),         # block 2
+    ("ties", 1, 200, 2, 256, 2),
+    ("simplex", 8, 600, 12, 640, 32),      # d 12
+    ("negzero", 1, 6, 2, 6, 2),
+    ("denormal", 2, 400, 3, 512, 32),
+    # past the prefix of 4096 rows, so that stages B and C run
+    ("scoretie", 2, 6000, 3, 6000, 256),
+    ("simplex", 8, 6000, 4, 64, 32),       # overflow: C keeps the blocks
+    ("mixed", 8, 6000, 4, 512, 256),       # partition 0 overflows, 1-7 pack
+    ("simplex", 2, 6000, 4, 8192, 256),    # an antichain: B drops nothing
+    ("masked", 8, 6000, 4, 6000, 256),     # partition 4 all masked
+    ("uniform", 4, 3000, 4, 3000, 256),    # K x block >= npad: A only
+]
+
+
+def sweep_cases(dev) -> float:
+    """The sweep kernel against its plain version and the per-pair
+    oracle, bit for bit, through the entry and through its stages at
+    prefixes of 0, 1 and 3 blocks; checks which branch stage C takes.
+    Returns the largest |difference| between kernel and plain
+    outputs."""
+    from repro_torch.core import sfs
+    from repro_torch.core.dominance import SENTINEL
+    from repro_torch.kernels.sfs import kernel, ops
+    err = 0.0
+    for i, (kind, p, n, d, cap, blk) in enumerate(SWEEP_CASES):
+        x, mask = case_data(dev, kind, p, n, d, seed=i)
+        pts_p, mask_p, blk_e, wcap = sfs.sweep_inputs(x, mask, capacity=cap,
+                                                      block=blk)
+        kw = dict(block=blk_e, wcap=wcap, sentinel=SENTINEL)
+        name = (f"{kind} P={p} n={n} d={d} capacity={cap} block={blk}")
+        got = ops.sfs_sweep(pts_p, mask_p, spec="cuda", **kw)
+        torch.cuda.synchronize()
+        want = ops.sfs_sweep(pts_p, mask_p, spec="torch", **kw)
+        oracle = ops.sfs_sweep(pts_p, mask_p, spec="perpair", **kw)
+        err = max(err, abs_err(got[0], want[0]))
+        check(leaves_equal(got, want),
+              f"kernel differs from the plain version on case {name}")
+        check(leaves_equal(want, oracle),
+              f"plain version differs from perpair on case {name}")
+        if kind == "negzero":
+            check(bool(torch.signbit(got[0][got[1]]).any()),
+                  "-0.0 member lost its sign")
+        staged, info = kernel.sweep_stages(pts_p, mask_p, **kw)
+        check(leaves_equal(staged, want), f"the timed stages differ from "
+              f"the plain version on case {name}")
+        for pre in (0, blk_e, 3 * blk_e):
+            out, pinfo = kernel.sweep_stages(pts_p, mask_p, prefix=pre, **kw)
+            check(leaves_equal(out, want), f"the kernel with a prefix of "
+                  f"{pre} rows differs from the plain version on case {name}")
+        tail = mask_p[:, info["prefix_rows"]:].sum(1).tolist()
+        branch = info["packed"]
+        if n > 4096:
+            check(None not in branch, f"{name}: stages B and C did not run")
+        if kind == "simplex" and cap < n:
+            check(not any(branch), f"{name}: C packed under overflow")
+        if kind == "mixed":
+            check(branch == [False] + [True] * (p - 1),
+                  f"{name}: branches {branch}")
+        if kind == "simplex" and n > 4096:
+            check(info["survivors"] == tail,
+                  f"{name}: B dropped rows of an antichain")
+        if kind == "masked":
+            check(info["c_a"][p // 2] == 0
+                  and info["survivors"][p // 2] == 0,
+                  f"{name}: the all-masked partition kept rows")
+        if kind == "uniform":
+            check(branch == [None] * p, f"{name}: B or C ran")
+        print(f"kernel case {name}: bitwise equal to the plain version and "
+              f"perpair, also at prefixes 0, {blk_e} and {3 * blk_e} rows "
+              f"(counts {got[2].tolist()}; prefix {info['prefix_rows']} "
+              f"rows, c_A {info['c_a']}, survivors {info['survivors']}, "
+              f"C packed {branch})")
+    return err
 
 
 DOM_SHAPES = [(1, 1, 2), (7, 3, 2), (64, 64, 4), (130, 513, 5), (300, 40, 7),
@@ -274,12 +419,35 @@ def record_dominance_calls(fn) -> list:
     return calls
 
 
+def record_sweep_calls(fn) -> list:
+    """Run ``fn`` once and return the arguments of every sweep kernel
+    launch it makes, for timing the calls on their own inputs.  The
+    launches of this run count on the recorder, not the kernel."""
+    from repro_torch.kernels.sfs import kernel
+    orig = kernel.sfs_sweep_cuda
+    calls = []
+
+    def recorder(pts_s, mask_s, **kw):
+        calls.append((pts_s, mask_s, kw))
+        return orig(pts_s, mask_s, **kw)
+
+    recorder.launches = 0
+    kernel.sfs_sweep_cuda = recorder
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        kernel.sfs_sweep_cuda = orig
+    return calls
+
+
 def streaming_phase(data, oneshot, cfg, tag, kernels):
     """Ten inserts of 10^6 rows into a live state, a snapshot after each,
     on uniform and anticorrelated data; then Q = 4 states in one batched
     insert.  Returns the recorded dominance calls of the last insert and
     its launch counts, by distribution."""
     from repro_torch.core import api
+    from repro_torch.kernels.sfs import kernel
     plain = dataclasses.replace(cfg, impl="torch")
     out = {}
     for dist in ("uniform", "anticorrelated"):
@@ -298,6 +466,8 @@ def streaming_phase(data, oneshot, cfg, tag, kernels):
             snap = api.finalize(state, cfg=cfg)
             torch.cuda.synchronize()
             t_fin = (time.perf_counter() - t0) * 1e3
+            t_ev, _ = time_ms(lambda: api.insert_chunk(before, chunk,
+                                                       cfg=cfg))
             check(run.counts == (2, 2), f"streaming {dist} insert {i + 1}: "
                   f"{run.counts} sweep and dominance launches, expected "
                   f"(2, 2)")
@@ -310,7 +480,8 @@ def streaming_phase(data, oneshot, cfg, tag, kernels):
                   f"impl='torch'")
             drops = int(stats["chunk_arrivals"]) - int(stats["n_valid"])
             print(f"{tag} streaming {dist} insert {i + 1}/{N_MAIN // CHUNK} "
-                  f"({CHUNK} rows): insert {t_ins:.3f} ms, finalize "
+                  f"({CHUNK} rows): insert {t_ins:.3f} ms (host clock; "
+                  f"{t_ev:.3f} ms best of 3 by CUDA events), finalize "
                   f"{t_fin:.3f} ms; pre-filter dropped {drops}, evicted "
                   f"{int(stats['evicted'])}, inserted "
                   f"{int(stats['inserted'])}, skyline {int(state.count)}; "
@@ -328,6 +499,17 @@ def streaming_phase(data, oneshot, cfg, tag, kernels):
               f"the one-shot parallel_skyline answer")
         out[dist] = (record_dominance_calls(
             lambda: api.insert_chunk(before, chunk, cfg=cfg)), run.counts)
+        for name, (pts_p, mask_p, kw) in zip(("local", "merge"),
+                                             record_sweep_calls(
+            lambda: api.insert_chunk(before, chunk, cfg=cfg))):
+            got = kernel.sfs_sweep_cuda(pts_p, mask_p, **kw)
+            t_k, _ = time_ms(lambda: kernel.sfs_sweep_cuda(pts_p, mask_p,
+                                                          **kw))
+            stages = time_stages(pts_p, mask_p, kw, kernel.PREFIX_ROWS, got)
+            print(f"{tag} streaming {dist} insert {N_MAIN // CHUNK} "
+                  f"{name} sweep call (P={pts_p.shape[0]}, npad="
+                  f"{pts_p.shape[1]}, wcap={kw['wcap']}): kernel {t_k:.3f} "
+                  f"ms best of 3; {stages}")
 
     # Q = 4 states in one batched insert against four single states
     x = data["anticorrelated"]
@@ -568,66 +750,16 @@ def main() -> None:
     for lib in ("sfs_sweep", "dominated_mask"):
         props = ptxas_report(build.build_log(lib))
         check(bool(props), f"no -Xptxas -v report in the {lib} build log")
-        for d_inst in sorted(props):
-            p = props[d_inst]
-            print(f"ptxas {lib}_kernel<D={d_inst}>: {p.get('used', '?')}, "
-                  f"{p.get('spills', '?')}")
-
-    max_err = 0.0
+        for name, d_inst in sorted(props):
+            p = props[name, d_inst]
+            law = ""
+            if lib == "sfs_sweep":
+                law = "; " + smem_law(kernel, name, d_inst)
+            print(f"ptxas {name}<D={d_inst}>: {p.get('used', '?')}, "
+                  f"{p.get('spills', '?')}{law}")
 
     # -- 3. kernel against the plain version, bit for bit -------------------
-    def case_data(kind, p, n, d, seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        if kind == "ties":
-            x = torch.randint(0, 5, (p, n, d), generator=g, device=dev) / 5
-        elif kind == "simplex":    # an antichain: every valid row is kept
-            x = torch.rand((p, n, d), generator=g, device=dev) + 1e-3
-            x = x / x.sum(-1, keepdim=True)
-        elif kind == "negzero":
-            x = torch.tensor([[[-0.0, 0.5], [0.25, 0.25], [0.5, -0.0],
-                               [0.75, -1.0], [1.0, 1.0], [0.125, 0.625]]],
-                             device=dev).expand(p, n, d).contiguous()
-        else:                      # subnormal and zero coordinates
-            x = torch.randint(0, 4, (p, n, d), generator=g, device=dev) \
-                * 1e-40
-            x[torch.rand((p, n, d), generator=g, device=dev) < 0.2] = -0.0
-        mask = torch.rand((p, n), generator=g, device=dev) > 0.1
-        if kind == "negzero":
-            mask[:] = True
-        return x.float(), mask
-
-    cases = [  # kind, P, n, d, capacity, block
-        ("ties", 8, 1000, 4, 1000, 256),
-        ("simplex", 8, 2000, 4, 64, 32),       # capacity << n: overflow
-        ("simplex", 1, 3000, 7, 4096, 512),
-        ("simplex", 8, 120, 2, 48, 2),         # block 2
-        ("ties", 1, 200, 2, 256, 2),
-        ("simplex", 8, 600, 12, 640, 32),      # d 12
-        ("negzero", 1, 6, 2, 6, 2),
-        ("denormal", 2, 400, 3, 512, 32),
-    ]
-    for i, (kind, p, n, d, cap, blk) in enumerate(cases):
-        x, mask = case_data(kind, p, n, d, seed=i)
-        pts_p, mask_p, blk_e, wcap = sfs.sweep_inputs(x, mask, capacity=cap,
-                                                      block=blk)
-        kw = dict(block=blk_e, wcap=wcap, sentinel=SENTINEL)
-        got = ops.sfs_sweep(pts_p, mask_p, spec="cuda", **kw)
-        torch.cuda.synchronize()
-        want = ops.sfs_sweep(pts_p, mask_p, spec="torch", **kw)
-        oracle = ops.sfs_sweep(pts_p, mask_p, spec="perpair", **kw)
-        max_err = max(max_err, abs_err(got[0], want[0]))
-        check(leaves_equal(got, want),
-              f"kernel differs from the plain version on case {kind} P={p} "
-              f"n={n} d={d} capacity={cap} block={blk}")
-        check(leaves_equal(want, oracle),
-              f"plain version differs from perpair on case {kind}")
-        if kind == "negzero":
-            check(bool(torch.signbit(got[0][got[1]]).any()),
-                  "-0.0 member lost its sign")
-        print(f"kernel case {kind} P={p} n={n} d={d} capacity={cap} "
-              f"block={blk}: bitwise equal to the plain version and perpair "
-              f"(counts {got[2].tolist()})")
-
+    max_err = sweep_cases(dev)
     dom_err = dominance_cases(dev)
     print(f"dominance kernel: max_abs_err {dom_err} over the kernel cases")
 
@@ -758,6 +890,13 @@ def main() -> None:
                                                    spec="cuda", **kw))
             t_p, _ = time_ms(lambda: ops.sfs_sweep(pts_p, mask_p,
                                                    spec="torch", **kw))
+            got = ops.sfs_sweep(pts_p, mask_p, spec="cuda", **kw)
+            prefixes = [kernel.PREFIX_ROWS]
+            if call == "local" and dist == "anticorrelated":
+                prefixes += PREFIX_TABLE    # K = 4, 64 and 256 blocks
+            for pre in prefixes:
+                print(f"{tag} sfs_sweep {call} call ({dist}) "
+                      f"{time_stages(pts_p, mask_p, kw, pre, got)}")
             p, npad, d = pts_p.shape
             nbytes = p * npad * (4 * d + 1) + p * wcap * (4 * d + 1) + 4 * p
             compares = count_compares(pts_p, mask_p, blk, wcap)
@@ -805,6 +944,31 @@ def main() -> None:
               dom["launches"], dom_err, dom)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu, "count": torch.cuda.device_count()}}))
+
+
+PREFIX_TABLE = (1024, 16384, 65536)   # other prefixes timed beside 4096
+
+
+def time_stages(pts_p, mask_p, kw, prefix: int, want) -> str:
+    """The sweep's three grids timed by CUDA events (best of 3 after a
+    warm-up, per grid), with stage A's count, B's survivors and C's
+    branch per partition; the output must equal ``want`` bit for bit."""
+    from repro_torch.kernels.sfs import kernel
+    runs = [kernel.sweep_stages(pts_p, mask_p, prefix=prefix, **kw)
+            for _ in range(4)][1:]
+    for out, _ in runs:
+        check(leaves_equal(out, want), f"the sweep with a prefix of {prefix} "
+              f"rows differs from the entry's output")
+    info = runs[0][1]
+    best = {k: min(r[1][k] for r in runs) for k in ("a_ms", "b_ms", "c_ms")}
+    total = min(r[1]["a_ms"] + r[1]["b_ms"] + r[1]["c_ms"] for r in runs)
+    branch = ["packed" if b else "original" if b is not None else "A only"
+              for b in info["packed"]]
+    return (f"stages at a prefix of {info['prefix_rows']} rows: A "
+            f"{best['a_ms']:.3f} ms, B {best['b_ms']:.3f} ms, C "
+            f"{best['c_ms']:.3f} ms (sum {total:.3f} ms, best of 3); c_A "
+            f"{info['c_a']}, survivors {info['survivors']}, C {branch}; "
+            f"bitwise equal to the entry's output")
 
 
 def count_compares(pts_p, mask_p, block: int, wcap: int) -> int:
