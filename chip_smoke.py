@@ -11,8 +11,8 @@ It builds the port's CUDA kernels from the sources in the checkout
 
   1. prints the card (nvidia-smi name and power limit) and the versions;
   2. prints the build time and the compiler's registers / shared memory /
-     spills for each kernel instantiation, the sweep's beside its
-     footprint law (held against what the built kernel computes);
+     spills for each kernel instantiation beside its footprint law (held
+     against what the built kernel computes);
   3. holds the SFS sweep kernel against its plain PyTorch version and
      the per-pair oracle, bit for bit, on the card, over ties,
      antichains, overflow, block 2, d 2..12, -0.0, subnormal
@@ -22,9 +22,14 @@ It builds the port's CUDA kernels from the sources in the checkout
      all-masked partition), through the entry and through its three
      grids at prefixes of 0, 1 and 3 blocks; and the dominance kernel
      against its plain version and the O(C x R) oracle over the shapes
-     of the JAX package's tests, lower_tri, all-masked refs, d 2..12,
-     ties, -0.0, subnormals, a batch axis with shared and per-batch refs,
-     and bf16 input;
+     of the JAX package's tests, lower_tri, all-masked refs, d 1..12,
+     ties, -0.0, duplicates, subnormals, a batch axis with shared and
+     per-batch refs, bf16 input, references past one tile (compacted on
+     the card: a long masked tail, masks scattered per batch over shared
+     references with an empty batch, R at the small-R threshold and one
+     past it, lower_tri over several tiles), and the streaming
+     pre-filter's and NoSeq's full shapes, through the entry and through
+     its grids at tiles of 16 and 32 KiB;
   4. runs the main path, ``parallel_skyline`` at the default config with
      capacity 65536, on uniform, correlated and anticorrelated data at
      N = 10^7, d = 4: two sweep launches per query, no overflow, and bit
@@ -35,8 +40,10 @@ It builds the port's CUDA kernels from the sources in the checkout
   5. streams the same uniform and anticorrelated data into a live state
      in ten inserts of 10^6 rows, with a snapshot after each: 2 sweep and
      2 dominance launches per insert, every snapshot bit for bit the
-     plain version's, the last bit for bit the one-shot answer; then a
-     batched insert of Q = 4 states against four single ones;
+     plain version's, the last bit for bit the one-shot answer; traces
+     the tenth anticorrelated insert with torch.profiler (the eight
+     device operations that took longest, the device's idle share); then
+     a batched insert of Q = 4 states against four single ones;
   6. runs ``parallel_skyline`` with ``rep_filter='sorted'`` (2 sweep + 3
      dominance launches) and with ``noseq=True`` (1 + 1) on the three
      distributions: bit for bit the default answer and the plain
@@ -45,9 +52,14 @@ It builds the port's CUDA kernels from the sources in the checkout
      each dominance call of the paths above (the kernel, the plain
      version, and the least time the card could take), each sweep
      call's three grids with its prefix count, survivors and branch per
-     partition, and the anticorrelated local call at other prefixes;
+     partition, the anticorrelated local call at other prefixes, and
+     each dominance call's two grids with its valid reference rows per
+     batch (the pre-filter and NoSeq calls also at tiles of 32 KiB);
+     runs one pre-filter call under torch.cuda.set_sync_debug_mode
+     ("error"), so that a host sync in the entry fails the run;
   8. prints one JSON line with both kernels, then the device line.
 
+With ``--kernels-only`` it stops after step 3 and prints no result.
 Every check that fails ends the run with a non-zero exit code.  The
 script needs a CUDA card; without one, or outside a checkout of the
 repository, it exits non-zero and prints no result.
@@ -155,8 +167,11 @@ def ptxas_report(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            km = re.search(r"([a-z_]+_kernel)ILi(\d+)E", m.group(1))
-            entry = (km.group(1), int(km.group(2))) if km else None
+            km = re.search(r"([a-z_]+_kernel)ILi(\d+)E(Lb([01])E)?",
+                           m.group(1))
+            entry = ((km.group(1) + ("<lower_tri>" if km.group(4) == "1"
+                                     else ""), int(km.group(2)))
+                     if km else None)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and entry is not None:
@@ -186,6 +201,26 @@ def smem_law(kernel, name: str, d: int) -> str:
         parts.append(f"{law[stage]} B at block {block}")
     return (f"law {', '.join(parts)} of dynamic shared memory (the kernel "
             f"computes the same)")
+
+
+def dom_smem_law(dkernel, name: str, d: int) -> str:
+    """The footprint law of the dominance kernel at D = d, held against
+    what the built kernel computes for its launches."""
+    if "compact" in name:
+        return "; static shared memory only (its scan's warp totals)"
+    parts = []
+    for tb in (dkernel.TILE_BYTES, 32_768):
+        law = dkernel.dominance_smem_bytes(d, tb)
+        built = dkernel.kernel_smem_bytes(d, tb)
+        check(law == built, f"dominance footprint law {law} differs from "
+              f"the kernel's {built} at d={d}, tiles of {tb} bytes")
+        check(max(law.values()) <= dkernel.SMEM_LIMIT,
+              f"d={d} tiles of {tb} bytes: {law} above {dkernel.SMEM_LIMIT}")
+        parts.append(f"ring {law['ring']} B / direct at most "
+                     f"{law['direct']} B at tiles of {tb} B "
+                     f"({dkernel.tile_rows(d, tb)} rows)")
+    return (f"; law {', '.join(parts)} of dynamic shared memory (the "
+            f"kernel computes the same)")
 
 
 def case_data(dev, kind, p, n, d, seed):
@@ -314,6 +349,7 @@ def dominance_cases(dev) -> float:
     """The dominance kernel against its plain version and, where the
     (R, C) matrix is small, the oracle, bit for bit.  Returns the largest
     |difference| between kernel and plain outputs."""
+    from repro_torch.kernels.dominance import kernel as dkernel
     from repro_torch.kernels.dominance import ops as dops
     from repro_torch.kernels.dominance.ref import dominated_mask_ref
     g = torch.Generator(device=dev).manual_seed(77)
@@ -370,6 +406,57 @@ def dominance_cases(dev) -> float:
                   pts("uniform", 100_000, 4), pts("uniform", 70_000, 4), big,
                   False))
 
+    def antichain(*shape):      # rows on a simplex: no row dominates one
+        x = rand(*shape) + 1e-3
+        return x / x.sum(-1, keepdim=True)
+
+    # references past one tile, compacted on the card by grid 1
+    for d in range(1, 13):
+        x = pts("ties", 3000, d)
+        refs = torch.cat([pts("ties", 4500, d), x[:500]])   # duplicates
+        cases.append((f"compacted ties, -0.0 and duplicates d={d}", x, refs,
+                      rand(5000) > 0.3, False))
+        xl = pts("ties", 5000, d)
+        cases.append((f"compacted ties lower_tri d={d}", xl, xl,
+                      rand(5000) > 0.3, True))
+    for d in (1, 4, 12):        # R at the small-R threshold and one past
+        t = dkernel.tile_rows(d)
+        for r in (t, t + 1):
+            cases.append((f"R={r} (tile {t} rows) d={d}",
+                          pts("ties", 2, 2000, d), pts("ties", 2, r, d),
+                          rand(2, r) > 0.4, False))
+    x = pts("uniform", 2, 6000, 4)
+    cases.append(("lower_tri over six tiles, scattered masks B=2", x, x,
+                  rand(2, 6000) > 0.5, True))
+    m = rand(3, 5000) > 0.5
+    m[1] = False
+    cases.append(("B=3 compacted, batch 1 all masked", pts("ties", 3, 2000, 4),
+                  pts("ties", 3, 5000, 4), m, False))
+    r = pts("uniform", 5000, 4)
+    cases.append(("B=4 compacted broadcast refs and mask",
+                  pts("uniform", 4, 3000, 4), r.expand(4, 5000, 4),
+                  (rand(5000) > 0.7).expand(4, 5000), False))
+    # the streaming pre-filter's shape: 10^6 candidates against a state
+    # of 65,536 rows whose first 4,000 are valid (an antichain)
+    state = pts("uniform", 65_536, 4)
+    state[:4000] = antichain(4000, 4) * 2
+    live = torch.zeros(65_536, dtype=torch.bool, device=dev)
+    live[:4000] = True
+    cases.append(("pre-filter shape C=10^6 R=65536, 4000 valid refs first",
+                  pts("uniform", 1_000_000, 4), state, live, False))
+    # NoSeq's shape: B = 8 partitions of mostly sentinel rows against one
+    # shared union, each batch's mask its potential dominators (the
+    # union's rows from earlier partitions); batch 0 has none
+    union = antichain(65_536, 4) * 2
+    parts = torch.randint(0, 8, (65_536,), generator=g, device=dev)
+    pd = (parts[None, :] < torch.arange(8, device=dev)[:, None]) \
+        & (torch.arange(65_536, device=dev) < 12_000)[None]
+    local = torch.full((8, 200_000, 4), 1.7e38, device=dev)
+    local[:, :3000] = antichain(8, 3000, 4) * 2
+    cases.append(("NoSeq shape B=8 C=200000 R=65536 shared refs, batch 0 "
+                  "with no potential dominator", local,
+                  union.expand(8, 65_536, 4), pd, False))
+
     err = 0.0
     for name, c, r, m, lt in cases:
         got = dops.dominated_mask(c, r, m, lower_tri=lt, impl="cuda")
@@ -378,6 +465,26 @@ def dominance_cases(dev) -> float:
         err = max(err, abs_err(got.int(), want.int()))
         check(bits_equal(got, want),
               f"dominance kernel differs from the plain version: {name}")
+        if c.dtype == torch.float32:
+            cb, rb = (c, r) if c.ndim == 3 else (c[None], r[None])
+            mb = (torch.ones(rb.shape[-2], dtype=torch.bool, device=dev)
+                  if m is None else m)
+            mb = mb.expand(cb.shape[0], rb.shape[-2])
+            rb = rb.expand(cb.shape[0], -1, -1)
+            for tb in (dkernel.TILE_BYTES, 32_768):
+                staged, info = dkernel.dominance_stages(
+                    cb.contiguous(), rb, mb, lower_tri=lt, tile_bytes=tb)
+                check(bits_equal(staged.reshape(got.shape), got),
+                      f"dominance grids at tiles of {tb} bytes differ from "
+                      f"the entry: {name}")
+                check(info["compacted"] == dkernel.compacts(
+                    rb.shape[1], rb.shape[2], tb),
+                      f"{name}: grid 1 ran {info['compacted']} at tiles of "
+                      f"{tb} bytes")
+            if "NoSeq" in name:
+                check(info["valid_rows"][0] == 0
+                      and info["valid_rows"][1:] == pd.sum(1)[1:].tolist(),
+                      f"{name}: valid rows per batch {info['valid_rows']}")
         oracle = "plain version"
         if r.shape[-2] * (c.numel() // c.shape[-1]) <= 5 * 10 ** 7:
             cb, rb = (c, r) if c.ndim == 3 else (c[None], r[None])
@@ -497,6 +604,10 @@ def streaming_phase(data, oneshot, cfg, tag, kernels):
         print(f"streaming {dist} N={N_MAIN} in {N_MAIN // CHUNK} inserts: "
               f"final snapshot (skyline {int(snap.count)}) bitwise equal to "
               f"the one-shot parallel_skyline answer")
+        if dist == "anticorrelated":
+            trace_call(lambda: api.insert_chunk(before, chunk, cfg=cfg), tag,
+                       f"streaming {dist} insert {N_MAIN // CHUNK} "
+                       f"({CHUNK} rows)")
         out[dist] = (record_dominance_calls(
             lambda: api.insert_chunk(before, chunk, cfg=cfg)), run.counts)
         for name, (pts_p, mask_p, kw) in zip(("local", "merge"),
@@ -638,6 +749,18 @@ def time_dominance_calls(paths, tag):
             t_p, _ = time_ms(
                 lambda: dops.dominated_mask_torch(c, r, m, lower_tri=lt),
                 reps=2)
+            grids = [time_dom_grids(c, r, m, lt, dkernel.TILE_BYTES, want)]
+            if name in ("pre-filter", "noseq"):     # the other tile size
+                grids.append(time_dom_grids(c, r, m, lt, 32_768, want))
+            if name in ("pre-filter", "evict", "rep filter", "noseq"):
+                # the other form's walk shape, at the kernel's tile size
+                form = ("ring" if dkernel.compacts(r.shape[1], r.shape[2])
+                        else "direct")
+                other = dkernel.WALK_SHAPE[
+                    "direct" if form == "ring" else "ring"]
+                grids.append(time_dom_grids(c, r, m, lt, dkernel.TILE_BYTES,
+                                            want, other))
+            grids = "; ".join(grids)
             b, n, d = c.shape
             nr = r.shape[1]
             # the mask is read whole, a reference row's coordinates only
@@ -657,13 +780,105 @@ def time_dominance_calls(paths, tag):
                   f"plain {t_p:.3f} ms, bound {bound:.6f} ms set by "
                   f"{'bytes' if t_bytes >= t_ops else 'operations'} "
                   f"({nbytes} bytes -> {t_bytes:.6f} ms; {compares} compares "
-                  f"x 2d = {ops_n} ops -> {t_ops:.6f} ms)")
+                  f"x 2d = {ops_n} ops -> {t_ops:.6f} ms); {grids}")
             if dist == "anticorrelated":
                 record["ms"] += t_k
                 record["plain_ms"] += t_p
                 record["bytes"] += nbytes
                 record["ops"] += ops_n
     return record
+
+
+def time_dom_grids(c, r, m, lt, tile_bytes: int, want,
+                   shape=(None, None)) -> str:
+    """The dominance kernel's two grids timed by CUDA events recorded
+    inside the entry (best of 3 after a warm-up, per grid), with the
+    walk's shape (threads x candidate lanes a warp; the form's unless
+    ``shape`` is given), its CTAs' durations on the card's clock, the
+    valid reference rows per batch (min-max) and whether grid 1 ran; the
+    output must equal ``want`` bit for bit."""
+    from repro_torch.kernels.dominance import kernel as dkernel
+    threads, held = shape
+    runs = [dkernel.dominance_stages(c, r, m, lower_tri=lt,
+                                     tile_bytes=tile_bytes, threads=threads,
+                                     held=held)
+            for _ in range(4)][1:]
+    for out, _ in runs:
+        check(bits_equal(out, want), f"the dominance grids at tiles of "
+              f"{tile_bytes} bytes differ from the plain version")
+    info = runs[0][1]
+    best = {k: min(run[1][k] for run in runs)
+            for k in ("compact_ms", "walk_ms")}
+    total = min(run[1]["compact_ms"] + run[1]["walk_ms"] for run in runs)
+    rows = info["valid_rows"]
+    ctas, median, longest = min((run[1]["cta_us"] for run in runs),
+                                key=lambda t: t[2])
+    return (f"grids at tiles of {tile_bytes} B ({info['tile_rows']} rows), "
+            f"walk CTAs of {info['shape'][0]} threads x {info['shape'][1]} "
+            f"candidates a warp: compact {best['compact_ms']:.3f} ms, walk "
+            f"{best['walk_ms']:.3f} ms (sum {total:.3f} ms, best of 3); "
+            f"{ctas} walk CTAs, median {median:.2f} us, longest "
+            f"{longest:.2f} us; grid 1 ran: {info['compacted']}; valid ref "
+            f"rows per batch {min(rows)}-{max(rows)}")
+
+
+def sync_debug_call(calls):
+    """One recorded pre-filter call under set_sync_debug_mode("error"):
+    a host synchronisation in the entry raises there."""
+    from repro_torch.kernels.dominance import kernel as dkernel
+    c, r, m, lt = calls[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = dkernel.dominated_mask_cuda(c, r, m, lower_tri=lt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out
+
+
+def trace_call(fn, tag: str, label: str):
+    """``fn`` traced once by torch.profiler after a warm-up: prints the
+    eight device operations that took the most time and the device's
+    idle share over the traced window (from the first event to the last,
+    host or device)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in events if e.device_type == DeviceType.CUDA)
+    if not dev:
+        print(f"{tag} trace of {label}: the profiler recorded no device "
+              f"events; device idle share not measured")
+        return
+    start = min(e.time_range.start for e in events)
+    end = max(e.time_range.end for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    by_name = {}
+    for s, e, name in dev:
+        tot, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + (e - s), n + 1)
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = end - start
+    print(f"{tag} trace of {label}: window {window / 1e3:.3f} ms, device "
+          f"busy {busy / 1e3:.3f} ms in {len(dev)} device operations, idle "
+          f"share {1 - busy / window:.4f}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    for rank, (name, (tot, n)) in enumerate(top, 1):
+        print(f"{tag} trace of {label}, device operation {rank}: "
+              f"{tot / 1e3:.3f} ms in {n} call(s) "
+              f"({tot / window:.4f} of the window): {name[:160]}")
 
 
 def count_dom_compares(cands, refs, ref_mask, lower_tri: bool) -> int:
@@ -752,9 +967,9 @@ def main() -> None:
         check(bool(props), f"no -Xptxas -v report in the {lib} build log")
         for name, d_inst in sorted(props):
             p = props[name, d_inst]
-            law = ""
-            if lib == "sfs_sweep":
-                law = "; " + smem_law(kernel, name, d_inst)
+            law = ("; " + smem_law(kernel, name, d_inst)
+                   if lib == "sfs_sweep"
+                   else dom_smem_law(dkernel, name, d_inst))
             print(f"ptxas {name}<D={d_inst}>: {p.get('used', '?')}, "
                   f"{p.get('spills', '?')}{law}")
 
@@ -762,6 +977,9 @@ def main() -> None:
     max_err = sweep_cases(dev)
     dom_err = dominance_cases(dev)
     print(f"dominance kernel: max_abs_err {dom_err} over the kernel cases")
+    if "--kernels-only" in sys.argv[1:]:
+        print("--kernels-only: stopped after the kernel cases")
+        return
 
     # -- 4. the main path on the card ---------------------------------------
     kernels = (kernel.sfs_sweep_cuda, dkernel.dominated_mask_cuda)
@@ -853,6 +1071,13 @@ def main() -> None:
                                      kernels).items():
         dom_paths[dist, "insert"] = rec
     dom_paths.update(queries_phase(data, oneshot, cfg, tag, kernels))
+    calls, _ = dom_paths["anticorrelated", "insert"]
+    got = sync_debug_call(calls)
+    c, r, m, lt = calls[0]
+    check(bits_equal(got, dkernel.dominated_mask_cuda(c, r, m, lower_tri=lt)),
+          "the pre-filter call under sync debug mode differs")
+    print("pre-filter call (anticorrelated) under "
+          "torch.cuda.set_sync_debug_mode('error'): no host sync raised")
 
     # -- 7. times -----------------------------------------------------------
     def sweep_calls(x):
