@@ -29,7 +29,7 @@ It builds the port's CUDA kernels from the sources in the checkout
      references with an empty batch, R at the small-R threshold and one
      past it, lower_tri over several tiles), and the streaming
      pre-filter's and NoSeq's full shapes, through the entry and through
-     its grids at tiles of 16 and 32 KiB;
+     its grids;
   4. runs the main path, ``parallel_skyline`` at the default config with
      capacity 65536, on uniform, correlated and anticorrelated data at
      N = 10^7, d = 4: two sweep launches per query, no overflow, and bit
@@ -54,7 +54,7 @@ It builds the port's CUDA kernels from the sources in the checkout
      call's three grids with its prefix count, survivors and branch per
      partition, the anticorrelated local call at other prefixes, and
      each dominance call's two grids with its valid reference rows per
-     batch (the pre-filter and NoSeq calls also at tiles of 32 KiB);
+     batch;
      runs one pre-filter call under torch.cuda.set_sync_debug_mode
      ("error"), so that a host sync in the entry fails the run;
   8. prints one JSON line with both kernels, then the device line.
@@ -167,11 +167,16 @@ def ptxas_report(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            km = re.search(r"([a-z_]+_kernel)ILi(\d+)E(Lb([01])E)?",
+            km = re.search(r"([a-z_]+_kernel)ILi(\d+)E((?:Lb[01]E)*)",
                            m.group(1))
-            entry = ((km.group(1) + ("<lower_tri>" if km.group(4) == "1"
-                                     else ""), int(km.group(2)))
-                     if km else None)
+            entry = None
+            if km:
+                name = km.group(1)
+                flags = re.findall(r"Lb([01])E", km.group(3))
+                if name == "dominance_walk_kernel":   # <D, lower_tri, ring>
+                    name += (f"<{'ring' if flags[1] == '1' else 'direct'}"
+                             f"{', lower_tri' if flags[0] == '1' else ''}>")
+                entry = (name, int(km.group(2)))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and entry is not None:
@@ -204,23 +209,20 @@ def smem_law(kernel, name: str, d: int) -> str:
 
 
 def dom_smem_law(dkernel, name: str, d: int) -> str:
-    """The footprint law of the dominance kernel at D = d, held against
-    what the built kernel computes for its launches."""
+    """The footprint law of one dominance walk form at D = d, held
+    against what the built kernel computes for its launches."""
     if "compact" in name:
         return "; static shared memory only (its scan's warp totals)"
-    parts = []
-    for tb in (dkernel.TILE_BYTES, 32_768):
-        law = dkernel.dominance_smem_bytes(d, tb)
-        built = dkernel.kernel_smem_bytes(d, tb)
-        check(law == built, f"dominance footprint law {law} differs from "
-              f"the kernel's {built} at d={d}, tiles of {tb} bytes")
-        check(max(law.values()) <= dkernel.SMEM_LIMIT,
-              f"d={d} tiles of {tb} bytes: {law} above {dkernel.SMEM_LIMIT}")
-        parts.append(f"ring {law['ring']} B / direct at most "
-                     f"{law['direct']} B at tiles of {tb} B "
-                     f"({dkernel.tile_rows(d, tb)} rows)")
-    return (f"; law {', '.join(parts)} of dynamic shared memory (the "
-            f"kernel computes the same)")
+    form = "ring" if "ring" in name else "direct"
+    law = dkernel.dominance_smem_bytes(d)[form]
+    built = dkernel.kernel_smem_bytes(d)[form]
+    check(law == built, f"dominance footprint law {law} differs from the "
+          f"kernel's {built} at d={d}, {form} form")
+    check(law <= dkernel.SMEM_LIMIT,
+          f"d={d} {form} form: {law} above {dkernel.SMEM_LIMIT}")
+    what = "the head and two tiles" if form == "ring" else "at most one tile"
+    return (f"; law {law} B of dynamic shared memory ({what} of "
+            f"{dkernel.tile_rows(d)} rows; the kernel computes the same)")
 
 
 def case_data(dev, kind, p, n, d, seed):
@@ -471,16 +473,13 @@ def dominance_cases(dev) -> float:
                   if m is None else m)
             mb = mb.expand(cb.shape[0], rb.shape[-2])
             rb = rb.expand(cb.shape[0], -1, -1)
-            for tb in (dkernel.TILE_BYTES, 32_768):
-                staged, info = dkernel.dominance_stages(
-                    cb.contiguous(), rb, mb, lower_tri=lt, tile_bytes=tb)
-                check(bits_equal(staged.reshape(got.shape), got),
-                      f"dominance grids at tiles of {tb} bytes differ from "
-                      f"the entry: {name}")
-                check(info["compacted"] == dkernel.compacts(
-                    rb.shape[1], rb.shape[2], tb),
-                      f"{name}: grid 1 ran {info['compacted']} at tiles of "
-                      f"{tb} bytes")
+            staged, info = dkernel.dominance_stages(
+                cb.contiguous(), rb, mb, lower_tri=lt)
+            check(bits_equal(staged.reshape(got.shape), got),
+                  f"dominance grids differ from the entry: {name}")
+            check(info["compacted"] == dkernel.compacts(rb.shape[1],
+                                                        rb.shape[2]),
+                  f"{name}: grid 1 ran {info['compacted']}")
             if "NoSeq" in name:
                 check(info["valid_rows"][0] == 0
                       and info["valid_rows"][1:] == pd.sum(1)[1:].tolist(),
@@ -749,18 +748,7 @@ def time_dominance_calls(paths, tag):
             t_p, _ = time_ms(
                 lambda: dops.dominated_mask_torch(c, r, m, lower_tri=lt),
                 reps=2)
-            grids = [time_dom_grids(c, r, m, lt, dkernel.TILE_BYTES, want)]
-            if name in ("pre-filter", "noseq"):     # the other tile size
-                grids.append(time_dom_grids(c, r, m, lt, 32_768, want))
-            if name in ("pre-filter", "evict", "rep filter", "noseq"):
-                # the other form's walk shape, at the kernel's tile size
-                form = ("ring" if dkernel.compacts(r.shape[1], r.shape[2])
-                        else "direct")
-                other = dkernel.WALK_SHAPE[
-                    "direct" if form == "ring" else "ring"]
-                grids.append(time_dom_grids(c, r, m, lt, dkernel.TILE_BYTES,
-                                            want, other))
-            grids = "; ".join(grids)
+            grids = time_dom_grids(c, r, m, lt, want)
             b, n, d = c.shape
             nr = r.shape[1]
             # the mask is read whole, a reference row's coordinates only
@@ -789,37 +777,27 @@ def time_dominance_calls(paths, tag):
     return record
 
 
-def time_dom_grids(c, r, m, lt, tile_bytes: int, want,
-                   shape=(None, None)) -> str:
-    """The dominance kernel's two grids timed by CUDA events recorded
-    inside the entry (best of 3 after a warm-up, per grid), with the
-    walk's shape (threads x candidate lanes a warp; the form's unless
-    ``shape`` is given), its CTAs' durations on the card's clock, the
-    valid reference rows per batch (min-max) and whether grid 1 ran; the
-    output must equal ``want`` bit for bit."""
+def time_dom_grids(c, r, m, lt, want) -> str:
+    """The dominance kernel's two grids timed by CUDA events (best of 3
+    after a warm-up, per grid), with the valid reference rows per batch
+    (min-max) and whether grid 1 ran; the output must equal ``want`` bit
+    for bit."""
     from repro_torch.kernels.dominance import kernel as dkernel
-    threads, held = shape
-    runs = [dkernel.dominance_stages(c, r, m, lower_tri=lt,
-                                     tile_bytes=tile_bytes, threads=threads,
-                                     held=held)
+    runs = [dkernel.dominance_stages(c, r, m, lower_tri=lt)
             for _ in range(4)][1:]
     for out, _ in runs:
-        check(bits_equal(out, want), f"the dominance grids at tiles of "
-              f"{tile_bytes} bytes differ from the plain version")
+        check(bits_equal(out, want),
+              "the dominance grids differ from the plain version")
     info = runs[0][1]
     best = {k: min(run[1][k] for run in runs)
             for k in ("compact_ms", "walk_ms")}
     total = min(run[1]["compact_ms"] + run[1]["walk_ms"] for run in runs)
     rows = info["valid_rows"]
-    ctas, median, longest = min((run[1]["cta_us"] for run in runs),
-                                key=lambda t: t[2])
-    return (f"grids at tiles of {tile_bytes} B ({info['tile_rows']} rows), "
-            f"walk CTAs of {info['shape'][0]} threads x {info['shape'][1]} "
-            f"candidates a warp: compact {best['compact_ms']:.3f} ms, walk "
-            f"{best['walk_ms']:.3f} ms (sum {total:.3f} ms, best of 3); "
-            f"{ctas} walk CTAs, median {median:.2f} us, longest "
-            f"{longest:.2f} us; grid 1 ran: {info['compacted']}; valid ref "
-            f"rows per batch {min(rows)}-{max(rows)}")
+    return (f"grids (tiles of {info['tile_rows']} rows): compact "
+            f"{best['compact_ms']:.3f} ms, walk {best['walk_ms']:.3f} ms "
+            f"(sum {total:.3f} ms, best of 3); grid 1 ran: "
+            f"{info['compacted']}; valid ref rows per batch "
+            f"{min(rows)}-{max(rows)}")
 
 
 def sync_debug_call(calls):
@@ -841,7 +819,8 @@ def trace_call(fn, tag: str, label: str):
     """``fn`` traced once by torch.profiler after a warm-up: prints the
     eight device operations that took the most time and the device's
     idle share over the traced window (from the first event to the last,
-    host or device)."""
+    host or device) and over the device span alone (from the first
+    device operation to the end of the last)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -871,9 +850,12 @@ def trace_call(fn, tag: str, label: str):
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     window = end - start
+    span = max(e for _, e, _ in dev) - dev[0][0]
     print(f"{tag} trace of {label}: window {window / 1e3:.3f} ms, device "
           f"busy {busy / 1e3:.3f} ms in {len(dev)} device operations, idle "
-          f"share {1 - busy / window:.4f}")
+          f"share {1 - busy / window:.4f} of the window; over the device "
+          f"span alone (first device operation's start to the last's end, "
+          f"{span / 1e3:.3f} ms) idle share {1 - busy / span:.4f}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for rank, (name, (tot, n)) in enumerate(top, 1):
         print(f"{tag} trace of {label}, device operation {rank}: "

@@ -36,26 +36,27 @@
 //   2. dominance_walk_kernel, a 1-D grid over (candidate blocks,
 //      batches), the batch fastest, so that the first blocks of every
 //      batch (where NoSeq's valid candidates lie; the rest are sentinel
-//      rows) start first.  The first `held` lanes of each warp hold one
-//      candidate each in registers, a block of 128 candidates: the
-//      wrapper gives the direct form 128 threads holding 32 a warp (its
-//      walks are short, so full warps keep the lanes busy) and the
-//      compacted form 256 threads holding 16 (its survivors walk every
-//      row through the warp form, one candidate at a time, so fewer a
-//      warp spread a heavy block over more warps).
+//      rows) start first.  The first kHeld lanes of each warp hold one
+//      candidate each in registers, a block of 128 candidates.  The CTA's
+//      shape is fixed per form at compile time: the direct form runs 128
+//      threads holding 32 a warp (its walks are short, so full warps keep
+//      the lanes busy), the compacted form 256 threads holding 16 (its
+//      survivors walk every row through the warp form, one candidate at a
+//      time, so fewer a warp spread a heavy block over more warps).
 //      The walk ends at the batch's own count, read from device memory:
 //      a batch with no valid reference writes all-false flags and walks
 //      nothing.  The first kLaneRows dense rows go to a small head in
 //      shared memory (one load per word) and are walked a lane at a
 //      time, so that a CTA whose candidates all fall there (the sentinel
 //      rows fall at the first row) stages no tile.  The rest comes in
-//      tiles of tile_rows(d) rows stored by coordinate through a ring of
-//      kStages stages in dynamic shared memory, filled with 16-byte
-//      cp.async copies and drained with cp.async.wait_group, so that the
-//      next tile loads while the current one is tested.  Per tile, a
-//      lane walks the first kLaneRows rows for its own candidates, then
-//      the warp takes the candidates still alive one at a time and tests
-//      32 * kWarpUnroll rows per vote.  The CTA stops when all its
+//      tiles of tile_rows(d) rows (kTileBytes of coordinates) stored by
+//      coordinate through a ring of kStages stages in dynamic shared
+//      memory, filled with 16-byte cp.async copies and drained with
+//      cp.async.wait_group, so that the next tile loads while the
+//      current one is tested.  Per tile, a lane walks the first
+//      kLaneRows rows for its own candidates, then the warp takes the
+//      candidates still alive one at a time and tests 32 * kWarpUnroll
+//      rows per vote.  The CTA stops when all its
 //      candidates are decided.  lower_tri ends a candidate's walk at the
 //      first row whose original index is >= its own.
 //   When R fits one tile there is no grid 1: the walk stages the
@@ -83,16 +84,22 @@
 // same law), d + 1 words per staged row (the (d + 1)-th holds the
 // original index under lower_tri): with grid 1, the head and the ring,
 // 4 * (d + 1) * (kLaneRows + kStages * tile_rows(d)) bytes; without, one
-// tile of 4 * (d + 1) * ceil32(R).  Grid 1 takes only static memory (its
-// scan's warp totals and counts).
+// tile of 4 * (d + 1) * ceil32(R).  The walk's limit is raised to its
+// form's largest footprint at D once per device, not at every launch.
+// Grid 1 takes only static memory (its scan's warp totals and counts).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 256;         // grid 1
-constexpr int kWalkThreadsMax = 512;  // the largest walk CTA
+constexpr int kDirectThreads = 128;   // the walk's CTA, direct form
+constexpr int kDirectHeld = 32;       // lanes of a warp holding a candidate
+constexpr int kRingThreads = 256;     // the walk's CTA, compacted form
+constexpr int kRingHeld = 16;
 constexpr int kLaneRows = 32;         // rows a lane walks alone, per test
 constexpr int kLaneUnroll = 4;        // rows a lane tests per step
 constexpr int kWarpUnroll = 8;        // 32-row steps a warp takes per vote
@@ -103,18 +110,17 @@ constexpr int kCompactRows = kThreads * kCompactPer;   // rows per chunk
 constexpr int kSmemLimit = 232448;    // per CTA on sm_90
 constexpr unsigned kFull = 0xffffffffu;
 
-// Rows of one tile: tile_bytes of coordinates, in whole 32-row steps.
-__host__ __device__ constexpr int tile_rows(int d, int tile_bytes) {
-  return tile_bytes / (4 * d) / 32 * 32;
+// Rows of one tile: kTileBytes of coordinates, in whole 32-row steps.
+__host__ __device__ constexpr int tile_rows(int d) {
+  return kTileBytes / (4 * d) / 32 * 32;
 }
 
 __host__ __device__ constexpr int ceil32(int r) { return (r + 31) / 32 * 32; }
 
 // The walk's dynamic shared memory: the ring when grid 1 compacts the
 // references, one stage of the references themselves when it does not.
-long long walk_smem_bytes(int d, int R, int tile_bytes, bool compact) {
-  return compact ? 4LL * (d + 1) *
-                       (kLaneRows + kStages * tile_rows(d, tile_bytes))
+constexpr long long walk_smem_bytes(int d, int R, bool compact) {
+  return compact ? 4LL * (d + 1) * (kLaneRows + kStages * tile_rows(d))
                  : 4LL * (d + 1) * ceil32(R);
 }
 
@@ -375,35 +381,18 @@ __device__ __forceinline__ void test_tile(const float* t, int stride,
   }
 }
 
-// The card's nanosecond clock, the same on every SM.
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// A measurement only (cta_ns is null otherwise): this CTA's start and end
-// on the card's clock, at cta_ns[2 * blockIdx.x].
-__device__ __forceinline__ void stamp(unsigned long long* cta_ns,
-                                      unsigned long long t_start) {
-  if (cta_ns != nullptr && threadIdx.x == 0) {
-    cta_ns[2 * blockIdx.x] = t_start;
-    cta_ns[2 * blockIdx.x + 1] = globaltimer();
-  }
-}
-
-// Grid 2: out[b, i] for the candidates of this CTA: the first `held`
+// Grid 2: out[b, i] for the candidates of this CTA: the first kHeld
 // lanes of each warp hold one each, consecutive over the CTA's warps.
 // Fewer than 32 a warp leave more warps to a block whose candidates walk
-// far (the warp form takes its live candidates one at a time).  dense is
-// null on the direct path (R fits one tile; the references are staged
-// themselves, as one tile of stride T = ceil32(R)); otherwise batch b's
-// dense rows start at dense + b * dense_bstride (0 when shared),
-// count[b or 0] holds how many there are, the first kLaneRows go to a
-// head of stride kLaneRows and the rest through the ring of tiles of T
-// rows.
-template <int D, bool LT>
-__global__ void __launch_bounds__(kWalkThreadsMax)
+// far (the warp form takes its live candidates one at a time).  The
+// direct form (kRing false; R fits one tile) stages the references
+// themselves, as one tile of stride T = ceil32(R).  The compacted form
+// reads batch b's dense rows from dense + b * dense_bstride (0 when
+// shared), count[b or 0] of them: the first kLaneRows go to a head of
+// stride kLaneRows and the rest through the ring of tiles of
+// T = tile_rows(D) rows.
+template <int D, bool LT, bool kRing>
+__global__ void __launch_bounds__(kRing ? kRingThreads : kDirectThreads)
 dominance_walk_kernel(const float* __restrict__ cands,
                       const float* __restrict__ refs,
                       const uint8_t* __restrict__ mask,
@@ -411,30 +400,24 @@ dominance_walk_kernel(const float* __restrict__ cands,
                       const float* __restrict__ dense,
                       long long dense_bstride, int Rs,
                       const int* __restrict__ count,
-                      uint8_t* __restrict__ out, int batch, int C, int R,
-                      int T, int held, unsigned long long* cta_ns) {
+                      uint8_t* __restrict__ out, int batch, int C, int R) {
+  constexpr int kNT = kRing ? kRingThreads : kDirectThreads;
+  constexpr int kHeld = kRing ? kRingHeld : kDirectHeld;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
-  const unsigned long long t_start = cta_ns != nullptr ? globaltimer() : 0;
-  const int nt = blockDim.x;
   const int lane = tid & 31;
   // the batches interleave in launch order, so that the first candidate
   // blocks of every batch (where NoSeq's valid rows lie; the rest are
   // sentinel rows) start first
   const long long b = blockIdx.x % batch;
-  const int c0 = static_cast<int>(blockIdx.x / batch) * (nt / 32) * held;
-  const int i = c0 + (tid >> 5) * held + lane;
-  const bool valid = lane < held && i < C;
-  const bool compact = dense != nullptr;
-  const float* Db = compact ? dense + b * dense_bstride : nullptr;
-  const float* Rb = refs + b * ref_bstride;
-  const uint8_t* Mb = mask + b * mask_bstride;
+  const int c0 = static_cast<int>(blockIdx.x / batch) * (kNT / 32) * kHeld;
+  const int i = c0 + (tid >> 5) * kHeld + lane;
+  const bool valid = lane < kHeld && i < C;
   uint8_t* O = out + b * C;
-  const int n = compact ? count[dense_bstride ? b : 0] : R;
+  const int n = kRing ? count[dense_bstride ? b : 0] : R;
 
   if (n == 0) {  // no valid reference: nothing is dominated
     if (valid) O[i] = 0;
-    stamp(cta_ns, t_start);
     return;
   }
 
@@ -443,13 +426,15 @@ dominance_walk_kernel(const float* __restrict__ cands,
 #pragma unroll
   for (int e = 0; e < D; ++e) x[e] = valid ? src[e] : 0.f;
   bool todo = valid, dom = false;
-  const int words = LT ? D + 1 : D;   // rows of a staged tile
 
-  if (!compact) {
+  if constexpr (!kRing) {
     // the references themselves, a row a thread, a masked row as NaN in
     // every coordinate
+    const float* Rb = refs + b * ref_bstride;
+    const uint8_t* Mb = mask + b * mask_bstride;
+    const int T = ceil32(R);
     const float nan = __int_as_float(0x7fc00000);
-    for (int j = tid; j < R; j += nt) {
+    for (int j = tid; j < R; j += kNT) {
       const bool m = Mb[j] != 0;
       float r[D];
 #pragma unroll
@@ -461,9 +446,12 @@ dominance_walk_kernel(const float* __restrict__ cands,
     __syncthreads();
     test_tile<D, LT>(smem, T, R, x, i, todo, dom);
   } else {
+    constexpr int T = tile_rows(D);
+    constexpr int words = LT ? D + 1 : D;   // rows of a staged tile
+    const float* Db = dense + b * dense_bstride;
     // the head: the first kLaneRows dense rows, one load per word
     const int pre = min(n, kLaneRows);
-    for (int e = tid; e < words * kLaneRows; e += nt) {
+    for (int e = tid; e < words * kLaneRows; e += kNT) {
       const int k = e / kLaneRows, j = e - k * kLaneRows;
       if (j < pre) smem[e] = Db[static_cast<size_t>(k) * Rs + j];
     }
@@ -478,7 +466,7 @@ dominance_walk_kernel(const float* __restrict__ cands,
       float* st = ring + static_cast<size_t>(t % kStages) * (D + 1) * T;
       const int t0 = pre + t * T;
       const int q = (min(T, n - t0) + 3) >> 2;   // 16-byte copies per row
-      for (int e = tid; e < words * q; e += nt) {
+      for (int e = tid; e < words * q; e += kNT) {
         const int k = e / q, c = e - k * q;
         cp_async16(st + k * T + 4 * c,
                    Db + static_cast<size_t>(k) * Rs + t0 + 4 * c);
@@ -504,31 +492,48 @@ dominance_walk_kernel(const float* __restrict__ cands,
     }
   }
   if (valid) O[i] = dom;
-  stamp(cta_ns, t_start);
 }
 
-template <int D, bool LT>
+// Lets `kernel` take `bytes` of dynamic shared memory on the current
+// device.  The attribute is set once per device (`done` holds a bit for
+// each of the first 64), not on every launch: the call costs host time.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes,
+                       std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ULL << dev : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <int D, bool LT, bool kRing>
 cudaError_t launch(const void* cands, const void* refs, const void* mask,
                    void* out, void* scratch, int batch, int C, int R,
                    long long ref_bstride, long long mask_bstride,
-                   int tile_bytes, int threads, int held, void* cta_ns,
                    cudaEvent_t ev_mid, cudaStream_t s) {
-  const bool compact = scratch != nullptr;
-  const int T = compact ? tile_rows(D, tile_bytes) : ceil32(R);
-  const long long smem = walk_smem_bytes(D, R, tile_bytes, compact);
-  if ((compact && T < 32) || smem > kSmemLimit || threads < 32 ||
-      threads > kWalkThreadsMax || threads % 32 != 0 || held < 1 ||
-      held > 32)
-    return cudaErrorInvalidValue;
+  constexpr int kNT = kRing ? kRingThreads : kDirectThreads;
+  constexpr int kHeld = kRing ? kRingHeld : kDirectHeld;
+  // the form's largest footprint at D, which the attribute allows
+  constexpr long long kSmemMost = walk_smem_bytes(D, tile_rows(D), kRing);
+  static_assert(kSmemMost <= kSmemLimit, "the walk's CTA does not fit");
+  static_assert(tile_rows(D) >= 32, "a tile holds fewer than 32 rows");
+  static std::atomic<unsigned long long> smem_allowed{0};
+  const long long smem = walk_smem_bytes(D, R, kRing);
   const bool shared = ref_bstride == 0 && mask_bstride == 0;
   const int bc = shared ? 1 : batch;
   const int Rs = (R + 3) / 4 * 4;
   float* dense = static_cast<float*>(scratch);
-  int* count = compact ? reinterpret_cast<int*>(
-                             dense + static_cast<size_t>(bc) * (D + 1) * Rs)
-                       : nullptr;
+  int* count = kRing ? reinterpret_cast<int*>(
+                           dense + static_cast<size_t>(bc) * (D + 1) * Rs)
+                     : nullptr;
   cudaError_t err;
-  if (compact) {
+  if constexpr (kRing) {
     const dim3 grid1((R + kCompactRows - 1) / kCompactRows, bc);
     dominance_compact_kernel<D><<<grid1, kThreads, 0, s>>>(
         static_cast<const float*>(refs), static_cast<const uint8_t*>(mask),
@@ -540,54 +545,45 @@ cudaError_t launch(const void* cands, const void* refs, const void* mask,
     err = cudaEventRecord(ev_mid, s);
     if (err != cudaSuccess) return err;
   }
-  err = cudaFuncSetAttribute(dominance_walk_kernel<D, LT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  err = allow_smem(dominance_walk_kernel<D, LT, kRing>,
+                   static_cast<int>(kSmemMost), smem_allowed);
   if (err != cudaSuccess) return err;
   // a 1-D grid over (candidate block, batch), the batch fastest
-  const int rows = threads / 32 * held;
+  constexpr int rows = kNT / 32 * kHeld;
   const long long blocks =
       static_cast<long long>((C + rows - 1) / rows) * batch;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid2(static_cast<unsigned>(blocks));
-  dominance_walk_kernel<D, LT><<<grid2, threads, smem, s>>>(
+  dominance_walk_kernel<D, LT, kRing><<<grid2, kNT, smem, s>>>(
       static_cast<const float*>(cands), static_cast<const float*>(refs),
       static_cast<const uint8_t*>(mask), ref_bstride, mask_bstride, dense,
       shared ? 0 : static_cast<long long>(D + 1) * Rs, Rs, count,
-      static_cast<uint8_t*>(out), batch, C, R, T, held,
-      static_cast<unsigned long long*>(cta_ns));
+      static_cast<uint8_t*>(out), batch, C, R);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches the dominance test on `stream`; returns the cudaError_t of the
-// launch.  Strides are in elements.  scratch is null for the direct form
-// (R at most one tile) and otherwise holds bc * (d + 1) * Rs + bc 32-bit
-// words, 16-byte aligned (bc = 1 when references and mask both have
-// batch stride 0, else batch; Rs = R rounded up to a multiple of 4): the
-// dense rows of each compacted batch, then the counts.  tile_bytes sets
-// tile_rows(d) (kTileBytes unless measuring another size); the walk's
-// CTA has `threads` threads, of which the first `held` lanes of each warp
-// hold a candidate.  ev_start, ev_mid and ev_end, when not null, are
-// recorded before grid 1, between the grids and after grid 2; cta_ns,
-// when not null, receives each walk CTA's start and end in ns (2 words a
-// CTA); those three are for measurement.  The caller checks shapes, types
-// and devices; the checks here only keep a bad call from launching.
+// launch.  Strides are in elements.  scratch is null when R is at most
+// one tile (the direct form) and otherwise holds bc * (d + 1) * Rs + bc
+// 32-bit words, 16-byte aligned (bc = 1 when references and mask both
+// have batch stride 0, else batch; Rs = R rounded up to a multiple of 4):
+// the dense rows of each compacted batch, then the counts.  ev_start and
+// ev_mid, when not null, are recorded before grid 1 and between the
+// grids, for measurement.  The caller checks shapes, types and devices;
+// the checks here only keep a bad call from launching.
 extern "C" int dominated_mask_launch(const void* cands, const void* refs,
                                      const void* mask, void* out,
                                      void* scratch, int batch, int C, int R,
                                      int d, long long ref_bstride,
                                      long long mask_bstride, int lower_tri,
-                                     int tile_bytes, int threads, int held,
-                                     void* cta_ns, void* ev_start,
-                                     void* ev_mid,
-                                     void* ev_end, void* stream) {
+                                     void* ev_start, void* ev_mid,
+                                     void* stream) {
   if (batch < 1 || batch > 65535 || C < 1 || R < 0 || ref_bstride < 0 ||
-      mask_bstride < 0 || d < 1 || d > 12 || tile_bytes < 1 ||
-      (scratch == nullptr && R > tile_rows(d, tile_bytes)) ||
-      (scratch != nullptr &&
-       (reinterpret_cast<uintptr_t>(scratch) & 15) != 0))
+      mask_bstride < 0 || d < 1 || d > 12 ||
+      (scratch == nullptr) != (R <= tile_rows(d)) ||
+      (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaEvent_t mid = static_cast<cudaEvent_t>(ev_mid);
@@ -597,36 +593,40 @@ extern "C" int dominated_mask_launch(const void* cands, const void* refs,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   cudaError_t err = cudaErrorInvalidValue;
-  switch (d * 2 + (lower_tri ? 1 : 0)) {
-#define DOM_CASE(D)                                                       \
-  case 2 * D:                                                             \
-    err = launch<D, false>(cands, refs, mask, out, scratch, batch, C, R,  \
-                           ref_bstride, mask_bstride, tile_bytes, threads, \
-                           held, cta_ns, mid, s);                          \
-    break;                                                                \
-  case 2 * D + 1:                                                         \
-    err = launch<D, true>(cands, refs, mask, out, scratch, batch, C, R,   \
-                          ref_bstride, mask_bstride, tile_bytes, threads, \
-                          held, cta_ns, mid, s);                           \
+  const int form = (lower_tri ? 2 : 0) + (scratch != nullptr ? 1 : 0);
+#define DOM_ARGS \
+  cands, refs, mask, out, scratch, batch, C, R, ref_bstride, mask_bstride, \
+      mid, s
+#define DOM_CASE(D)                                      \
+  case 4 * D:                                            \
+    err = launch<D, false, false>(DOM_ARGS);             \
+    break;                                               \
+  case 4 * D + 1:                                        \
+    err = launch<D, false, true>(DOM_ARGS);              \
+    break;                                               \
+  case 4 * D + 2:                                        \
+    err = launch<D, true, false>(DOM_ARGS);              \
+    break;                                               \
+  case 4 * D + 3:                                        \
+    err = launch<D, true, true>(DOM_ARGS);               \
     break;
+  switch (4 * d + form) {
     DOM_CASE(1) DOM_CASE(2) DOM_CASE(3) DOM_CASE(4) DOM_CASE(5) DOM_CASE(6)
     DOM_CASE(7) DOM_CASE(8) DOM_CASE(9) DOM_CASE(10) DOM_CASE(11) DOM_CASE(12)
-#undef DOM_CASE
     default:
       break;
   }
-  if (err == cudaSuccess && ev_end != nullptr)
-    err = cudaEventRecord(static_cast<cudaEvent_t>(ev_end), s);
+#undef DOM_CASE
+#undef DOM_ARGS
   return static_cast<int>(err);
 }
 
-// The dynamic shared memory of the walk CTA for a call with R references
-// at tile_bytes: the ring when R is longer than one tile, else one stage
-// of the references.  -1 for a d the kernel does not take.
-extern "C" long long dominated_mask_smem_bytes(int d, int R,
-                                               int tile_bytes) {
-  if (d < 1 || d > 12 || R < 0 || tile_bytes < 1) return -1;
-  return walk_smem_bytes(d, R, tile_bytes, R > tile_rows(d, tile_bytes));
+// The dynamic shared memory of the walk CTA for a call with R references:
+// the ring when R is longer than one tile, else one stage of the
+// references.  -1 for a d the kernel does not take.
+extern "C" long long dominated_mask_smem_bytes(int d, int R) {
+  if (d < 1 || d > 12 || R < 0) return -1;
+  return walk_smem_bytes(d, R, R > tile_rows(d));
 }
 
 extern "C" const char* dominated_mask_error_string(int err) {

@@ -40,30 +40,25 @@ from repro_torch.kernels import build
 
 __all__ = ["dominated_mask_cuda", "dominance_stages", "check_args",
            "dominance_smem_bytes", "tile_rows", "compacts", "scratch_words",
-           "D_MAX", "MAX_BATCH", "TILE_BYTES", "SMEM_LIMIT", "WALK_SHAPE"]
+           "D_MAX", "MAX_BATCH", "TILE_BYTES", "SMEM_LIMIT"]
 
 D_MAX = 12            # widest d the kernel is instantiated for
 MAX_BATCH = 65535     # the batch is the grids' y dimension
 TILE_BYTES = 16_384   # coordinates of one tile (kTileBytes)
 SMEM_LIMIT = 232_448  # shared memory one CTA may take on sm_90
 
-# the walk's CTA, by form: (threads, lanes of each warp that hold a
-# candidate), a block of 128 candidates either way.  The direct form's
-# walks are at most one tile, so full warps keep the lanes busy; the
-# compacted form's survivors walk every row, and 16 candidates a warp
-# give such a block eight warps for the warp form (chip_smoke.py times
-# both shapes for each call on the card)
-WALK_SHAPE = {"direct": (128, 32), "ring": (256, 16)}
-
 # the constants of csrc/dominated_mask.cu that its schedule and shared
 # memory follow
 _STAGES = 2            # kStages
 _THREADS = 256         # kThreads: grid 1's CTA
-_WALK_THREADS_MAX = 512  # kWalkThreadsMax
 _LANE_ROWS = 32        # kLaneRows
 _LANE_UNROLL = 4       # kLaneUnroll
 _WARP_UNROLL = 8       # kWarpUnroll
 _COMPACT_PER = 16      # kCompactPer: reference rows per compact thread
+# the walk's CTA, by form: (threads, lanes of each warp that hold a
+# candidate), a block of 128 candidates either way (kDirectThreads,
+# kDirectHeld, kRingThreads, kRingHeld)
+_WALK_SHAPE = {"direct": (128, 32), "ring": (256, 16)}
 
 
 @functools.cache
@@ -73,25 +68,25 @@ def _lib() -> ctypes.CDLL:
     lib = build.library("dominated_mask")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dominated_mask_launch.argtypes = (
-        [ptr] * 5 + [i32] * 4 + [i64] * 2 + [i32] * 4 + [ptr] * 5)
+        [ptr] * 5 + [i32] * 4 + [i64] * 2 + [i32] + [ptr] * 3)
     lib.dominated_mask_launch.restype = ctypes.c_int
-    lib.dominated_mask_smem_bytes.argtypes = [i32] * 3
+    lib.dominated_mask_smem_bytes.argtypes = [i32] * 2
     lib.dominated_mask_smem_bytes.restype = i64
     lib.dominated_mask_error_string.argtypes = [ctypes.c_int]
     lib.dominated_mask_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def tile_rows(d: int, tile_bytes: int = TILE_BYTES) -> int:
-    """Reference rows of one tile: ``tile_bytes`` of coordinates, in whole
+def tile_rows(d: int) -> int:
+    """Reference rows of one tile: ``TILE_BYTES`` of coordinates, in whole
     32-row steps (``tile_rows`` in the source)."""
-    return tile_bytes // (4 * d) // 32 * 32
+    return TILE_BYTES // (4 * d) // 32 * 32
 
 
-def compacts(r: int, d: int, tile_bytes: int = TILE_BYTES) -> bool:
+def compacts(r: int, d: int) -> bool:
     """Whether a call with ``r`` references runs grid 1 (the compaction):
     when they are longer than one tile."""
-    return r > tile_rows(d, tile_bytes)
+    return r > tile_rows(d)
 
 
 def scratch_words(b: int, r: int, d: int, shared: bool) -> int:
@@ -103,8 +98,7 @@ def scratch_words(b: int, r: int, d: int, shared: bool) -> int:
     return bc * (d + 1) * (-(-r // 4) * 4) + bc
 
 
-def dominance_smem_bytes(d: int, tile_bytes: int = TILE_BYTES,
-                         r: int | None = None) -> dict[str, int]:
+def dominance_smem_bytes(d: int, r: int | None = None) -> dict[str, int]:
     """The footprint law: the dynamic shared memory of one walk CTA, by
     form, each staged row ``d + 1`` words (the coordinates and, under
     lower_tri, the original index).  ``ring``: when grid 1 compacts the
@@ -114,14 +108,14 @@ def dominance_smem_bytes(d: int, tile_bytes: int = TILE_BYTES,
     Grid 1 takes static shared memory only.  Counterpart of
     ``repro.kernels.dominance.kernel.dominance_vmem_bytes``; the kernel's
     ``dominated_mask_smem_bytes`` computes the same numbers."""
-    t = tile_rows(d, tile_bytes)
+    t = tile_rows(d)
     rows = t if r is None else min(t, -(-r // 32) * 32)
     return {"ring": 4 * (d + 1) * (_LANE_ROWS + _STAGES * t),
             "direct": 4 * (d + 1) * rows}
 
 
 def check_args(cands: torch.Tensor, refs: torch.Tensor,
-               ref_mask: torch.Tensor, tile_bytes: int = TILE_BYTES) -> None:
+               ref_mask: torch.Tensor) -> None:
     """Raise ``ValueError`` on any input the kernel does not take, apart
     from the device (checked by :func:`dominated_mask_cuda` first)."""
     if (cands.dtype != torch.float32 or refs.dtype != torch.float32
@@ -152,11 +146,8 @@ def check_args(cands: torch.Tensor, refs: torch.Tensor,
                          f"got {b}")
     if c >= 2 ** 31 or r >= 2 ** 31:
         raise ValueError(f"C={c} or R={r} out of range")
-    if tile_rows(d, tile_bytes) < 32:
-        raise ValueError(f"a tile of {tile_bytes} bytes holds fewer than 32 "
-                         f"rows at d={d}")
-    smem = dominance_smem_bytes(d, tile_bytes, r)
-    form = "ring" if compacts(r, d, tile_bytes) else "direct"
+    smem = dominance_smem_bytes(d, r)
+    form = "ring" if compacts(r, d) else "direct"
     if smem[form] > SMEM_LIMIT:
         raise ValueError(f"dominated_mask_cuda would take {smem[form]} bytes "
                          f"of shared memory per CTA, above {SMEM_LIMIT}")
@@ -170,36 +161,27 @@ def _check_device(cands, refs, ref_mask):
                          f"{ref_mask.device}")
 
 
-def _launch(cands, refs, ref_mask, lower_tri, tile_bytes, threads, held,
-            events=None, cta_ns=None):
+def _launch(cands, refs, ref_mask, lower_tri, events=(None, None)):
     """Allocate the output and scratch and launch the grids on the
-    current stream; the walk's CTA has ``threads`` threads, of which the
-    first ``held`` lanes of each warp hold a candidate (None: the form's
-    ``WALK_SHAPE``).  ``events``, when given, is a list of three recorded
-    CUDA events, recorded again before grid 1, between the grids and
-    after grid 2; ``cta_ns``, when given, an int64 tensor that receives
-    each walk CTA's start and end in ns.  Returns ``(out, scratch)``;
-    ``scratch`` is None without grid 1."""
+    current stream.  ``events``, when given, two recorded CUDA events,
+    recorded again before grid 1 and between the grids.  Returns
+    ``(out, scratch)``; ``scratch`` is None without grid 1."""
     b, c, d = cands.shape
     r = refs.shape[1]
     dev = cands.device
-    if threads is None or held is None:
-        threads, held = WALK_SHAPE["ring" if compacts(r, d, tile_bytes)
-                                   else "direct"]
     out = torch.empty((b, c), dtype=torch.bool, device=dev)
     ref_bs = refs.stride(0) if r else 0
     mask_bs = ref_mask.stride(0) if r else 0
     scratch = None
-    if compacts(r, d, tile_bytes):
+    if compacts(r, d):
         scratch = torch.empty(
             (scratch_words(b, r, d, ref_bs == 0 and mask_bs == 0),),
             dtype=torch.int32, device=dev)
     lib = _lib()
-    ev = (None,) * 3 if events is None else [e.cuda_event for e in events]
+    ev = [None if e is None else e.cuda_event for e in events]
     args = (cands.data_ptr(), refs.data_ptr(), ref_mask.data_ptr(),
             out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            b, c, r, d, ref_bs, mask_bs, int(lower_tri), tile_bytes, threads,
-            held, None if cta_ns is None else cta_ns.data_ptr(), *ev,
+            b, c, r, d, ref_bs, mask_bs, int(lower_tri), *ev,
             torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):   # the launch goes to the current device
         err = lib.dominated_mask_launch(*args)
@@ -222,8 +204,7 @@ def dominated_mask_cuda(cands: torch.Tensor, refs: torch.Tensor,
     if cands.shape[1] == 0:
         return torch.empty(cands.shape[:2], dtype=torch.bool,
                            device=cands.device)
-    out, _ = _launch(cands, refs, ref_mask, lower_tri, TILE_BYTES, None,
-                     None)
+    out, _ = _launch(cands, refs, ref_mask, lower_tri)
     dominated_mask_cuda.launches += 1
     return out
 
@@ -232,59 +213,45 @@ dominated_mask_cuda.launches = 0
 
 
 def dominance_stages(cands: torch.Tensor, refs: torch.Tensor,
-                     ref_mask: torch.Tensor, *, lower_tri: bool = False,
-                     tile_bytes: int = TILE_BYTES,
-                     threads: int | None = None, held: int | None = None):
-    """The dominance test with CUDA events around its grids and each walk
-    CTA timed on the card's clock, for measurement: it synchronises, and
-    its launches do not count on :func:`dominated_mask_cuda`.
-    ``tile_bytes`` sets the tile size, ``threads`` and ``held`` the
-    walk's CTA (by default the form's).
+                     ref_mask: torch.Tensor, *, lower_tri: bool = False):
+    """The dominance test with CUDA events around its grids, for
+    measurement: it synchronises, and its launches do not count on
+    :func:`dominated_mask_cuda`.
 
     Returns ``(out, info)``: the ``(B, C)`` flag, and the ms of each grid
     (``compact_ms``, 0.0 when grid 1 did not run, and ``walk_ms``),
     whether grid 1 ran (``compacted``), the valid reference rows of each
     compacted batch as the kernel counted them (``valid_rows``; from the
-    mask on the direct path), ``tile_rows``, the walk's ``shape``
-    (threads, held) and its CTAs' durations in microseconds
-    (``cta_us``: count, median, longest)."""
+    mask on the direct path) and ``tile_rows``."""
     _check_device(cands, refs, ref_mask)
-    check_args(cands, refs, ref_mask, tile_bytes)
+    check_args(cands, refs, ref_mask)
     b, c, d = cands.shape
     r = refs.shape[1]
-    if threads is None or held is None:
-        threads, held = WALK_SHAPE["ring" if compacts(r, d, tile_bytes)
-                                   else "direct"]
     events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    for e in events:                 # the CUDA events are made at a record
+    for e in events[:2]:             # the CUDA events are made at a record
         e.record()
-    ctas = -(-c // (threads // 32 * held)) * b
-    cta_ns = torch.zeros((ctas, 2), dtype=torch.int64, device=cands.device)
-    out, scratch = _launch(cands, refs, ref_mask, lower_tri, tile_bytes,
-                           threads, held, events, cta_ns)
+    out, scratch = _launch(cands, refs, ref_mask, lower_tri, events[:2])
+    events[2].record()
     events[2].synchronize()
     if scratch is not None:        # the counts end the scratch
         bc = 1 if refs.stride(0) == 0 and ref_mask.stride(0) == 0 else b
         valid = scratch[scratch.shape[0] - bc:].tolist()
     else:
         valid = ref_mask.sum(dim=1).tolist() if r else [0] * b
-    dur = (cta_ns[:, 1] - cta_ns[:, 0]).double() / 1e3
     info = {"compact_ms": (events[0].elapsed_time(events[1])
                            if scratch is not None else 0.0),
             "walk_ms": events[1].elapsed_time(events[2]),
             "compacted": scratch is not None, "valid_rows": valid,
-            "tile_rows": tile_rows(d, tile_bytes), "shape": (threads, held),
-            "cta_us": (ctas, float(dur.median()), float(dur.max()))}
+            "tile_rows": tile_rows(d)}
     return out, info
 
 
-def kernel_smem_bytes(d: int, tile_bytes: int = TILE_BYTES,
-                      r: int | None = None) -> dict[str, int]:
+def kernel_smem_bytes(d: int, r: int | None = None) -> dict[str, int]:
     """The shared memory the built kernel computes for each walk form
     (its ``dominated_mask_smem_bytes``), to hold
     :func:`dominance_smem_bytes` against on the card's host."""
     lib = _lib()
-    t = tile_rows(d, tile_bytes)
-    return {"ring": lib.dominated_mask_smem_bytes(d, t + 1, tile_bytes),
+    t = tile_rows(d)
+    return {"ring": lib.dominated_mask_smem_bytes(d, t + 1),
             "direct": lib.dominated_mask_smem_bytes(
-                d, t if r is None else min(r, t), tile_bytes)}
+                d, t if r is None else min(r, t))}

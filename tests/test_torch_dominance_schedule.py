@@ -45,8 +45,14 @@ SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 LANE = kernel._LANE_ROWS
 STEP = 32 * kernel._WARP_UNROLL            # rows per warp vote
 # candidates per walk CTA, the same for both forms
-CTA_ROWS = {t // 32 * h for t, h in kernel.WALK_SHAPE.values()}.pop()
+CTA_ROWS = {t // 32 * h for t, h in kernel._WALK_SHAPE.values()}.pop()
 CHUNK = kernel._THREADS * kernel._COMPACT_PER   # reference rows per chunk
+
+
+def _tile_rows(d, tile_bytes):
+    """The kernel's tile law at any tile size: the model runs smaller
+    tiles than the kernel's so that small inputs span many of them."""
+    return tile_bytes // (4 * d) // 32 * 32
 
 
 def _pairs(rows, x):
@@ -147,8 +153,8 @@ def staged_dominance(cands, refs, mask, *, lower_tri=False,
     (``tiles``) and whether grid 1 ran (``compacted``)."""
     b, c, d = cands.shape
     r = refs.shape[1]
-    t_rows = kernel.tile_rows(d, tile_bytes)
-    compacted = kernel.compacts(r, d, tile_bytes)
+    t_rows = _tile_rows(d, tile_bytes)
+    compacted = r > t_rows
     if compacted:
         dense, didx, count = compact_model(refs, mask)
         shared = dense.shape[0] == 1 and b > 1
@@ -410,9 +416,11 @@ def test_law_mirrors_the_source():
     assert c["kTileBytes"] == kernel.TILE_BYTES
     assert c["kStages"] == kernel._STAGES
     assert c["kThreads"] == kernel._THREADS
-    assert c["kWalkThreadsMax"] == kernel._WALK_THREADS_MAX
-    for threads, held in kernel.WALK_SHAPE.values():
-        assert threads <= c["kWalkThreadsMax"] and threads % 32 == 0
+    assert kernel._WALK_SHAPE == {
+        "direct": (c["kDirectThreads"], c["kDirectHeld"]),
+        "ring": (c["kRingThreads"], c["kRingHeld"])}
+    for threads, held in kernel._WALK_SHAPE.values():
+        assert 32 <= threads <= 1024 and threads % 32 == 0
         assert 1 <= held <= 32 and threads // 32 * held == CTA_ROWS
     assert c["kLaneRows"] == kernel._LANE_ROWS
     assert c["kWarpUnroll"] == kernel._WARP_UNROLL
@@ -423,18 +431,17 @@ def test_law_mirrors_the_source():
 
 @pytest.mark.parametrize("d", range(1, 13))
 def test_law_within_the_limit(d):
-    """At every d, at the kernel's tile and at the 32 KiB one timed beside
-    it, each form's CTA fits the 232,448 bytes one CTA may take."""
-    for tb in (kernel.TILE_BYTES, 32_768):
-        t = tb // (4 * d) // 32 * 32
-        assert kernel.tile_rows(d, tb) == t and t % 32 == 0 and t >= 32
-        law = kernel.dominance_smem_bytes(d, tb)
-        assert law == {"ring": 4 * (d + 1) * (32 + 2 * t),
-                       "direct": 4 * (d + 1) * t}
-        assert all(0 < v <= kernel.SMEM_LIMIT for v in law.values()), law
-        assert kernel.dominance_smem_bytes(d, tb, r=33)["direct"] == \
-            4 * (d + 1) * 64
-        assert kernel.dominance_smem_bytes(d, tb, r=0)["direct"] == 0
+    """At every d each form's CTA fits the 232,448 bytes one CTA may
+    take, and a tile holds whole 32-row steps, at least one."""
+    t = kernel.TILE_BYTES // (4 * d) // 32 * 32
+    assert kernel.tile_rows(d) == _tile_rows(d, kernel.TILE_BYTES) == t
+    assert t % 32 == 0 and t >= 32
+    law = kernel.dominance_smem_bytes(d)
+    assert law == {"ring": 4 * (d + 1) * (32 + 2 * t),
+                   "direct": 4 * (d + 1) * t}
+    assert all(0 < v <= kernel.SMEM_LIMIT for v in law.values()), law
+    assert kernel.dominance_smem_bytes(d, r=33)["direct"] == 4 * (d + 1) * 64
+    assert kernel.dominance_smem_bytes(d, r=0)["direct"] == 0
     assert kernel.tile_rows(4) == 1024
 
 
@@ -456,5 +463,7 @@ def test_check_args_raises_above_the_limit(monkeypatch):
     with pytest.raises(ValueError, match="shared memory"):
         kernel.check_args(cands, refs, mask)
     kernel.check_args(cands, refs[:, :100], mask[:, :100])   # direct fits
-    with pytest.raises(ValueError, match="fewer than 32 rows"):
-        kernel.check_args(cands, refs, mask, tile_bytes=256)
+    monkeypatch.setattr(kernel, "SMEM_LIMIT",
+                        kernel.dominance_smem_bytes(4, r=100)["direct"] - 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.check_args(cands, refs[:, :100], mask[:, :100])
