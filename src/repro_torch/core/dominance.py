@@ -13,6 +13,13 @@ The orders are bit-for-bit those of the reference:
 * every sort is stable and compares ``-0.0`` equal to ``+0.0`` (the
   reference's sorts canonicalise signed zeros); :func:`sort_key` makes
   that hold on every device, whatever its sort does with the sign bit.
+
+Subnormal numbers are flushed as XLA flushes them on the CPU (and as a
+TPU does): a comparison sees a subnormal operand as a zero of the same
+sign, an arithmetic result that is subnormal becomes a zero of the same
+sign, and sorts rank subnormals equal to both zeros.  Data movement
+(gathers, ``where``, compaction) keeps the stored bits.  Every
+comparison and sum here goes through :func:`flush_subnormal`.
 """
 
 from __future__ import annotations
@@ -21,9 +28,13 @@ import torch
 
 # the dominance entry the core modules call
 from repro_torch.kernels.dominance.ops import dominated_mask
+# the flush lives beside the dominance oracle, the lowest layer that
+# compares coordinates, so the kernels' plain versions share it
+from repro_torch.kernels.dominance.ref import flush_subnormal
 
 __all__ = [
-    "SENTINEL", "dominates", "dominated_mask", "region_volume",
+    "SENTINEL", "flush_subnormal", "dominates", "dominated_mask",
+    "region_volume",
     "monotone_score", "canonical_order", "apply_sentinel", "sort_key",
     "stable_argsort", "topk_order",
 ]
@@ -35,17 +46,19 @@ SENTINEL = 1.7e38
 
 def dominates(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """Scalar predicate: does point t dominate point s?"""
+    t, s = flush_subnormal(t), flush_subnormal(s)
     return torch.all(t <= s) & torch.any(t < s)
 
 
 def region_volume(pts: torch.Tensor) -> torch.Tensor:
     """Volume of the dominance region on [0,1]^d (paper §4.1):
     prod_k clip(1 - t[k], 0, 1), multiplied left to right as XLA's
-    reduce does (a one-attribute product is the factor itself)."""
-    f = torch.clamp(1.0 - pts, 0.0, 1.0)
+    reduce does (a one-attribute product is the factor itself), each
+    partial product flushed."""
+    f = torch.clamp(1.0 - flush_subnormal(pts), 0.0, 1.0)
     v = f[..., 0].clone()
     for k in range(1, pts.shape[-1]):
-        v = v * f[..., k]
+        v = flush_subnormal(v * f[..., k])
     return v
 
 
@@ -54,28 +67,33 @@ def monotone_score(pts: torch.Tensor,
     """The strictly monotone SFS presort score (sum of the attributes).
 
     Invalid rows score +inf so they sort last.  A one-attribute sum is
-    the attribute itself (XLA folds that reduce to a copy, keeping -0.0);
-    wider sums start from +0.0."""
+    the attribute itself (XLA folds that reduce to a copy, keeping -0.0
+    and a subnormal's bits); wider sums start from +0.0 and flush each
+    operand and each partial sum."""
     d = pts.shape[-1]
     if d == 1:
         s = pts[..., 0].clone()
     else:
+        x = flush_subnormal(pts)
         s = torch.zeros(pts.shape[:-1], dtype=pts.dtype, device=pts.device)
         for k in range(d):
-            s = s + pts[..., k]
+            s = flush_subnormal(s + x[..., k])
     if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, float("inf")))
     return s
 
 
 def sort_key(v: torch.Tensor) -> torch.Tensor:
-    """``v`` with -0.0 replaced by +0.0, so that any sort ranks the two
-    zeros as equal and a stable sort keeps them in input order."""
-    return torch.where(v == 0, torch.zeros_like(v), v)
+    """``v`` with -0.0 and the subnormals replaced by +0.0, so that any
+    sort ranks them all as equal and a stable sort keeps them in input
+    order."""
+    return torch.where(v.abs() < torch.finfo(v.dtype).tiny,
+                       torch.zeros_like(v), v)
 
 
 def stable_argsort(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Stable ascending argsort with signed zeros compared equal."""
+    """Stable ascending argsort with signed zeros and subnormals compared
+    equal."""
     if v.is_floating_point():
         v = sort_key(v)
     return torch.sort(v, dim=dim, stable=True).indices

@@ -27,8 +27,11 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "sources", "build_all", "library",
 _PKG = Path(__file__).resolve().parents[1]          # src/repro_torch
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 
+# --ftz=true: f32 comparisons, min/max and arithmetic treat a subnormal
+# operand or result as a zero of its sign, as XLA does on the CPU (the
+# reference); loads, stores and moves keep the stored bits
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-std=c++17", "--ftz=true", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 

@@ -28,7 +28,10 @@ Implementations, picked by ``repro_torch.kernels.backend``:
                  and the kernel is held against it on the card.
 
 bfloat16 inputs are widened to float32 first: the widening is exact and
-keeps the order, so no bit of the answer changes.
+keeps the order, so no bit of the answer changes.  Subnormal coordinates
+compare as zeros of their sign, as in XLA on the CPU: the plain version
+compares flushed copies (``ref.flush_subnormal``), the kernel is built
+with ``--ftz=true``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.dominance import kernel as _kernel
+from repro_torch.kernels.dominance.ref import flush_subnormal
 
 __all__ = ["dominated_mask", "dominated_mask_torch"]
 
@@ -62,8 +66,15 @@ def dominated_mask_torch(cands: torch.Tensor, refs: torch.Tensor,
     (B, cands, refs) temporary holds at most ``_PAIR_BUDGET`` elements);
     the result is an OR, so the blocking changes no bit.  References past
     the last row that is valid in some batch are not tested: they could
-    not set a bit (one host sync)."""
+    not set a bit (one host sync).  Coordinates are compared flushed
+    (:func:`flush_subnormal`); references shared by every batch (batch
+    stride 0) are flushed once."""
     b, c, d = cands.shape
+    cands = flush_subnormal(cands)
+    if b > 1 and refs.stride(0) == 0:
+        refs = flush_subnormal(refs[:1]).expand(refs.shape)
+    else:
+        refs = flush_subnormal(refs)
     out = torch.zeros((b, c), dtype=torch.bool, device=cands.device)
     r_end = _last_valid_row(ref_mask)
     if lower_tri:

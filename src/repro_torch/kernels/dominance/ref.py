@@ -12,14 +12,26 @@ dominator strictly earlier.
 
 Counterpart of ``repro.kernels.dominance.ref``: the oracle of the
 blocked dominance entry (``ops.dominated_mask``), of the sweep and of the
-O(N^2) membership mask.
+O(N^2) membership mask.  Coordinates are compared as XLA compares them
+on the CPU: a subnormal operand counts as a zero of its sign
+(:func:`flush_subnormal`).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["dominance_matrix_ref", "dominated_mask_ref"]
+__all__ = ["flush_subnormal", "dominance_matrix_ref", "dominated_mask_ref"]
+
+
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every subnormal value replaced by a zero of its sign,
+    as XLA on the CPU (and a TPU) treats f32 operands and results; zeros,
+    normal numbers, infinities and NaN are kept bit for bit.  Integer
+    and bool tensors are returned as they are."""
+    if not x.is_floating_point():
+        return x
+    return torch.where(x.abs() < torch.finfo(x.dtype).tiny, x * 0.0, x)
 
 
 def dominance_matrix_ref(refs: torch.Tensor,
@@ -27,6 +39,7 @@ def dominance_matrix_ref(refs: torch.Tensor,
     """(R, C) bool matrix: ``out[j, i] = refs[j] dominates cands[i]``.
 
     Built one attribute at a time, so the largest temporary is (R, C)."""
+    refs, cands = flush_subnormal(refs), flush_subnormal(cands)
     r, c = refs.shape[0], cands.shape[0]
     le = torch.ones((r, c), dtype=torch.bool, device=cands.device)
     lt = torch.zeros((r, c), dtype=torch.bool, device=cands.device)

@@ -26,6 +26,11 @@ Implementations, picked by ``repro_torch.kernels.backend``:
 ``wtile`` is schedule only: the plain version tests the window in tiles
 of that many rows, the kernel stages it in tiles of its own size, and
 no tile changes a bit.
+
+Subnormal coordinates compare as zeros of their sign, as in XLA on the
+CPU, while the window keeps the rows' stored bits: the plain version
+tests flushed copies (``dominance.ref.flush_subnormal``) and appends the
+rows themselves; the kernel is built with ``--ftz=true``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.backend import KernelSpec, resolve_spec
+from repro_torch.kernels.dominance.ref import flush_subnormal
 from repro_torch.kernels.sfs import kernel as _kernel
 from repro_torch.kernels.sfs import ref as _ref
 
@@ -64,28 +70,34 @@ def sfs_sweep_torch(pts_s: torch.Tensor, mask_s: torch.Tensor, *,
     against the live window rows (slots past the count hold the sentinel
     and are inert, so the bound is only the work), and the append at
     ``count + prefix - 1``.  Empty window slots and invalid candidates
-    are sentinel-filled, so no validity mask enters a dominance test."""
+    are sentinel-filled, so no validity mask enters a dominance test.
+    The tests read a flushed copy of the rows and of the window; the
+    window itself receives the rows' stored bits."""
     p, npad, d = pts_s.shape
     dev = pts_s.device
+    flushed = flush_subnormal(pts_s)
     # row wcap is a dump slot for the keeps that do not fit
     window = torch.full((p, wcap + 1, d), sentinel, dtype=pts_s.dtype,
                         device=dev)
+    window_f = window.clone()
     wmask = torch.zeros((p, wcap + 1), dtype=torch.bool, device=dev)
     count = torch.zeros((p,), dtype=torch.int64, device=dev)
     tri = torch.ones((block, block), dtype=torch.bool, device=dev).triu(1)
     step = wtile or _WINDOW_CHUNK
     for b in range(npad // block):
         x = pts_s[:, b * block:(b + 1) * block]
+        xf = flushed[:, b * block:(b + 1) * block]
         xm = mask_s[:, b * block:(b + 1) * block]
-        dom = (_dominated_by(x, x) & tri).any(dim=1)
+        dom = (_dominated_by(xf, xf) & tri).any(dim=1)
         live = int(count.clamp(max=wcap).max()) if p else 0
         for t0 in range(0, live, step):
-            w = window[:, t0:min(t0 + step, live)]
-            dom |= _dominated_by(w, x).any(dim=1)
+            w = window_f[:, t0:min(t0 + step, live)]
+            dom |= _dominated_by(w, xf).any(dim=1)
         keep = xm & ~dom
         pos = count[:, None] + torch.cumsum(keep, dim=1) - 1
         dest = torch.where(keep & (pos < wcap), pos, wcap)
         window.scatter_(1, dest[..., None].expand(-1, -1, d), x)
+        window_f.scatter_(1, dest[..., None].expand(-1, -1, d), xf)
         wmask.scatter_(1, dest, keep)
         count += keep.sum(dim=1)
     return (window[:, :wcap].contiguous(), wmask[:, :wcap].contiguous(),

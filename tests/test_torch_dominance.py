@@ -6,9 +6,8 @@
 through their int32 bits, so ``-0.0`` against ``+0.0`` is a failure;
 permutations and masks must be equal element for element.
 
-Inputs hold no subnormal numbers: XLA on the CPU flushes them to zero in
-arithmetic and comparisons, where PyTorch keeps them (see ROADMAP.md,
-"Faults found in the port against the reference").
+Subnormal inputs are held in tests/test_torch_subnormal.py: the port
+flushes them in comparisons and arithmetic as XLA on the CPU does.
 """
 
 import jax.numpy as jnp
