@@ -683,11 +683,12 @@ def queries_phase(data, oneshot, cfg, tag, kernels):
             check(leaves_equal(buf, ref) and stats_equal(stats, rstats),
                   f"{dist} {name}: result or stats differ from impl='torch'")
             e2e, runs = time_ms(lambda: api.parallel_skyline(x, cfg=qcfg))
-            buckets, _ = parallel.partition_stage(x, mask, qcfg)
+            buckets, meta, _ = parallel.partition_stage(x, mask, qcfg)
             sky, _ = parallel.local_stage(buckets.points, buckets.mask, qcfg)
             t_local, _ = time_ms(lambda: parallel.local_stage(
                 buckets.points, buckets.mask, qcfg))
-            t_merge, _ = time_ms(lambda: parallel.merge_stage(sky, qcfg))
+            t_merge, _ = time_ms(lambda: parallel.merge_stage(sky, meta,
+                                                              qcfg))
             dropped = (f", rep filter dropped "
                        f"{int(stats['rep_filter_dropped'])}"
                        if "rep_filter_dropped" in stats else "")
@@ -1065,7 +1066,7 @@ def main() -> None:
     def sweep_calls(x):
         """The two sweep calls of one query, with their inputs."""
         mask = torch.ones((x.shape[0],), dtype=torch.bool, device=dev)
-        buckets, _ = parallel.partition_stage(x, mask, cfg)
+        buckets, _, _ = parallel.partition_stage(x, mask, cfg)
         local_cap = cfg.local_capacity or buckets.points.shape[1]
         first = sfs.sweep_inputs(buckets.points, buckets.mask,
                                  capacity=local_cap, block=cfg.block)
@@ -1082,12 +1083,12 @@ def main() -> None:
               f"d={D_MAIN}: {e2e:.3f} ms best of 3 "
               f"({', '.join(f'{t:.3f}' for t in runs)})")
         mask = torch.ones((x.shape[0],), dtype=torch.bool, device=dev)
-        buckets, _ = parallel.partition_stage(x, mask, cfg)
+        buckets, meta, _ = parallel.partition_stage(x, mask, cfg)
         sky, _ = parallel.local_stage(buckets.points, buckets.mask, cfg)
         t_part, _ = time_ms(lambda: parallel.partition_stage(x, mask, cfg))
         t_local, _ = time_ms(
             lambda: parallel.local_stage(buckets.points, buckets.mask, cfg))
-        t_merge, _ = time_ms(lambda: parallel.merge_stage(sky, cfg))
+        t_merge, _ = time_ms(lambda: parallel.merge_stage(sky, meta, cfg))
         print(f"{tag} stages of one {dist} query N={N_MAIN} d={D_MAIN}: "
               f"partition {t_part:.3f} ms, local {t_local:.3f} ms, merge "
               f"{t_merge:.3f} ms")

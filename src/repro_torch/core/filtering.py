@@ -1,23 +1,60 @@
-"""Representative Filtering (paper §4.1).
+"""Filtering layers: Grid Filtering (paper §3.2) and Representative
+Filtering (§4.1).
 
-Counterpart of the representative half of ``repro.core.filtering``:
-``select_representatives`` and ``filter_by_representatives``.  Grid
-Filtering (§3.2) comes with the grid strategy (ROADMAP.md item 4a).
-
-Both functions take an optional leading batch axis, as the reference's
-``vmap`` over partitions gives them: points (P, n, d), mask (P, n).  The
-dominance tests inside are one launch each, whatever P.
+Counterpart of ``repro.core.filtering``.  ``grid_filter`` drops every
+tuple whose grid cell is strictly grid-dominated by an occupied cell; it
+is integer work on the cell coordinates (no kernel).  The
+representative functions take an optional leading batch axis, as the
+reference's ``vmap`` over partitions gives them: points (P, n, d), mask
+(P, n).  The dominance tests inside are one launch each, whatever P.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.dominance import (apply_sentinel, dominated_mask,
                                         monotone_score, region_volume,
                                         topk_order)
+from repro_torch.core.partition import grid_cell_coords
 
-__all__ = ["select_representatives", "filter_by_representatives"]
+__all__ = ["grid_filter", "select_representatives",
+           "filter_by_representatives", "GridFilterResult"]
+
+
+class GridFilterResult(NamedTuple):
+    mask: torch.Tensor          # updated tuple validity
+    pruned_cells: torch.Tensor  # (m,)*d bool, cells disregarded entirely
+    dropped: torch.Tensor       # () int32 tuples dropped
+
+
+def _exclusive_cumor(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """OR of strictly earlier entries along ``axis`` (x in {0, 1})."""
+    xi = x.to(torch.int32)
+    return (torch.cumsum(xi, dim=axis, dtype=torch.int32) - xi) > 0
+
+
+def grid_filter(pts: torch.Tensor, mask: torch.Tensor,
+                m: int) -> GridFilterResult:
+    """Grid Filtering (paper §3.2): a cell strictly grid-dominated by an
+    occupied cell is disregarded entirely.  Exclusive cumulative ORs
+    along every axis give exactly "some occupied cell has every
+    coordinate strictly smaller".  The occupancy is an int32 count
+    (``index_put_`` with accumulation); the cumulative sums are integer
+    and exact."""
+    n, d = pts.shape
+    coords = grid_cell_coords(pts, m)
+    idx = tuple(coords[:, i].long() for i in range(d))
+    occ = torch.zeros((m,) * d, dtype=torch.int32, device=pts.device)
+    occ.index_put_(idx, mask.to(torch.int32), accumulate=True)
+    strict = occ > 0
+    for axis in range(d):
+        strict = _exclusive_cumor(strict, axis)
+    keep = mask & ~strict[idx]
+    dropped = (mask.sum() - keep.sum()).to(torch.int32)
+    return GridFilterResult(keep, strict, dropped)
 
 
 def select_representatives(pts: torch.Tensor, mask: torch.Tensor, k: int, *,

@@ -2,7 +2,7 @@
 
 Counterpart of ``repro.core.noseq`` (``pd_row_mask`` and
 ``relative_skyline_mask``; the per-row ``relative_rows_mask`` comes with
-the tree merge, ROADMAP.md item 4d).  After phase 1, with u the union of
+the tree merge across devices, ROADMAP.md item 8).  After phase 1, with u the union of
 the local skylines u_i, worker i removes its globally dominated tuples by
 testing u_i only against its *potential dominators* pd_i, a subset of
 u \\ u_i (Proposition 2):

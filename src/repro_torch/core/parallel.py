@@ -3,8 +3,10 @@
 Counterpart of ``repro.core.parallel`` with ``mesh=None``.  The three
 phases:
 
-  partition  the SLICED id map and `bucketize` routing into (p, C, d)
-             buckets;
+  partition  the partition-id map of the strategy (random, grid with
+             optional Grid Filtering, angular or sliced) and `bucketize`
+             routing into (p, C, d) buckets, beside the reference's
+             ``meta`` (p, m, each partition's grid cell and index);
   local      optional Representative Filtering (paper §4.1: pick
              ``rep_k`` representatives per partition, drop the dominated
              ones from the shared pool, filter every partition against
@@ -25,9 +27,11 @@ axis, so Q queries cost the launches of one.  Shapes depend only on the
 input size and the config; the plain versions sync with the host, the
 kernels do not.
 
-The random, grid and angular strategies, the tree merge and the
-multi-device mesh raise ``NotImplementedError`` naming their item of
-ROADMAP.md.
+``merge='tree'`` without a mesh runs the flat merge, as the reference
+does without a workers axis (the merge mode changes the collective
+schedule, never the bits).  The multi-device mesh, and with it the tree
+schedule across devices, raises ``NotImplementedError`` naming its item
+of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -81,18 +85,17 @@ def _not_ported(what: str, item: str):
 
 
 def check_supported(cfg: SkyConfig, mesh=None) -> None:
-    """Raise for every part of the config this port does not run yet."""
+    """Raise for every part of the config this port does not run yet:
+    the multi-device mesh (with it the tree merge across devices)."""
     if cfg.strategy not in ("random", "grid", "angular", "sliced"):
         raise ValueError(f"unknown strategy {cfg.strategy!r}")
-    if cfg.strategy != "sliced":
-        raise _not_ported(f"strategy {cfg.strategy!r}", "4a")
     if cfg.merge not in ("flat", "tree", "auto"):
         raise ValueError(f"unknown merge mode {cfg.merge!r} "
                          f"(expected flat | tree | auto)")
-    if cfg.merge == "tree":
-        raise _not_ported("the tree merge", "4d")
     if mesh is not None:
-        raise _not_ported("the multi-device mesh", "8")
+        what = ("the tree merge across devices" if cfg.merge == "tree"
+                else "the multi-device mesh")
+        raise _not_ported(what, "8")
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -110,28 +113,60 @@ def effective_parts(cfg: SkyConfig, d: int) -> tuple[int, int]:
     return cfg.p, 0
 
 
-def partition_stage(pts: torch.Tensor, mask: torch.Tensor, cfg: SkyConfig):
-    """Partition-id map + routing into (p, C, d) buckets.  A (Q, N, d)
-    batch is routed query by query and stacked."""
+def _grid_cells(p: int, m: int, d: int, device) -> torch.Tensor:
+    """(p, d) int32 cell coordinates of each grid partition index."""
+    i = torch.arange(p, dtype=torch.int32, device=device)
+    return torch.stack([(i // (m ** k)) % m for k in range(d)], dim=1)
+
+
+def partition_stage(pts: torch.Tensor, mask: torch.Tensor, cfg: SkyConfig,
+                    generator: torch.Generator | None = None):
+    """Partition-id map + routing into (p, C, d) buckets.
+
+    Returns ``(buckets, meta, stats)`` as the reference does, with
+    ``meta = {p, m, cells (p, d) int32, part_idx (p,) int32}``.  The
+    random strategy draws its ids from ``generator`` (one seeded with 0
+    on the data's device when None).  A (Q, N, d) batch is routed query
+    by query and stacked; ``meta`` is the same for every query."""
     check_supported(cfg)
     if pts.ndim == 3:
-        outs = [partition_stage(x, m, cfg) for x, m in zip(pts, mask)]
+        if cfg.strategy == "random" and generator is None:
+            generator = torch.Generator(device=pts.device).manual_seed(0)
+        outs = [partition_stage(x, m, cfg, generator)
+                for x, m in zip(pts, mask)]
         buckets = partition.Buckets(*(torch.stack(leaf) for leaf in
-                                      zip(*(b for b, _ in outs))))
-        return buckets, {k: torch.stack([s[k] for _, s in outs])
-                         for k in outs[0][1]}
+                                      zip(*(b for b, _, _ in outs))))
+        return buckets, outs[0][1], {
+            k: torch.stack([s[k] for _, _, s in outs]) for k in outs[0][2]}
     n, d = pts.shape
-    p, _ = effective_parts(cfg, d)
-    ids = partition.sliced_part_ids(pts, mask, p, cfg.sliced_dim)
+    dev = pts.device
+    p, m = effective_parts(cfg, d)
+    stats: dict[str, Any] = {}
+    cells = torch.zeros((p, d), dtype=torch.int32, device=dev)
+    if cfg.strategy == "random":
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        ids = partition.random_part_ids(generator, n, p, device=dev)
+    elif cfg.strategy == "sliced":
+        ids = partition.sliced_part_ids(pts, mask, p, cfg.sliced_dim)
+    elif cfg.strategy == "grid":
+        if cfg.grid_filter:
+            gf = filtering.grid_filter(pts, mask, m)
+            mask = gf.mask
+            stats["grid_filter_dropped"] = gf.dropped
+        ids = partition.grid_part_ids(pts, m)
+        cells = _grid_cells(p, m, d, dev)
+    else:
+        ids = partition.angular_part_ids(pts, m)
     cap = cfg.bucket_capacity or max(
         1, int(cfg.bucket_factor * _ceil_div(n, p)) + 1)
     buckets = partition.bucketize(pts, mask, ids, p, cap)
-    stats: dict[str, Any] = {
-        "bucket_counts": buckets.counts,
-        "bucket_overflow": buckets.overflow,
-        "n_valid": mask.sum().to(torch.int32),
-    }
-    return buckets, stats
+    meta = {"p": p, "m": m, "cells": cells,
+            "part_idx": torch.arange(p, dtype=torch.int32, device=dev)}
+    stats["bucket_counts"] = buckets.counts
+    stats["bucket_overflow"] = buckets.overflow
+    stats["n_valid"] = mask.sum().to(torch.int32)
+    return buckets, meta, stats
 
 
 def _drop_queries(result, stats, single: bool):
@@ -205,19 +240,22 @@ def compact_union(sky: SkyBuffer, cfg: SkyConfig) -> SkyBuffer:
                    min(flat.shape[-2], max(cfg.capacity, 1)))
 
 
-def _noseq_mask(sky: SkyBuffer, cfg: SkyConfig, u: SkyBuffer):
+def _noseq_mask(sky: SkyBuffer, meta, cfg: SkyConfig, u: SkyBuffer):
     """NoSeq (paper §4.2) on (Q, p, C_loc, d) local skylines: every
     partition against its potential dominators among the compacted union
-    ``u`` of its query, all Q x p in ONE dominance launch.  Returns the
-    (Q, p * C_loc) membership mask."""
+    ``u`` of its query, all Q x p in ONE dominance launch.  Each union
+    row carries its partition's index and grid cell from ``meta``.
+    Returns the (Q, p * C_loc) membership mask."""
     q, p, local_cap, d = sky.points.shape
     cap_u = u.points.shape[-2]
     dev = sky.points.device
-    # each union row's source partition, in the compacted order
-    parts = torch.arange(p, device=dev).repeat_interleave(local_cap)
-    ref_parts = parts[compact_order(sky.mask.reshape(q, -1), cap_u)]
-    pd = noseq.pd_row_mask(cfg.strategy, torch.arange(p, device=dev),
-                           ref_parts[:, None, :])            # (Q, p, cap_u)
+    part_idx, cells = meta["part_idx"], meta["cells"]
+    # each union row's source partition and cell, in the compacted order
+    order = compact_order(sky.mask.reshape(q, -1), cap_u)
+    ref_parts = part_idx.repeat_interleave(local_cap)[order]
+    ref_cells = cells.repeat_interleave(local_cap, dim=0)[order]
+    pd = noseq.pd_row_mask(cfg.strategy, part_idx, ref_parts[:, None, :],
+                           cells, ref_cells[:, None])        # (Q, p, cap_u)
     keep = noseq.relative_skyline_mask(
         sky.points.reshape(q * p, local_cap, d),
         sky.mask.reshape(q * p, local_cap),
@@ -228,10 +266,13 @@ def _noseq_mask(sky: SkyBuffer, cfg: SkyConfig, u: SkyBuffer):
     return keep.reshape(q, p * local_cap)
 
 
-def merge_stage(sky: SkyBuffer, cfg: SkyConfig):
+def merge_stage(sky: SkyBuffer, meta, cfg: SkyConfig):
     """Phase 2 on (p, C_loc, d) local skylines, or (Q, p, C_loc, d): the
     flat sequential merge (compact the union, sweep it: the second sweep
-    launch) or NoSeq (one dominance launch); then the canonical order."""
+    launch) or NoSeq (one dominance launch, each partition's potential
+    dominators from ``meta``'s indices and cells); then the canonical
+    order.  ``merge='tree'`` runs the same flat math: there is no
+    workers axis to reduce over."""
     check_supported(cfg)
     single = sky.points.ndim == 3
     if single:
@@ -250,7 +291,7 @@ def merge_stage(sky: SkyBuffer, cfg: SkyConfig):
                           final.overflow | u.overflow)
     else:
         all_pts = sky.points.flatten(1, 2)
-        all_mask = _noseq_mask(sky, cfg, u)
+        all_mask = _noseq_mask(sky, meta, cfg, u)
         # canonical order before compaction: the same order the
         # sequential merge emits
         order = canonical_order(all_pts, all_mask)
@@ -260,10 +301,10 @@ def merge_stage(sky: SkyBuffer, cfg: SkyConfig):
     return _drop_queries(final, {"union_size": union_size}, single)
 
 
-def _local_merge(bufs, bmask, *, cfg: SkyConfig, generator=None):
+def _local_merge(bufs, bmask, meta, *, cfg: SkyConfig, generator=None):
     """Phase 1 + phase 2 of one query, or of Q with a leading axis."""
     sky, s2 = local_stage(bufs, bmask, cfg, generator=generator)
-    final, s3 = merge_stage(sky, cfg)
+    final, s3 = merge_stage(sky, meta, cfg)
     return final, dict(s2, **s3)
 
 
@@ -275,10 +316,11 @@ def parallel_skyline(pts, mask=None, *, cfg: SkyConfig = SkyConfig(),
     ``pts`` is an (N, d) array or tensor and ``mask`` an optional (N,)
     validity mask; both are moved to ``device``, which is the card unless
     the caller passes ``device="cpu"`` (without CUDA that raises
-    ``RuntimeError``).  ``generator`` draws the representatives of
-    ``rep_filter='random'`` (a generator seeded with 0 on that device
-    when None).  Returns ``(SkyBuffer, stats)``, every leaf a tensor on
-    that device."""
+    ``RuntimeError``).  ``generator`` draws the partition ids of
+    ``strategy='random'`` and the representatives of
+    ``rep_filter='random'``, in that order (a generator seeded with 0 on
+    that device when None).  Returns ``(SkyBuffer, stats)``, every leaf
+    a tensor on that device."""
     from repro_torch.core import incremental
     check_supported(cfg, mesh)
     pts, mask = as_inputs(pts, mask, device)

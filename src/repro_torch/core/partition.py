@@ -1,21 +1,32 @@
-"""Partitioning: the SLICED strategy and the routing into buckets.
+"""Partitioning strategies (paper §3): RANDOM, GRID, ANGULAR, SLICED.
 
 Counterpart of ``repro.core.partition``.  A strategy maps every tuple to
 a partition id in [0, p); `bucketize` routes tuples into fixed-capacity
 per-partition buckets, the static-shape analogue of Spark's shuffle.
-The random, grid and angular id maps are not ported yet.
+
+The grid and angular maps are bit for bit the reference's ids: their
+arithmetic flushes subnormals (``core.dominance.flush_subnormal``), and
+the angular tail sums are accumulated from the last attribute, as the
+reference's reversed cumulative sum adds.  ``atan2`` is the device's
+own, so angles may differ in the last bit; the ids are what is held
+against the reference.  RANDOM draws from a ``torch.Generator``, which
+cannot reproduce ``jax.random``'s bits: the ids are balanced the same
+way, not equal.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.dominance import SENTINEL, stable_argsort
+from repro_torch.core.dominance import (SENTINEL, flush_subnormal,
+                                        stable_argsort)
 
-__all__ = ["Buckets", "sliced_part_ids", "bucketize", "grid_num_parts",
-           "angular_num_parts", "slices_for_target_parts"]
+__all__ = ["Buckets", "random_part_ids", "grid_cell_coords", "grid_part_ids",
+           "angular_part_ids", "sliced_part_ids", "bucketize",
+           "grid_num_parts", "angular_num_parts", "slices_for_target_parts"]
 
 
 class Buckets(NamedTuple):
@@ -23,6 +34,68 @@ class Buckets(NamedTuple):
     mask: torch.Tensor      # (p, C) bool
     counts: torch.Tensor    # (p,) int32 true per-partition populations
     overflow: torch.Tensor  # () bool, some partition exceeded capacity
+
+
+def random_part_ids(generator: torch.Generator | None, n: int, p: int, *,
+                    device=None) -> torch.Tensor:
+    """Balanced random assignment (paper §3.1): a random permutation of
+    ``arange(n) % p``, exactly equi-numerous when p divides n.  Drawn
+    from ``generator`` on its device (the default generator of
+    ``device`` when None); the ids are made on ``device``, the
+    generator's by default."""
+    gdev = generator.device if generator is not None else device
+    perm = torch.randperm(n, generator=generator, device=gdev)
+    ids = (torch.arange(n, dtype=torch.int32, device=gdev) % p)[perm]
+    return ids.to(device if device is not None else gdev)
+
+
+def grid_cell_coords(pts: torch.Tensor, m: int) -> torch.Tensor:
+    """(N, d) int32 grid coordinates on [0,1]^d with m slices per dim."""
+    cell = torch.floor(flush_subnormal(flush_subnormal(pts) * m))
+    return torch.clamp(cell, 0, m - 1).to(torch.int32)
+
+
+def _radix_sum(coords: torch.Tensor, m: int) -> torch.Tensor:
+    """sum_i coords[:, i] * m^i in int32."""
+    radix = m ** torch.arange(coords.shape[1], dtype=torch.int32,
+                              device=coords.device)
+    return (coords * radix).sum(dim=1, dtype=torch.int32)
+
+
+def grid_part_ids(pts: torch.Tensor, m: int) -> torch.Tensor:
+    """p(t) = sum_i floor(t[A_i] * m) * m^(i-1) (paper §3.2)."""
+    return _radix_sum(grid_cell_coords(pts, m), m)
+
+
+def angular_part_ids(pts: torch.Tensor, m: int) -> torch.Tensor:
+    """Hyperspherical partitioning (paper §3.3, Eq. 1): a grid on the
+    d - 1 angular coordinates, phi_i = atan(sqrt(sum_{j>i} x_j^2) / x_i).
+
+    The tail sums are accumulated one attribute at a time from the last,
+    as the reference's reversed ``cumsum`` adds (``torch.cumsum`` on the
+    flipped array uses another order and other bits); every product, sum
+    and angle is flushed.  The ids are those of the reference under
+    ``jit``, as its pipeline runs them."""
+    n, d = pts.shape
+    if d < 2:
+        return torch.zeros((n,), dtype=torch.int32, device=pts.device)
+    x = flush_subnormal(pts.to(torch.float32))
+    x2 = flush_subnormal(x * x)
+    tails = [torch.zeros((n,), dtype=torch.float32, device=pts.device)]
+    acc = x2[:, d - 1]
+    for i in range(d - 2, -1, -1):
+        tails.append(acc)              # tail[i] = sum_{j > i} x_j^2
+        acc = flush_subnormal(acc + x2[:, i])
+    tail = torch.stack(tails[::-1][:d - 1], dim=1)
+    phi = flush_subnormal(torch.atan2(flush_subnormal(torch.sqrt(tail)),
+                                      x[:, :d - 1]))    # [0, pi/2]
+    # the reference's 2.0 * phi / pi * m runs under jit, where XLA folds
+    # the constants into one product with f32((2 / pi) * m)
+    scale = float(np.float32(np.float32(2.0) / np.float32(np.pi))
+                  * np.float32(m))
+    scaled = flush_subnormal(phi * scale)
+    slot = torch.clamp(torch.floor(scaled), 0, m - 1).to(torch.int32)
+    return _radix_sum(slot, m)
 
 
 def sliced_part_ids(pts: torch.Tensor, mask: torch.Tensor, p: int,

@@ -270,3 +270,43 @@ def test_hypothesis_full_pipeline_matches_jax(rep, noseq, seed):
     members = tapi.skyline_mask_exact(x, device="cpu").numpy()
     got = set(map(tuple, buf.points[buf.mask].numpy().tolist()))
     assert got == set(map(tuple, x[members].tolist()))
+
+
+@pytest.mark.parametrize("d,m", [(1, 3), (2, 4), (3, 2), (4, 3), (6, 2)])
+@pytest.mark.parametrize("kind", ["uniform", "ties"])
+def test_grid_filter_matches_jax(d, m, kind):
+    """The kept mask, the pruned cells and the dropped count."""
+    rng = np.random.default_rng(40 + d * m)
+    if kind == "uniform":
+        x = rng.random((700, d)).astype(np.float32)
+    else:
+        x = _tie_heavy(rng, 700, d, levels=m + 1, zero_rows=5)
+    mask = rng.random(700) > 0.15
+    want = jfilt.grid_filter(jnp.asarray(x), jnp.asarray(mask), m)
+    got = tfilt.grid_filter(torch.from_numpy(x), torch.from_numpy(mask), m)
+    for g, w, name in zip(got, want, tfilt.GridFilterResult._fields):
+        assert g.numpy().dtype == np.asarray(w).dtype, name
+        _eq(g, np.asarray(w), name)
+    # every dropped row is dominated by a kept one
+    members = tapi.skyline_mask_exact(x, mask, device="cpu").numpy()
+    assert not (members & ~got.mask.numpy()).any()
+
+
+@pytest.mark.parametrize("grid_filter", [True, False])
+@pytest.mark.parametrize("opt", [dict(noseq=True),
+                                 dict(noseq=True, rep_filter="sorted")],
+                         ids=["noseq", "noseq+sorted"])
+def test_grid_noseq_with_cells_matches_jax(grid_filter, opt):
+    """NoSeq under the grid strategy reads each partition's cell: the
+    potential dominators are the rows of weakly smaller cells."""
+    rng = np.random.default_rng(8)
+    x = _anticorrelated(rng, 900, 3)
+    mask = rng.random(900) > 0.1
+    buf, stats = _run_both(x, mask, strategy="grid", p=8, bucket_factor=6.0,
+                           grid_filter=grid_filter, rep_k=8, **opt)
+    assert ("grid_filter_dropped" in stats) == grid_filter
+    assert not bool(buf.overflow)
+    plain, _ = tapi.parallel_skyline(x, mask, cfg=tapi.SkyConfig(p=4),
+                                     device="cpu")
+    for g, w in zip(buf, plain):
+        _eq(g, w.numpy())

@@ -131,3 +131,64 @@ def test_skyline_mask_exact_matches_jax():
     want = japi.skyline_mask_exact(jnp.asarray(x), jnp.asarray(mask))
     got = tapi.skyline_mask_exact(x, mask, device="cpu")
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def feed_reference_random_ids(monkeypatch, keys):
+    """Make the port's random strategy take the reference's ids: the
+    i-th call of ``random_part_ids`` returns
+    ``repro.core.partition.random_part_ids(keys[i], n, p)``
+    (ROADMAP.md, contract 5).  Returns the list of keys not yet used."""
+    left = list(keys)
+
+    def ids(generator, n, p, *, device=None):
+        return torch.from_numpy(np.array(
+            jpart.random_part_ids(left.pop(0), n, p))).to(device)
+
+    monkeypatch.setattr(tpart, "random_part_ids", ids)
+    return left
+
+
+STRATEGY_OPTS = {"sequential": {}, "noseq": dict(noseq=True),
+                 "sorted": dict(rep_filter="sorted")}
+
+
+@pytest.mark.parametrize("merge", ["flat", "tree"])
+@pytest.mark.parametrize("opt", list(STRATEGY_OPTS))
+@pytest.mark.parametrize("strategy", ["random", "grid", "angular", "sliced"])
+def test_strategies_match_jax(strategy, opt, merge, monkeypatch):
+    """Every strategy through parallel_skyline: every leaf and stat; the
+    random strategy given the reference's ids.  Without overflow the
+    buffer is the default configuration's answer."""
+    import jax
+    x, mask = _data("anticorrelated", 800, 3, seed=11)
+    left = feed_reference_random_ids(monkeypatch, [jax.random.PRNGKey(0)])
+    buf = _run_both(x, mask, strategy=strategy, p=8, bucket_factor=3.0,
+                    rep_k=8, merge=merge, **STRATEGY_OPTS[opt])
+    assert len(left) == (strategy != "random")
+    assert not bool(buf.overflow)
+    plain, _ = tapi.parallel_skyline(x, mask, device="cpu")
+    _assert_buffers_equal(buf, convert.buffer_to_numpy(plain), "default")
+
+
+@pytest.mark.parametrize("strategy", ["grid", "angular"])
+def test_strategies_overflow_like_jax(strategy):
+    """Skewed buckets at the default factor drop rows in both packages
+    alike (bucket_overflow set, the same truncated answer)."""
+    x, mask = _data("uniform", 900, 4, seed=12)
+    x[:300] *= np.float32(0.1)          # a crowded corner cell
+    buf = _run_both(x, mask, strategy=strategy, m=2, grid_filter=False)
+    assert bool(buf.overflow)
+
+
+def test_random_strategy_draws_from_the_generator():
+    x, _ = _data("uniform", 400, 3, seed=13)
+    cfg = tapi.SkyConfig(strategy="random", p=4)
+    a, sa = tapi.parallel_skyline(x, cfg=cfg, device="cpu",
+                                  generator=torch.Generator().manual_seed(5))
+    b, sb = tapi.parallel_skyline(x, cfg=cfg, device="cpu")
+    for g, w in zip(a, b):           # the buffer does not depend on the draw
+        assert torch.equal(g, w)
+    assert sa["bucket_counts"].tolist() == [100] * 4
+    plain, _ = tapi.parallel_skyline(x, device="cpu")
+    for g, w in zip(a, plain):
+        assert torch.equal(g, w)

@@ -205,35 +205,44 @@ def test_sweep_entry_argument_checks():
 
 
 @pytest.mark.parametrize("cfg_kw,what", [
-    (dict(strategy="grid"), "strategy 'grid'.*item 4a"),
-    (dict(strategy="random"), "strategy 'random'.*item 4a"),
-    (dict(strategy="angular"), "strategy 'angular'.*item 4a"),
-    (dict(merge="tree"), "tree merge.*item 4d"),
-    (dict(merge="tree", noseq=True, rep_filter="sorted"),
-     "tree merge.*item 4d"),
+    (dict(), "multi-device mesh.*item 8"),
+    (dict(merge="tree"), "tree merge across devices.*item 8"),
 ])
 def test_unported_options_raise(cfg_kw, what):
+    """Only the multi-device mesh is left unported (item 8), with it the
+    tree merge across devices; the strategies and the tree merge on one
+    device run (see below)."""
     x = np.random.default_rng(1).random((40, 3)).astype(np.float32)
     with pytest.raises(NotImplementedError, match=what):
         api.parallel_skyline(x, cfg=parallel.SkyConfig(**cfg_kw),
-                             device="cpu")
+                             mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match=what):
-        cfg = parallel.SkyConfig(**cfg_kw)
-        api.insert_chunk(api.init_state(cfg, 3, device="cpu"), x, cfg=cfg)
+        parallel.check_supported(parallel.SkyConfig(**cfg_kw), mesh=object())
 
 
 @pytest.mark.parametrize("cfg_kw", [
     dict(rep_filter="sorted"), dict(rep_filter="region"),
     dict(rep_filter="random"), dict(noseq=True),
-    dict(rep_filter="sorted", noseq=True)])
+    dict(rep_filter="sorted", noseq=True),
+    dict(strategy="grid", bucket_factor=8.0),
+    dict(strategy="random"),
+    dict(strategy="angular", bucket_factor=8.0),
+    dict(merge="tree"),
+    dict(merge="tree", noseq=True, rep_filter="sorted")])
 def test_ported_options_no_longer_raise(cfg_kw):
-    """Representative filtering (4b) and the flat NoSeq merge (4c) run;
-    the answer is the default configuration's."""
+    """Representative filtering (4b), the flat NoSeq merge (4c), the
+    random, grid and angular strategies (4a) and the tree merge on one
+    device (4d) run, one-shot and as a streaming insert; the answer is
+    the default configuration's."""
     x = np.random.default_rng(1).random((40, 3)).astype(np.float32)
-    got, _ = api.parallel_skyline(x, cfg=parallel.SkyConfig(**cfg_kw),
-                                  device="cpu")
+    cfg = parallel.SkyConfig(**cfg_kw)
+    got, _ = api.parallel_skyline(x, cfg=cfg, device="cpu")
     want, _ = api.parallel_skyline(x, device="cpu")
     for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    state, _ = api.insert_chunk(api.init_state(cfg, 3, device="cpu"), x,
+                                cfg=cfg)
+    for g, w in zip(api.finalize(state, cfg=cfg), want):
         assert torch.equal(g, w)
 
 
@@ -241,7 +250,7 @@ def test_mesh_and_live_state_raise():
     """The mesh still raises; a live state now takes inserts (it raised
     before the streaming slice)."""
     x = np.random.default_rng(2).random((40, 3)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="mesh.*item 8"):
         api.parallel_skyline(x, mesh=object(), device="cpu")
     state, _ = incremental._insert(None, torch.from_numpy(x),
                                    torch.ones(40, dtype=torch.bool),

@@ -220,3 +220,31 @@ def test_property_random_chunking_matches_jax(seed):
     cuts = [0] + sorted(rng.choice(np.arange(1, n), size=k,
                                    replace=False).tolist()) + [n]
     _assert_stream_equals_oneshot(x, cuts, noseq=bool(rng.integers(2)))
+
+
+STRATEGY_OPTS = {"sequential": {}, "noseq": dict(noseq=True),
+                 "sorted": dict(rep_filter="sorted")}
+
+
+@pytest.mark.parametrize("merge", ["flat", "tree"])
+@pytest.mark.parametrize("opt", list(STRATEGY_OPTS))
+@pytest.mark.parametrize("strategy", ["random", "grid", "angular"])
+def test_two_inserts_per_strategy_match_jax(strategy, opt, merge,
+                                            monkeypatch):
+    """Two streaming inserts under every strategy: every leaf and stat
+    after each, the random strategy given the reference's ids for each
+    insert's key (contract 5), and the snapshot is the one-shot answer."""
+    from test_torch_parallel import feed_reference_random_ids
+    keys = [jax.random.fold_in(jax.random.PRNGKey(42), s) for s in (0, 1)]
+    left = feed_reference_random_ids(monkeypatch, keys)
+    x = _dataset(20, n=200)[:200]
+    both = Both(4, strategy=strategy, p=8, m=2, bucket_factor=8.0,
+                rep_k=8, merge=merge, **STRATEGY_OPTS[opt])
+    both.insert(x[:90], step=0)
+    both.insert(x[90:], step=1)
+    assert len(left) == (0 if strategy == "random" else 2)
+    out = both.snapshot()
+    one, _ = tapi.parallel_skyline(x, cfg=tapi.SkyConfig(capacity=512),
+                                   device="cpu")
+    for g, w in zip(out, one):
+        _eq(g, w.numpy(), "one-shot")
