@@ -2,9 +2,10 @@
 
 The skyline system has no weights: its parameters are the pipeline
 config and the arrays.  These functions take the reference's config, as
-``dataclasses.asdict`` gives it, a skyline buffer's four leaves and a
-streaming state's six, as numpy arrays, across in either direction,
-bits unchanged.  A state may carry a leading Q axis.
+``dataclasses.asdict`` gives it, a skyline buffer's four leaves, a
+streaming state's six and a windowed state's eight, as numpy arrays,
+across in either direction, bits unchanged.  A state may carry a leading
+Q axis.
 """
 
 from __future__ import annotations
@@ -17,13 +18,16 @@ import torch
 from repro_torch.core.incremental import SkylineState
 from repro_torch.core.parallel import SkyConfig
 from repro_torch.core.sfs import SkyBuffer
+from repro_torch.core.windowed import WindowedSkylineState
 
 __all__ = ["config_from_reference", "buffer_from_numpy", "buffer_to_numpy",
-           "state_from_numpy", "state_to_numpy"]
+           "state_from_numpy", "state_to_numpy", "window_state_from_numpy",
+           "window_state_to_numpy"]
 
-# dtype of each leaf of a buffer and of a state
+# dtype of each leaf of a buffer, of a state and of a windowed state
 _BUFFER_DTYPES = (np.float32, bool, np.int32, bool)
 _STATE_DTYPES = _BUFFER_DTYPES + (np.int32, np.int32)
+_WINDOW_DTYPES = _STATE_DTYPES + (np.int32, np.int32)
 
 
 def _leaves_to_device(leaves, dtypes, device):
@@ -59,4 +63,19 @@ def state_from_numpy(leaves, *, device) -> SkylineState:
 
 def state_to_numpy(state: SkylineState) -> tuple[np.ndarray, ...]:
     """The six leaves of a ``SkylineState`` as numpy arrays."""
+    return tuple(x.detach().cpu().numpy() for x in state)
+
+
+def window_state_from_numpy(leaves, *,
+                            device) -> WindowedSkylineState:
+    """A ``WindowedSkylineState`` on ``device`` from its eight leaves
+    (points, mask, count, overflow, seen, chunks, head, active) as
+    arrays, batched or not."""
+    return WindowedSkylineState(*_leaves_to_device(leaves, _WINDOW_DTYPES,
+                                                   device))
+
+
+def window_state_to_numpy(state: WindowedSkylineState
+                          ) -> tuple[np.ndarray, ...]:
+    """The eight leaves of a ``WindowedSkylineState`` as numpy arrays."""
     return tuple(x.detach().cpu().numpy() for x in state)

@@ -5,7 +5,9 @@ the sequential entry points, `parallel_skyline` runs partition -> local
 -> merge (``repro_torch.core.parallel``), and `init_state` /
 `insert_chunk` / `finalize` (``repro_torch.core.incremental``) keep a
 running skyline whose snapshot is bit for bit the one-shot answer.
-Every entry point runs on the card unless the caller passes
+Sliding windows live in ``repro_torch.core.windowed`` and the paper's
+real datasets in ``repro_torch.core.datagen.load_real``, as in the
+reference.  Every entry point runs on the card unless the caller passes
 ``device="cpu"`` (the streaming calls run where their state lies);
 without CUDA it raises ``RuntimeError`` rather than moving to the CPU.
 """
