@@ -36,3 +36,36 @@ def test_same_seed_same_draws():
 def test_unknown_distribution_raises():
     with pytest.raises(ValueError, match="unknown distribution"):
         datagen.generate("zipf", torch.Generator(), 10, 2)
+
+
+@pytest.mark.parametrize("name,n", [("hou", 5000), ("RES", 3000),
+                                    ("res", None)])
+def test_load_real_surrogate_matches_jax(name, n, monkeypatch, tmp_path):
+    """The surrogate is seeded by Python's salted string hash, so both
+    packages are called in this one process (ROADMAP.md, queue 3); the
+    bits must agree."""
+    from repro.core import datagen as jdatagen
+    monkeypatch.setenv("REPRO_DATA_DIR", str(tmp_path))   # holds no CSV
+    want = np.asarray(jdatagen.load_real(name, n))
+    got = datagen.load_real(name, n, device="cpu")
+    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    assert got.shape == (n or 1_000_000, 7)
+
+
+def test_load_real_reads_a_csv_like_jax(monkeypatch, tmp_path):
+    from repro.core import datagen as jdatagen
+    rng = np.random.default_rng(0)
+    raw = rng.lognormal(size=(50, 9)).astype(np.float32) * 10
+    np.savetxt(tmp_path / "hou.csv", raw, delimiter=",")
+    monkeypatch.setenv("REPRO_DATA_DIR", str(tmp_path))
+    for n, d in ((None, 7), (20, 4)):
+        want = np.asarray(jdatagen.load_real("hou", n, d))
+        got = datagen.load_real("hou", n, d, device="cpu")
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      want.view(np.int32))
+    with pytest.raises(ValueError, match="unknown real dataset"):
+        datagen.load_real("zillow", device="cpu")
+    assert datagen.REAL_SHAPES == {"hou": (2_049_280, 7),
+                                   "res": (3_569_678, 7)}
