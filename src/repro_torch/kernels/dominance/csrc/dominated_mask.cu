@@ -19,12 +19,16 @@
 // an OR over references, so neither the order in which they are tested,
 // nor the tiling, nor where a walk stops changes a bit; lower_tri
 // compares a reference's original index with the candidate's.
+// Subnormal coordinates compare as zeros of their sign, as XLA compares
+// them on the CPU: the build passes --ftz=true (kernels/build.py), which
+// flushes the operands of every f32 comparison; copies keep the bits.
 //
 // Design.  One entry call runs up to two grids on one stream, with no
 // host synchronisation between or after them (kernel.py launches them):
 //   1. dominance_compact_kernel, only when R is longer than one tile
 //      (the wrapper decides from shapes): a grid of (chunks of
-//      kCompactRows reference rows, batches).  Each CTA counts the
+//      kCompactRows reference rows, batches), one grid per kMaxGridY
+//      batches.  Each CTA counts the
 //      valid rows of the chunks before its own, ranks its own in order
 //      (one ballot per pass and warp, one scan of their counts) and
 //      writes them, coalesced, into a dense scratch buffer stored by
@@ -96,6 +100,7 @@
 namespace {
 
 constexpr int kThreads = 256;         // grid 1
+constexpr int kMaxGridY = 65535;      // a grid's y extent
 constexpr int kDirectThreads = 128;   // the walk's CTA, direct form
 constexpr int kDirectHeld = 32;       // lanes of a warp holding a candidate
 constexpr int kRingThreads = 256;     // the walk's CTA, compacted form
@@ -534,12 +539,20 @@ cudaError_t launch(const void* cands, const void* refs, const void* mask,
                      : nullptr;
   cudaError_t err;
   if constexpr (kRing) {
-    const dim3 grid1((R + kCompactRows - 1) / kCompactRows, bc);
-    dominance_compact_kernel<D><<<grid1, kThreads, 0, s>>>(
-        static_cast<const float*>(refs), static_cast<const uint8_t*>(mask),
-        ref_bstride, mask_bstride, R, Rs, dense, count);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    // the batches go on grid y, at most kMaxGridY a grid: more are
+    // covered by grids over successive slices, each from its first batch
+    // on (one entry call, one launch on the count)
+    for (int b0 = 0; b0 < bc; b0 += kMaxGridY) {
+      const int n = bc - b0 < kMaxGridY ? bc - b0 : kMaxGridY;
+      const dim3 grid1((R + kCompactRows - 1) / kCompactRows, n);
+      dominance_compact_kernel<D><<<grid1, kThreads, 0, s>>>(
+          static_cast<const float*>(refs) + b0 * ref_bstride,
+          static_cast<const uint8_t*>(mask) + b0 * mask_bstride,
+          ref_bstride, mask_bstride, R, Rs,
+          dense + static_cast<size_t>(b0) * (D + 1) * Rs, count + b0);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
   }
   if (ev_mid != nullptr) {
     err = cudaEventRecord(ev_mid, s);
@@ -580,7 +593,7 @@ extern "C" int dominated_mask_launch(const void* cands, const void* refs,
                                      long long mask_bstride, int lower_tri,
                                      void* ev_start, void* ev_mid,
                                      void* stream) {
-  if (batch < 1 || batch > 65535 || C < 1 || R < 0 || ref_bstride < 0 ||
+  if (batch < 1 || C < 1 || R < 0 || ref_bstride < 0 ||
       mask_bstride < 0 || d < 1 || d > 12 ||
       (scratch == nullptr) != (R <= tile_rows(d)) ||
       (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)

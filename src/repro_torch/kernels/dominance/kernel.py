@@ -43,7 +43,8 @@ __all__ = ["dominated_mask_cuda", "dominance_stages", "check_args",
            "D_MAX", "MAX_BATCH", "TILE_BYTES", "SMEM_LIMIT"]
 
 D_MAX = 12            # widest d the kernel is instantiated for
-MAX_BATCH = 65535     # the batch is the grids' y dimension
+MAX_BATCH = 2 ** 31 - 1  # grid 1 takes the batches on y in slices of
+#                          65,535; grid 2's 1-D grid holds every block
 TILE_BYTES = 16_384   # coordinates of one tile (kTileBytes)
 SMEM_LIMIT = 232_448  # shared memory one CTA may take on sm_90
 
@@ -132,20 +133,23 @@ def check_args(cands: torch.Tensor, refs: torch.Tensor,
     if refs.shape != (b, r, d) or ref_mask.shape != (b, r):
         raise ValueError(f"shapes disagree: {tuple(cands.shape)}/"
                          f"{tuple(refs.shape)}/{tuple(ref_mask.shape)}")
+    if not 1 <= d <= D_MAX:
+        raise ValueError(f"dominated_mask_cuda takes 1 <= d <= {D_MAX}, "
+                         f"got {d}")
+    if c >= 2 ** 31 or r >= 2 ** 31:
+        raise ValueError(f"C={c} or R={r} out of range")
+    threads, held = _WALK_SHAPE["ring" if compacts(r, d) else "direct"]
+    blocks = -(-c // (threads // 32 * held)) * b
+    if not 1 <= b <= MAX_BATCH or blocks >= 2 ** 31:
+        raise ValueError(f"dominated_mask_cuda takes 1 <= B <= {MAX_BATCH} "
+                         f"and fewer than 2^31 candidate blocks; got B={b}, "
+                         f"{blocks} blocks")
     if not cands.is_contiguous():
         raise ValueError("dominated_mask_cuda needs contiguous candidates")
     if r > 0 and ((d > 1 and refs.stride(1) != d) or refs.stride(2) != 1
                   or ref_mask.stride(1) != 1):
         raise ValueError("dominated_mask_cuda needs contiguous reference "
                          "rows and mask (any batch stride)")
-    if not 1 <= d <= D_MAX:
-        raise ValueError(f"dominated_mask_cuda takes 1 <= d <= {D_MAX}, "
-                         f"got {d}")
-    if not 1 <= b <= MAX_BATCH:
-        raise ValueError(f"dominated_mask_cuda takes 1 <= B <= {MAX_BATCH}, "
-                         f"got {b}")
-    if c >= 2 ** 31 or r >= 2 ** 31:
-        raise ValueError(f"C={c} or R={r} out of range")
     smem = dominance_smem_bytes(d, r)
     form = "ring" if compacts(r, d) else "direct"
     if smem[form] > SMEM_LIMIT:

@@ -15,7 +15,10 @@
 // the caller pre-fills with the sentinel), their mask (pre-filled with
 // false), and the total keep count, which goes on past wcap.  Row i is
 // kept when it is valid and neither a live window row nor an earlier row
-// of its candidate block dominates it.
+// of its candidate block dominates it.  Subnormal coordinates compare as
+// zeros of their sign, as XLA compares them on the CPU: the build passes
+// --ftz=true (kernels/build.py), which flushes the operands of every f32
+// comparison, while loads and stores move the rows' bits unchanged.
 //
 // Design.  One call runs three grids on one stream (kernel.py launches
 // them; nothing synchronises the host between them):
@@ -24,7 +27,7 @@
 //      the sweep as the reference runs it.  It leaves the prefix window
 //      W_A and its count c_A.
 //   B. sweep_filter_kernel over every later row, a grid of (row tiles x
-//      partitions) that fills the card: a row stays alive when it is
+//      partitions; one grid per kMaxGridY partitions) that fills the card: a row stays alive when it is
 //      valid and no live row of W_A dominates it.  The CTA stages W_A in
 //      shared memory; a thread holds kFilterPer candidates in registers.
 //      It writes one alive byte per row and adds the partition's
@@ -87,6 +90,7 @@ constexpr int kFilterPer = 2;                    // candidates per B thread
 constexpr int kFilterRows = kFilterThreads * kFilterPer;
 constexpr int kFilterTileBytes = 32768;          // W_A rows staged per tile
 constexpr int kSmemLimit = 232448;               // per CTA on sm_90
+constexpr int kMaxGridY = 65535;                 // a grid's y extent
 
 __host__ __device__ constexpr int resident_rows(int d) {
   return kResidentBytes / (4 * d);
@@ -488,13 +492,24 @@ cudaError_t launch_filter(const void* pts, const void* mask, const void* win,
       sweep_filter_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((npad - r0 + kFilterRows - 1) / kFilterRows, parts);
-  sweep_filter_kernel<D><<<grid, kFilterThreads, smem, stream>>>(
-      static_cast<const float*>(pts), static_cast<const uint8_t*>(mask),
-      static_cast<const float*>(win), static_cast<const int*>(count),
-      static_cast<uint8_t*>(alive), alive_stride,
-      static_cast<int*>(survivors), npad, r0, wcap, rows);
-  return cudaGetLastError();
+  // the partitions go on grid y, at most kMaxGridY a grid: more are
+  // covered by grids over successive slices, each from its first
+  // partition on (one entry call, one launch on the count)
+  for (int p0 = 0; p0 < parts; p0 += kMaxGridY) {
+    const int n = parts - p0 < kMaxGridY ? parts - p0 : kMaxGridY;
+    const dim3 grid((npad - r0 + kFilterRows - 1) / kFilterRows, n);
+    sweep_filter_kernel<D><<<grid, kFilterThreads, smem, stream>>>(
+        static_cast<const float*>(pts) + (size_t)p0 * npad * D,
+        static_cast<const uint8_t*>(mask) + (size_t)p0 * npad,
+        static_cast<const float*>(win) + (size_t)p0 * wcap * D,
+        static_cast<const int*>(count) + p0,
+        static_cast<uint8_t*>(alive) + (size_t)p0 * alive_stride,
+        alive_stride, static_cast<int*>(survivors) + p0, npad, r0, wcap,
+        rows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -547,7 +562,7 @@ extern "C" int sfs_sweep_filter_launch(const void* pts, const void* mask,
                                        void* survivors, int parts, int npad,
                                        int d, int r0, int wcap,
                                        void* stream) {
-  if (parts < 1 || parts > 65535 || r0 < 0 || r0 >= npad || wcap < 0 ||
+  if (parts < 1 || r0 < 0 || r0 >= npad || wcap < 0 ||
       alive_stride < npad - r0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

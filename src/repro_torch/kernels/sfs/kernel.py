@@ -17,7 +17,7 @@ between them (the source's header says why the schedule is exact):
      partition (K = 16 blocks at the default block of 256), one CTA per
      partition;
   B. a filter of every later row against the prefix window, on a grid
-     of (row tiles x partitions);
+     of (row tiles x partitions), one grid for each 65,535 partitions;
   C. the sequential sweep of the rows B left alive.
 
 When the prefix covers a partition, A is the whole sweep and one grid
@@ -42,7 +42,8 @@ __all__ = ["sfs_sweep_cuda", "sweep_stages", "check_args",
 
 D_MAX = 12           # widest d the kernel is instantiated for
 MAX_BLOCK = 512      # one thread per candidate row of a block
-MAX_PARTS = 65535    # stage B's grid takes the partitions on its y axis
+MAX_PARTS = 2 ** 31 - 1  # A and C take the partitions on x; B on y, in
+#                          slices of 65,535
 PREFIX_ROWS = 4096   # rows stage A sweeps, rounded up to whole blocks
 SMEM_LIMIT = 232_448  # shared memory one CTA may take on sm_90
 
@@ -107,8 +108,6 @@ def check_args(pts_s: torch.Tensor, mask_s: torch.Tensor, block: int,
     if pts_s.ndim != 3 or tuple(mask_s.shape) != tuple(pts_s.shape[:2]):
         raise ValueError(f"expected (P, npad, d)/(P, npad), got "
                          f"{tuple(pts_s.shape)}/{tuple(mask_s.shape)}")
-    if not (pts_s.is_contiguous() and mask_s.is_contiguous()):
-        raise ValueError("sfs_sweep_cuda needs contiguous inputs")
     p, npad, d = pts_s.shape
     if not 1 <= d <= D_MAX:
         raise ValueError(f"sfs_sweep_cuda takes 1 <= d <= {D_MAX}, got {d}")
@@ -119,6 +118,8 @@ def check_args(pts_s: torch.Tensor, mask_s: torch.Tensor, block: int,
         raise ValueError(f"sfs_sweep_cuda needs 1 <= P <= {MAX_PARTS} and "
                          f"npad a positive multiple of block; got P={p}, "
                          f"npad={npad}, block={block}")
+    if not (pts_s.is_contiguous() and mask_s.is_contiguous()):
+        raise ValueError("sfs_sweep_cuda needs contiguous inputs")
     if npad >= 2 ** 31 or not 0 <= wcap < 2 ** 31:
         raise ValueError(f"npad={npad} or wcap={wcap} out of range")
     smem = sweep_smem_bytes(d, block, wcap)

@@ -467,3 +467,22 @@ def test_check_args_raises_above_the_limit(monkeypatch):
                         kernel.dominance_smem_bytes(4, r=100)["direct"] - 1)
     with pytest.raises(ValueError, match="shared memory"):
         kernel.check_args(cands, refs[:, :100], mask[:, :100])
+
+
+def test_check_args_takes_more_batches_than_one_grid_y():
+    """Grid 1 takes the batches on its y axis in slices of 65,535, so
+    more batches than one slice pass, with references past one tile
+    (grid 1 runs) or not; grid 2's 1-D grid caps the candidate blocks
+    below 2^31."""
+    b = 70_000
+    kernel.check_args(torch.rand(b, 1, 2), torch.rand(b, 8, 2),
+                      torch.ones(b, 8, dtype=torch.bool))
+    r = kernel.tile_rows(2) + 1
+    refs = torch.rand(1, r, 2).expand(b, r, 2)
+    mask = torch.ones(1, r, dtype=torch.bool).expand(b, r)
+    assert kernel.compacts(r, 2)
+    kernel.check_args(torch.rand(b, 1, 2), refs, mask)
+    c = 128 * (2 ** 31 // b + 1)          # too many candidate blocks
+    with pytest.raises(ValueError, match="candidate blocks"):
+        kernel.check_args(torch.rand(1, 1, 2).expand(b, c, 2)[:, :, :],
+                          refs, mask)

@@ -377,13 +377,20 @@ def test_check_args_raises_above_the_limit(monkeypatch):
 
 
 def test_check_args_caps_the_partitions():
-    """Stage B's grid holds the partitions on its y axis."""
-    n = kernel.MAX_PARTS
+    """Stage B's grid holds the partitions on its y axis in slices of
+    65,535, so more partitions than one slice pass; the cap is the
+    x axis of stages A and C (2^31 - 1)."""
+    n = 70_000
     kernel.check_args(torch.rand(n, 1, 2), torch.ones(n, 1, dtype=torch.bool),
                       1, 1)
+    assert kernel.MAX_PARTS == 2 ** 31 - 1
+    # a zero-stride view: the partition count is refused before the
+    # layout is looked at, and nothing of that size is allocated
+    big = kernel.MAX_PARTS + 1
     with pytest.raises(ValueError, match="P <="):
-        kernel.check_args(torch.rand(n + 1, 1, 2),
-                          torch.ones(n + 1, 1, dtype=torch.bool), 1, 1)
+        kernel.check_args(torch.rand(1, 1, 2).expand(big, 1, 2),
+                          torch.ones(1, 1, dtype=torch.bool).expand(big, 1),
+                          1, 1)
 
 
 def test_prefix_rows():
