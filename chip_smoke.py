@@ -12,7 +12,9 @@ It builds the port's CUDA kernels from the sources in the checkout
   1. prints the card (nvidia-smi name and power limit) and the versions;
   2. prints the build time and the compiler's registers / shared memory /
      spills for each kernel instantiation beside its footprint law (held
-     against what the built kernel computes);
+     against what the built kernel computes), and checks with
+     ``cuobjdump -sass`` that every f32 compare and min/max instruction
+     flushes subnormals (.FTZ, from ``--ftz=true``);
   3. holds the SFS sweep kernel against its plain PyTorch version and
      the per-pair oracle, bit for bit, on the card, over ties,
      antichains, overflow, block 2, d 2..12, -0.0, subnormal
@@ -29,14 +31,20 @@ It builds the port's CUDA kernels from the sources in the checkout
      references with an empty batch, R at the small-R threshold and one
      past it, lower_tri over several tiles), and the streaming
      pre-filter's and NoSeq's full shapes, through the entry and through
-     its grids;
+     its grids; then both kernels on subnormal data (the witness
+     (1e-40, 1), (2e-40, 1), (0.5, 0.5), and mixes of subnormals, both
+     zeros and normal values at d = 1, 4 and 12, partitions past the
+     sweep's prefix, references within one tile and past it) and at
+     70,000 partitions (the sweep, stage B running) or batches (the
+     dominance test, grid 1 running), more than one grid's y extent;
   4. runs the main path, ``parallel_skyline`` at the default config with
      capacity 65536, on uniform, correlated and anticorrelated data at
      N = 10^7, d = 4: two sweep launches per query, no overflow, and bit
-     for bit the plain version's answer on the card; then, at smaller
-     sizes, the card against the CPU on tie-heavy data with -0.0, the
-     member set against the O(N^2) oracle, and overflow at the default
-     capacity 4096;
+     for bit the plain version's answer on the card; the subnormal
+     witness keeps its three members on the card; times what flushing
+     adds to the score and the sorts; then, at smaller sizes, the card
+     against the CPU on tie-heavy data with -0.0, the member set against
+     the O(N^2) oracle, and overflow at the default capacity 4096;
   5. streams the same uniform and anticorrelated data into a live state
      in ten inserts of 10^6 rows, with a snapshot after each: 2 sweep and
      2 dominance launches per insert, every snapshot bit for bit the
@@ -47,17 +55,38 @@ It builds the port's CUDA kernels from the sources in the checkout
   6. runs ``parallel_skyline`` with ``rep_filter='sorted'`` (2 sweep + 3
      dominance launches) and with ``noseq=True`` (1 + 1) on the three
      distributions: bit for bit the default answer and the plain
-     version's, stats included;
+     version's, stats included; then the random (p = 8), grid (m = 2,
+     p = 16, Grid Filtering on and off) and angular (m = 2, p = 8)
+     strategies on the three distributions, once at the default bucket
+     factor (grid and angular overflow their skewed buckets, flagged and
+     equal to the plain version) and then with buckets sized to the
+     largest, under the sequential merge (2 + 0), NoSeq (1 + 1) and the
+     tree merge (flat on one device, 2 + 0): bit for bit the plain
+     version's and the sliced default answer, with how many angular ids
+     the card computes otherwise than the CPU (this and what follows in
+     this step run after step 7, so that the kernel times are taken as
+     in earlier runs); a sliding window of
+     E = 4 epochs fed ten chunks of 10^6 rows, advancing after every
+     second and then expired to empty (insert 2 + 2, snapshot 1 + 0 or
+     0 + 1 under NoSeq, every snapshot the plain version's and, at each
+     advance and expiry, the one-shot answer over the unexpired rows;
+     the ring operations under set_sync_debug_mode("error"), the fused
+     tick, Q = 4 windows against four single ones); and the default,
+     grid and angular queries on the HOU (2,049,280 x 7) and RES
+     (3,569,678 x 7) surrogates, bit for bit the plain version's;
   7. times the queries end to end, their stages, each sweep call and
      each dominance call of the paths above (the kernel, the plain
      version, and the least time the card could take), each sweep
      call's three grids with its prefix count, survivors and branch per
      partition, the anticorrelated local call at other prefixes, and
      each dominance call's two grids with its valid reference rows per
-     batch;
+     batch (the strategies, windows and real datasets of step 6 are
+     timed where they run, beside the sliced default query on the same
+     data);
      runs one pre-filter call under torch.cuda.set_sync_debug_mode
      ("error"), so that a host sync in the entry fails the run;
-  8. prints one JSON line with both kernels, then the device line.
+  8. prints the script's run time, one JSON line with both kernels, then
+     the device line.
 
 With ``--kernels-only`` it stops after step 3 and prints no result.
 Every check that fails ends the run with a non-zero exit code.  The
@@ -503,6 +532,553 @@ def dominance_cases(dev) -> float:
     return err
 
 
+def sass_ftz_report(libs) -> str:
+    """The f32 compare and min/max instructions of each built library
+    (``cuobjdump -sass``): with ``--ftz=true`` every one carries .FTZ,
+    so a subnormal operand compares as a zero of its sign."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    parts = []
+    for name, path in sorted(libs.items()):
+        out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                             text=True, timeout=300)
+        check(out.returncode == 0, f"cuobjdump failed on {path}: "
+              f"{out.stderr[-2000:]}")
+        ops = re.findall(r"\b(FSETP|FMNMX)(\.[A-Z0-9.]+)?", out.stdout)
+        bare = [op + suffix for op, suffix in ops if ".FTZ" not in suffix]
+        check(ops and not bare, f"{name}: {len(ops)} f32 compare/min/max "
+              f"instructions, {len(bare)} without .FTZ: {bare[:8]}")
+        parts.append(f"{name} {len(ops)}")
+    return ("every f32 compare and min/max instruction carries .FTZ "
+            f"(cuobjdump -sass: {', '.join(parts)})")
+
+
+def subnormal_mix(dev, shape, seed):
+    """Coordinates drawn from subnormals of both signs and several
+    magnitudes, both zeros and a few normal levels, on the card."""
+    levels = torch.tensor([1e-45, 1e-42, 3e-40, 1e-39, 1.1e-38, -1e-45,
+                           -2e-40, 0.0, -0.0, 0.25, 0.5, 0.75, 1.0],
+                          device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return levels[torch.randint(0, len(levels), shape, generator=g,
+                                device=dev)]
+
+
+WITNESS = ((1e-40, 1.0), (2e-40, 1.0), (0.5, 0.5))
+
+
+def subnormal_cases(dev) -> float:
+    """Both kernels on subnormal data against their plain versions, bit
+    for bit: the witness, and subnormal mixes at d = 1, 4 and 12, the
+    sweep over partitions longer than its prefix and through its grids
+    at several prefixes, the dominance test with references within one
+    tile and past it (compacted) and through its grids.  Returns the
+    largest |difference|."""
+    from repro_torch.core import sfs
+    from repro_torch.core.dominance import SENTINEL
+    from repro_torch.kernels.dominance import kernel as dkernel
+    from repro_torch.kernels.dominance import ops as dops
+    from repro_torch.kernels.sfs import kernel, ops
+    err = 0.0
+    w = torch.tensor(WITNESS, device=dev)
+    sweeps = [("witness", w[None], torch.ones((1, 3), dtype=torch.bool,
+                                              device=dev), 3, 2)]
+    doms = [("witness", w, w, None, False)]
+    for d in (1, 4, 12):
+        x = subnormal_mix(dev, (2, 6000, d), seed=d)
+        m = subnormal_mix(dev, (2, 6000), seed=100 + d) != 0.25
+        sweeps.append((f"subnormal mix d={d}", x, m, 6000, 256))
+        t = dkernel.tile_rows(d)
+        c = subnormal_mix(dev, (2, 3000, d), seed=200 + d)
+        for r in (t // 2, t + 500):
+            refs = subnormal_mix(dev, (2, r, d), seed=300 + d + r)
+            rm = subnormal_mix(dev, (2, r), seed=400 + d + r) != 0.5
+            doms.append((f"subnormal mix d={d} R={r} (tile {t})", c, refs,
+                         rm, False))
+        doms.append((f"subnormal mix d={d} lower_tri R=C=3000", c, c, None,
+                     True))
+    for name, x, m, cap, blk in sweeps:
+        pts_p, mask_p, blk_e, wcap = sfs.sweep_inputs(x, m, capacity=cap,
+                                                      block=blk)
+        kw = dict(block=blk_e, wcap=wcap, sentinel=SENTINEL)
+        got = ops.sfs_sweep(pts_p, mask_p, spec="cuda", **kw)
+        torch.cuda.synchronize()
+        want = ops.sfs_sweep(pts_p, mask_p, spec="torch", **kw)
+        err = max(err, abs_err(got[0], want[0]))
+        check(leaves_equal(got, want), f"sweep kernel differs from the plain "
+              f"version on {name}")
+        for pre in (0, blk_e, kernel.PREFIX_ROWS):
+            out, info = kernel.sweep_stages(pts_p, mask_p, prefix=pre, **kw)
+            check(leaves_equal(out, want), f"sweep grids at a prefix of {pre} "
+                  f"rows differ from the plain version on {name}")
+        print(f"subnormal sweep case {name} (P={pts_p.shape[0]}, npad="
+              f"{pts_p.shape[1]}): bitwise equal to the plain version, also "
+              f"through the grids at prefixes 0, {blk_e} and "
+              f"{kernel.PREFIX_ROWS} rows (counts {got[2].tolist()})")
+    for name, c, r, m, lt in doms:
+        got = dops.dominated_mask(c, r, m, lower_tri=lt, impl="cuda")
+        torch.cuda.synchronize()
+        want = dops.dominated_mask(c, r, m, lower_tri=lt, impl="torch")
+        err = max(err, abs_err(got.int(), want.int()))
+        check(bits_equal(got, want), f"dominance kernel differs from the "
+              f"plain version on {name}")
+        cb, rb = (c, r) if c.ndim == 3 else (c[None], r[None])
+        mb = (torch.ones(rb.shape[:2], dtype=torch.bool, device=dev)
+              if m is None else m if m.ndim == 2 else m[None])
+        staged, info = dkernel.dominance_stages(cb.contiguous(), rb, mb,
+                                                lower_tri=lt)
+        check(bits_equal(staged.reshape(got.shape), got), f"dominance grids "
+              f"differ from the entry on {name}")
+        print(f"subnormal dominance case {name}: bitwise equal to the plain "
+              f"version and through the grids (grid 1 ran: "
+              f"{info['compacted']}; {int(got.sum())} of {got.numel()} "
+              f"dominated)")
+    check(not bool(dops.dominated_mask(w, w, impl="cuda").any()),
+          "the witness: a row dominates another on the card")
+    return err
+
+
+def many_parts_cases(dev) -> float:
+    """More than 65,535 partitions or batches in one entry call: the
+    sweep at P = 70,000 with stage B running (its grid takes them in two
+    slices of y), the dominance test at B = 70,000 with references past
+    one tile (grid 1 in two slices), each against its plain version, bit
+    for bit.  Returns the largest |difference|."""
+    from repro_torch.core import sfs
+    from repro_torch.core.dominance import SENTINEL
+    from repro_torch.kernels.dominance import kernel as dkernel
+    from repro_torch.kernels.dominance import ops as dops
+    from repro_torch.kernels.sfs import kernel, ops
+    g = torch.Generator(device=dev).manual_seed(70)
+    # masked rows sort last, so the valid rows must outnumber the prefix
+    # for stage B to see any
+    p, n, d, blk = 70_000, kernel.PREFIX_ROWS + 512, 2, 32
+    x = torch.rand((p, n, d), generator=g, device=dev)
+    # every third partition an antichain (its rows on a line): B keeps its
+    # rows and it overflows, so the survivors and counts of every slice
+    # depend on which partition a grid reads
+    line = torch.randint(0, 2 ** 20, (len(range(0, p, 3)), n), generator=g,
+                         device=dev) / 2 ** 20          # exact: 1 - t too
+    x[::3, :, 0], x[::3, :, 1] = line, 1.0 - line
+    m = torch.rand((p, n), generator=g, device=dev) > 0.02
+    pts_p, mask_p, blk_e, wcap = sfs.sweep_inputs(x, m, capacity=32,
+                                                  block=blk)
+    del x, m
+    kw = dict(block=blk_e, wcap=wcap, sentinel=SENTINEL)
+    got = ops.sfs_sweep(pts_p, mask_p, spec="cuda", **kw)
+    torch.cuda.synchronize()
+    want = ops.sfs_sweep(pts_p, mask_p, spec="torch", **kw)
+    err = abs_err(got[0], want[0])
+    check(leaves_equal(got, want), f"sweep kernel differs from the plain "
+          f"version at P={p}")
+    out, info = kernel.sweep_stages(pts_p, mask_p, **kw)
+    tail = mask_p[:, info["prefix_rows"]:].sum(1)
+    check(leaves_equal(out, want) and None not in info["packed"]
+          and info["survivors"][::3] == tail[::3].tolist()
+          and sum(info["survivors"][65_535:]) > 0,
+          f"P={p}: the grids differ, stage B did not run or dropped rows of "
+          f"an antichain")
+    print(f"many-partition sweep case P={p} npad={pts_p.shape[1]} d={d} "
+          f"block={blk_e}: bitwise equal to the plain version, stage B over "
+          f"{-(-p // 65535)} grid slices of y (survivors "
+          f"{sum(info['survivors'])}, counts {int(got[2].min())}-"
+          f"{int(got[2].max())})")
+    del pts_p, mask_p, got, want, out
+    b, c = 70_000, 8
+    r = dkernel.tile_rows(d) + 1
+    cands = torch.rand((b, c, d), generator=g, device=dev)
+    refs = torch.rand((b, r, d), generator=g, device=dev)
+    rm = torch.rand((b, r), generator=g, device=dev) > 0.5
+    got = dops.dominated_mask(cands, refs, rm, impl="cuda")
+    torch.cuda.synchronize()
+    want = dops.dominated_mask(cands, refs, rm, impl="torch")
+    err = max(err, abs_err(got.int(), want.int()))
+    check(bits_equal(got, want), f"dominance kernel differs from the plain "
+          f"version at B={b}")
+    staged, info = dkernel.dominance_stages(cands, refs, rm)
+    check(bits_equal(staged, got) and info["compacted"]
+          and info["valid_rows"] == rm.sum(1).tolist(),
+          f"B={b}: the grids differ or grid 1 counted other rows")
+    print(f"many-batch dominance case B={b} C={c} R={r} d={d}: bitwise equal "
+          f"to the plain version; grid 1 over {-(-b // 65535)} slices of y "
+          f"counted every batch's valid rows ({int(got.sum())} of "
+          f"{got.numel()} dominated)")
+    return err
+
+
+def flush_cost(x, tag):
+    """What flushing subnormals adds to the score and to a sort key at
+    N = 10^7: the port's ``monotone_score`` and ``stable_argsort`` against
+    the same calls without the flush (the previous left-to-right sum and
+    the signed-zero-only key), by CUDA events, best of 3."""
+    from repro_torch.core import dominance as dom
+
+    def score_unflushed(pts):
+        s = torch.zeros(pts.shape[:-1], dtype=pts.dtype, device=pts.device)
+        for k in range(pts.shape[-1]):
+            s = s + pts[..., k]
+        return s
+
+    def argsort_unflushed(v):
+        v = torch.where(v == 0, torch.zeros_like(v), v)
+        return torch.sort(v, stable=True).indices
+
+    s = dom.monotone_score(x)
+    check(bits_equal(s, score_unflushed(x)), "flushing changed a score of "
+          "data without subnormals")
+    rows = []
+    for name, new, old in (
+            ("monotone_score", lambda: dom.monotone_score(x),
+             lambda: score_unflushed(x)),
+            ("stable_argsort of the scores", lambda: dom.stable_argsort(s),
+             lambda: argsort_unflushed(s)),
+            ("canonical_order", lambda: dom.canonical_order(x), None)):
+        t_new, _ = time_ms(new)
+        t_old = time_ms(old)[0] if old is not None else None
+        rows.append(f"{name} {t_new:.3f} ms" + (
+            f" (unflushed {t_old:.3f} ms, +{t_new - t_old:.3f})"
+            if t_old is not None else ""))
+    print(f"{tag} cost of flushing subnormals, N={x.shape[0]} d={x.shape[1]} "
+          f"(anticorrelated): {'; '.join(rows)}")
+
+
+STRATEGIES = (  # name, config fields
+    ("random p=8", dict(strategy="random")),
+    ("grid m=2 p=16 grid_filter on", dict(strategy="grid", m=2)),
+    ("grid m=2 p=16 grid_filter off", dict(strategy="grid", m=2,
+                                           grid_filter=False)),
+    ("angular m=2 p=8", dict(strategy="angular", m=2)),
+)
+MERGES = (  # name, config fields, expected (sweep, dominance) launches
+    ("sequential", {}, (2, 0)),
+    ("noseq", dict(noseq=True), (1, 1)),
+    ("tree", dict(merge="tree"), (2, 0)),
+)
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def strategies_phase(data, oneshot, cfg, tag, kernels):
+    """``parallel_skyline`` under the random, grid (Grid Filtering on and
+    off) and angular strategies on every distribution at N = 10^7: once
+    at the default bucket factor (grid and angular overflow their skewed
+    buckets: the flag must be set and the answer must be the plain
+    version's), then with the bucket capacity sized to the largest
+    bucket, under the sequential merge, NoSeq and the tree merge (flat on
+    one device): launches counted, bit for bit the plain version's (stats
+    included) and the sliced default answer, timed with their stages.
+    Prints how many angular ids computed on the card differ from the
+    same data's ids computed on the CPU."""
+    from repro_torch.core import api, parallel, partition
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(7)
+
+    for dist, x in data.items():
+        dev = x.device
+        mask = torch.ones((x.shape[0],), dtype=torch.bool, device=dev)
+        t_def, _ = time_ms(lambda: api.parallel_skyline(x, cfg=cfg))
+        print(f"{tag} strategies {dist} N={N_MAIN} d={D_MAIN}: the sliced "
+              f"default query {t_def:.3f} ms best of 3 on the same data")
+        for sname, fields in STRATEGIES:
+            base = dataclasses.replace(cfg, **fields)
+            if base.strategy == "random":
+                sized = base       # balanced: the default factor fits
+            else:
+                with Launches(*kernels) as run:
+                    buf, stats = api.parallel_skyline(x, cfg=base)
+                ref, rstats = api.parallel_skyline(
+                    x, cfg=dataclasses.replace(base, impl="torch"))
+                counts = stats["bucket_counts"]
+                check(bool(stats["bucket_overflow"]) and bool(buf.overflow)
+                      and run.counts == (2, 0) and leaves_equal(buf, ref)
+                      and stats_equal(stats, rstats),
+                      f"{dist} {sname} at the default bucket factor: "
+                      f"overflow {bool(stats['bucket_overflow'])}, launches "
+                      f"{run.counts}, or the answer differs from "
+                      f"impl='torch'")
+                dropped = (f", grid filter dropped "
+                           f"{int(stats['grid_filter_dropped'])} rows"
+                           if "grid_filter_dropped" in stats else "")
+                print(f"{tag} {sname} {dist} at the default bucket factor "
+                      f"(capacity {stats['bucket_counts'].shape[0]} x "
+                      f"{-(-N_MAIN // counts.shape[0]) + 1}): bucket_overflow "
+                      f"set, skyline {int(buf.count)}, bitwise equal to "
+                      f"impl='torch'; bucket counts {counts.tolist()} "
+                      f"(largest share {int(counts.max()) / N_MAIN:.4f})"
+                      f"{dropped}")
+                sized = dataclasses.replace(
+                    base, bucket_capacity=_ceil_to(int(counts.max()),
+                                                   cfg.block))
+            flat_ref = None
+            for mname, mfields, want in MERGES:
+                qcfg = dataclasses.replace(sized, **mfields)
+                with Launches(*kernels) as run:
+                    buf, stats = api.parallel_skyline(x, cfg=qcfg,
+                                                      generator=gen())
+                check(run.counts == want, f"{dist} {sname} {mname}: launches "
+                      f"{run.counts}, expected {want}")
+                check(not bool(buf.overflow), f"{dist} {sname} {mname}: "
+                      f"overflow")
+                check(leaves_equal(buf, oneshot[dist]), f"{dist} {sname} "
+                      f"{mname}: the result differs from the sliced default "
+                      f"answer")
+                if mname == "tree":
+                    # the tree merge on one device runs the flat math: its
+                    # plain version is the flat plain version
+                    ref, rstats = flat_ref
+                else:
+                    ref, rstats = api.parallel_skyline(
+                        x, cfg=dataclasses.replace(qcfg, impl="torch"),
+                        generator=gen())
+                    if mname == "sequential":
+                        flat_ref = ref, rstats
+                check(leaves_equal(buf, ref) and stats_equal(stats, rstats),
+                      f"{dist} {sname} {mname}: result or stats differ from "
+                      f"impl='torch'")
+                e2e, runs = time_ms(lambda: api.parallel_skyline(
+                    x, cfg=qcfg, generator=gen()))
+                t_part, _ = time_ms(lambda: parallel.partition_stage(
+                    x, mask, qcfg, gen()))
+                buckets, meta, _ = parallel.partition_stage(x, mask, qcfg,
+                                                            gen())
+                sky, _ = parallel.local_stage(buckets.points, buckets.mask,
+                                              qcfg)
+                t_local, _ = time_ms(lambda: parallel.local_stage(
+                    buckets.points, buckets.mask, qcfg))
+                t_merge, _ = time_ms(lambda: parallel.merge_stage(
+                    sky, meta, qcfg))
+                print(f"{tag} {sname} {mname} {dist} N={N_MAIN} d={D_MAIN} "
+                      f"(bucket capacity {qcfg.bucket_capacity or 'default'}"
+                      f"): {e2e:.3f} ms best of 3 "
+                      f"({', '.join(f'{t:.3f}' for t in runs)}); partition "
+                      f"{t_part:.3f} ms, local {t_local:.3f} ms, merge "
+                      f"{t_merge:.3f} ms; union {int(stats['union_size'])}, "
+                      f"skyline {int(buf.count)}; launches {run.counts}; no "
+                      f"overflow, bitwise equal to the sliced default answer "
+                      f"and to impl='torch', stats included")
+        on_card = partition.angular_part_ids(x, 2)
+        on_cpu = partition.angular_part_ids(x.cpu(), 2)
+        differ = int((on_card.cpu() != on_cpu).sum())
+        print(f"{tag} angular ids m=2 {dist} N={N_MAIN}: {differ} of "
+              f"{N_MAIN} ids computed on the card differ from the CPU's")
+
+
+def windows_phase(data, cfg, tag, kernels):
+    """Sliding windows at N = 10^7: uniform and anticorrelated data as ten
+    chunks of 10^6 into a window of E = 4 epochs, advancing after every
+    second chunk (up to 8 x 10^6 rows live), then expired to empty.
+    After each chunk the state, stats and snapshot are bit for bit the
+    plain version's and the NoSeq snapshot equals the sequential one; at
+    each advance and expiry the snapshot equals the one-shot
+    ``parallel_skyline`` over the unexpired rows.  Launches: an insert
+    2 + 2, a snapshot 1 + 0 (0 + 1 under NoSeq), a ring operation none.
+    One advance and one expiry run under set_sync_debug_mode("error").
+    The fused tick is held against the separate calls; Q = 4 windows
+    against four single ones."""
+    from repro_torch.core import api
+    from repro_torch.core import windowed as win
+    epochs = 4
+    plain = dataclasses.replace(cfg, impl="torch")
+    noseq = dataclasses.replace(cfg, noseq=True)
+
+    def oneshot_of(x, live):
+        rows = torch.cat([x[j * CHUNK:(j + 1) * CHUNK]
+                          for ep in live for j in ep])
+        return api.parallel_skyline(rows, cfg=cfg)[0]
+
+    def snapshots(state, pstate, where):
+        with Launches(*kernels) as run:
+            snap = win.finalize(state, cfg=cfg)
+        with Launches(*kernels) as nrun:
+            nsnap = win.finalize(state, cfg=noseq)
+        check(run.counts == (1, 0) and nrun.counts == (0, 1),
+              f"{where}: snapshot launches {run.counts}, NoSeq "
+              f"{nrun.counts}")
+        check(leaves_equal(snap, win.finalize(pstate, cfg=plain)),
+              f"{where}: the snapshot differs from impl='torch'")
+        check(leaves_equal(nsnap, snap), f"{where}: the NoSeq snapshot "
+              f"differs from the sequential one")
+        return snap
+
+    for dist in ("uniform", "anticorrelated"):
+        x = data[dist]
+        state = win.init_window_state(cfg, D_MAIN, epochs=epochs)
+        pstate = win.init_window_state(plain, D_MAIN, epochs=epochs)
+        live = [[]]
+        for i in range(N_MAIN // CHUNK):
+            chunk = x[i * CHUNK:(i + 1) * CHUNK]
+            before = state
+            with Launches(*kernels) as run:
+                state, stats = win.insert_chunk(state, chunk, cfg=cfg)
+            check(run.counts == (2, 2), f"window {dist} insert {i + 1}: "
+                  f"launches {run.counts}, expected (2, 2)")
+            pstate, pstats = win.insert_chunk(pstate, chunk, cfg=plain)
+            check(leaves_equal(state, pstate) and stats_equal(stats, pstats),
+                  f"window {dist} insert {i + 1}: state or stats differ from "
+                  f"impl='torch'")
+            live[-1].append(i)
+            snap = snapshots(state, pstate, f"window {dist} insert {i + 1}")
+            t_ins, _ = time_ms(lambda: win.insert_chunk(before, chunk,
+                                                        cfg=cfg))
+            t_snap, _ = time_ms(lambda: win.finalize(state, cfg=cfg))
+            t_nsnap, _ = time_ms(lambda: win.finalize(state, cfg=noseq))
+            t_tick, _ = time_ms(lambda: win.window_tick(before, chunk,
+                                                        cfg=cfg))
+            msg = ""
+            if i % 2:
+                with Launches(*kernels) as run:
+                    state, astats = win.advance_epoch(state)
+                check(run.counts == (0, 0), f"advance launched {run.counts}")
+                pstate, _ = win.advance_epoch(pstate)
+                live.append([])
+                if len(live) > epochs:
+                    live.pop(0)
+                snap = snapshots(state, pstate, f"window {dist} advance")
+                check(leaves_equal(snap, oneshot_of(x, live)),
+                      f"window {dist} after insert {i + 1}: the snapshot "
+                      f"differs from the one-shot answer over the unexpired "
+                      f"rows")
+                t_adv, _ = time_ms(lambda: win.advance_epoch(state))
+                msg = (f"; advance {t_adv:.3f} ms (expired "
+                       f"{int(astats['expired_tuples'])} retained rows), "
+                       f"{sum(len(ep) for ep in live)} chunks live, snapshot "
+                       f"bitwise the one-shot answer over them")
+            print(f"{tag} window {dist} insert {i + 1}/{N_MAIN // CHUNK} "
+                  f"({CHUNK} rows, E={epochs}): insert {t_ins:.3f} ms, "
+                  f"snapshot {t_snap:.3f} ms, NoSeq snapshot {t_nsnap:.3f} "
+                  f"ms, tick {t_tick:.3f} ms (best of 3); retained "
+                  f"{int(state.count.sum())}, front {int(snap.count)}; state, "
+                  f"stats and snapshots bitwise equal to impl='torch'{msg}")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            adv, _ = win.advance_epoch(state)
+            exp, _ = win.expire_epoch(adv)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print(f"window {dist}: advance_epoch and expire_epoch under "
+              f"torch.cuda.set_sync_debug_mode('error'): no host sync raised")
+        while live != [[]]:
+            state, estats = win.expire_epoch(state)
+            pstate, _ = win.expire_epoch(pstate)
+            live = live[1:] if len(live) > 1 else [[]]
+            snap = snapshots(state, pstate, f"window {dist} expiry")
+            want = (oneshot_of(x, live) if any(live) else None)
+            check(want is None and int(snap.count) == 0
+                  or want is not None and leaves_equal(snap, want),
+                  f"window {dist} expiry: the snapshot differs from the "
+                  f"one-shot answer over the unexpired rows")
+            print(f"window {dist} expiry: {int(estats['expired_tuples'])} "
+                  f"retained rows expired, front {int(snap.count)}, bitwise "
+                  f"the one-shot answer over the unexpired rows")
+        check(int(state.count.sum()) == 0 and int(state.active) == 1,
+              f"window {dist}: not empty after expiring every epoch")
+        # the fused tick against the separate calls
+        fused, front, _ = win.window_tick(state, data[dist][:CHUNK], cfg=cfg,
+                                          advance=torch.tensor(
+                                              True, device=x.device))
+        sep, _ = win.advance_epoch(state)
+        sep, _ = win.insert_chunk(sep, data[dist][:CHUNK], cfg=cfg)
+        check(leaves_equal(fused, sep)
+              and leaves_equal(front, win.finalize(sep, cfg=cfg)),
+              f"window {dist}: the fused tick differs from the separate "
+              f"calls")
+        print(f"window {dist}: the fused tick (advance as a tensor) bitwise "
+              f"equal to advance + insert + finalize")
+
+    # Q = 4 windows on one ring clock against four single windows
+    x = data["anticorrelated"]
+    q, rows = 4, N_MAIN // 40
+    bstate = win.init_window_state(cfg, D_MAIN, epochs=2, q=q)
+    singles = [win.init_window_state(cfg, D_MAIN, epochs=2) for _ in range(q)]
+    for i in range(4):
+        chunk = x[i * q * rows:(i + 1) * q * rows].reshape(q, rows, D_MAIN)
+        with Launches(*kernels) as run:
+            bstate, _ = win.insert_chunk(bstate, chunk, cfg=cfg)
+        check(run.counts == (2, 2), f"batched window insert {i + 1}: "
+              f"launches {run.counts}")
+        singles = [win.insert_chunk(s, chunk[j], cfg=cfg)[0]
+                   for j, s in enumerate(singles)]
+        if i % 2:
+            bstate, _ = win.advance_epoch(bstate)
+            singles = [win.advance_epoch(s)[0] for s in singles]
+        with Launches(*kernels) as run:
+            bsnap = win.finalize(bstate, cfg=cfg)
+        check(run.counts == (1, 0), f"batched window snapshot: launches "
+              f"{run.counts}")
+        for j in range(q):
+            ring = [getattr(bstate, k)[j] for k in win._EPOCH_LEAVES]
+            check(leaves_equal(ring, [getattr(singles[j], k)
+                                      for k in win._EPOCH_LEAVES])
+                  and leaves_equal(bstate[6:], singles[j][6:])
+                  and leaves_equal([leaf[j] for leaf in bsnap],
+                                   win.finalize(singles[j], cfg=cfg)),
+                  f"batched window {j} differs from its single window")
+    t_b, _ = time_ms(lambda: win.finalize(bstate, cfg=cfg))
+    print(f"{tag} batched windows Q={q} x {rows} rows a wave, E=2: every ring "
+          f"and snapshot bitwise equal to the {q} single windows; batched "
+          f"snapshot {t_b:.3f} ms in one sweep launch (fronts "
+          f"{bsnap.count.tolist()})")
+
+
+def real_data_phase(cfg, tag, kernels):
+    """The paper's real datasets at their published shapes, HOU
+    (2,049,280 x 7) and RES (3,569,678 x 7), as the surrogate (no CSV is
+    in the repository): the default query, grid (m = 2, p = 128) and
+    angular (m = 2, p = 64), buckets sized to the largest and local
+    windows to the capacity; each bit for bit the plain version's and the
+    default answer, launches counted, timed."""
+    from repro_torch.core import api, datagen, parallel
+    for name in ("hou", "res"):
+        n, d = datagen.REAL_SHAPES[name]
+        t0 = time.perf_counter()
+        x = datagen.load_real(name, n, d)
+        torch.cuda.synchronize()
+        t_load = (time.perf_counter() - t0) * 1e3
+        mask = torch.ones((n,), dtype=torch.bool, device=x.device)
+        print(f"{tag} load_real({name!r}) surrogate {n} x {d}: seed "
+              f"abs(hash({name!r})) % 2**31 = {abs(hash(name)) % 2 ** 31} in "
+              f"this process, made on the host in {t_load:.3f} ms")
+        default = None
+        for label, fields in (("default", {}),
+                              ("grid m=2 p=128", dict(strategy="grid", m=2)),
+                              ("angular m=2 p=64", dict(strategy="angular",
+                                                        m=2))):
+            qcfg = dataclasses.replace(cfg, **fields)
+            if fields:
+                # one cell holds most rows of this skewed data: the bucket
+                # capacity fits it, the local windows stay at the capacity
+                _, _, st = parallel.partition_stage(x, mask, qcfg)
+                qcfg = dataclasses.replace(
+                    qcfg, local_capacity=cfg.capacity,
+                    bucket_capacity=_ceil_to(int(st["bucket_counts"].max()),
+                                             cfg.block))
+            with Launches(*kernels) as run:
+                buf, stats = api.parallel_skyline(x, cfg=qcfg)
+            ref, rstats = api.parallel_skyline(
+                x, cfg=dataclasses.replace(qcfg, impl="torch"))
+            check(run.counts == (2, 0) and not bool(buf.overflow)
+                  and leaves_equal(buf, ref) and stats_equal(stats, rstats),
+                  f"{name} {label}: launches {run.counts}, overflow or a "
+                  f"result that differs from impl='torch'")
+            if default is None:
+                default = buf
+            check(leaves_equal(buf, default), f"{name} {label}: the result "
+                  f"differs from the default query's")
+            e2e, runs = time_ms(lambda: api.parallel_skyline(x, cfg=qcfg))
+            print(f"{tag} real {name} {label} N={n} d={d}: {e2e:.3f} ms best "
+                  f"of 3 ({', '.join(f'{t:.3f}' for t in runs)}); skyline "
+                  f"{int(buf.count)}, largest bucket "
+                  f"{int(stats['bucket_counts'].max())} of "
+                  f"{stats['bucket_counts'].shape[0]}; launches "
+                  f"{run.counts}; bitwise equal to impl='torch' and the "
+                  f"default answer")
+
+
 def record_dominance_calls(fn) -> list:
     """Run ``fn`` once and return the arguments of every dominance
     kernel launch it makes, for timing the calls on their own inputs.
@@ -912,6 +1488,9 @@ def count_dom_compares(cands, refs, ref_mask, lower_tri: bool) -> int:
     return int(torch.where(found, upto, none).sum())
 
 
+T_START = time.perf_counter()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA "
@@ -955,10 +1534,15 @@ def main() -> None:
                    else dom_smem_law(dkernel, name, d_inst))
             print(f"ptxas {name}<D={d_inst}>: {p.get('used', '?')}, "
                   f"{p.get('spills', '?')}{law}")
+    print(f"{tag} {sass_ftz_report(libs)}")
 
     # -- 3. kernel against the plain version, bit for bit -------------------
     max_err = sweep_cases(dev)
     dom_err = dominance_cases(dev)
+    sub_err = subnormal_cases(dev)
+    many_err = many_parts_cases(dev)
+    max_err = max(max_err, sub_err, many_err)
+    dom_err = max(dom_err, sub_err, many_err)
     print(f"dominance kernel: max_abs_err {dom_err} over the kernel cases")
     if "--kernels-only" in sys.argv[1:]:
         print("--kernels-only: stopped after the kernel cases")
@@ -997,6 +1581,14 @@ def main() -> None:
               f"{int(buf.count)}, union {int(stats['union_size'])}, local "
               f"sizes {stats['local_sizes'].tolist()}, {launches[dist]} "
               f"launches, no overflow, bitwise equal to impl='torch'")
+
+    # subnormals: the witness keeps its three members on the card
+    wit, _ = api.parallel_skyline(torch.tensor(WITNESS, device=dev))
+    check(int(wit.count) == 3, f"the subnormal witness has {int(wit.count)} "
+          f"members on the card, expected 3")
+    print("subnormal witness (1e-40, 1), (2e-40, 1), (0.5, 0.5): 3 members "
+          "on the card, as in the JAX package")
+    flush_cost(data["anticorrelated"], tag)
 
     # signed zeros: how the card's own sort orders them, and the port's
     # answer on the card against the CPU on tie-heavy data with -0.0
@@ -1124,6 +1716,12 @@ def main() -> None:
                 record["bytes"] += nbytes
                 record["ops"] += ops_n
     dom = time_dominance_calls(dom_paths, tag)
+
+    # -- 6b. the other strategies, windows and the real datasets, after the
+    # kernel times above, so that those are taken as in earlier runs
+    strategies_phase(data, oneshot, cfg, tag, kernels)
+    windows_phase(data, cfg, tag, kernels)
+    real_data_phase(cfg, tag, kernels)
     print(f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
 
     # -- 8. the kernel record and the device line ----------------------------
@@ -1145,6 +1743,8 @@ def main() -> None:
           f"(3 calls) and one noseq=True query (1 call) added; library_ms is "
           f"null: no single PyTorch call computes an SFS sweep or a "
           f"dominated mask")
+    print(f"{tag} chip_smoke.py ran {time.perf_counter() - T_START:.3f} s, "
+          f"the kernels' build included")
     print(json.dumps({"kernels": [
         entry("sfs_sweep", "cuda", SOURCE, REPLACES,
               launches["anticorrelated"], max_err, record),
