@@ -50,7 +50,7 @@ def grid_filter(pts: torch.Tensor, mask: torch.Tensor,
     occupancy: an accumulating ``index_put_`` sorts its indices and adds
     the rows of a cell one after another on the card, which took 93-427
     ms at N = 10^7 on skewed cells (``PERF.md``, PR 16)."""
-    n, d = pts.shape
+    d = pts.shape[1]
     coords = grid_cell_coords(pts, m)
     cells = m ** d
     radix = m ** torch.arange(d - 1, -1, -1, device=pts.device)

@@ -117,9 +117,6 @@ def _fit_rows(points: torch.Tensor, mask: torch.Tensor, rows: int):
 def _chunk_skyline(pts, mask, *, cfg: SkyConfig, generator=None):
     """SKY of each chunk of a (Q, N, d) batch via partition -> local ->
     merge."""
-    if generator is None and (cfg.strategy == "random"
-                              or cfg.rep_filter == "random"):
-        generator = torch.Generator(device=pts.device).manual_seed(0)
     buckets, meta, stats = par.partition_stage(pts, mask, cfg, generator)
     final, s2 = par._local_merge(buckets.points, buckets.mask, meta,
                                  cfg=cfg, generator=generator)
@@ -186,7 +183,8 @@ def insert_chunk(state: SkylineState, pts, mask=None, *, cfg: SkyConfig,
     Runs where the state lies; the chunk is moved there.  Returns
     ``(new_state, stats)``: rebind the state.  ``generator`` draws the
     partition ids of ``strategy='random'`` and the representatives of
-    ``rep_filter='random'`` (one seeded with 0 when None)."""
+    ``rep_filter='random'`` (when None, each draws from its own
+    generator seeded with 0)."""
     par.check_supported(cfg)
     dev = state.points.device
     pts = torch.as_tensor(pts, device=dev).to(state.points.dtype)

@@ -129,9 +129,9 @@ def partition_stage(pts: torch.Tensor, mask: torch.Tensor, cfg: SkyConfig,
     on the data's device when None).  A (Q, N, d) batch is routed query
     by query and stacked; ``meta`` is the same for every query."""
     check_supported(cfg)
+    if cfg.strategy == "random" and generator is None:
+        generator = torch.Generator(device=pts.device).manual_seed(0)
     if pts.ndim == 3:
-        if cfg.strategy == "random" and generator is None:
-            generator = torch.Generator(device=pts.device).manual_seed(0)
         outs = [partition_stage(x, m, cfg, generator)
                 for x, m in zip(pts, mask)]
         buckets = partition.Buckets(*(torch.stack(leaf) for leaf in
@@ -144,8 +144,6 @@ def partition_stage(pts: torch.Tensor, mask: torch.Tensor, cfg: SkyConfig,
     stats: dict[str, Any] = {}
     cells = torch.zeros((p, d), dtype=torch.int32, device=dev)
     if cfg.strategy == "random":
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
         ids = partition.random_part_ids(generator, n, p, device=dev)
     elif cfg.strategy == "sliced":
         ids = partition.sliced_part_ids(pts, mask, p, cfg.sliced_dim)
@@ -318,9 +316,9 @@ def parallel_skyline(pts, mask=None, *, cfg: SkyConfig = SkyConfig(),
     the caller passes ``device="cpu"`` (without CUDA that raises
     ``RuntimeError``).  ``generator`` draws the partition ids of
     ``strategy='random'`` and the representatives of
-    ``rep_filter='random'``, in that order (a generator seeded with 0 on
-    that device when None).  Returns ``(SkyBuffer, stats)``, every leaf
-    a tensor on that device."""
+    ``rep_filter='random'``, in that order (when None, each draws from
+    its own generator seeded with 0 on that device).  Returns
+    ``(SkyBuffer, stats)``, every leaf a tensor on that device."""
     from repro_torch.core import incremental
     check_supported(cfg, mesh)
     pts, mask = as_inputs(pts, mask, device)

@@ -36,22 +36,23 @@ class Buckets(NamedTuple):
     overflow: torch.Tensor  # () bool, some partition exceeded capacity
 
 
-def random_part_ids(generator: torch.Generator | None, n: int, p: int, *,
+def random_part_ids(generator: torch.Generator, n: int, p: int, *,
                     device=None) -> torch.Tensor:
     """Balanced random assignment (paper §3.1): a random permutation of
-    ``arange(n) % p``, exactly equi-numerous when p divides n.  Drawn
-    from ``generator`` on its device (the default generator of
-    ``device`` when None); the ids are made on ``device``, the
-    generator's by default."""
-    gdev = generator.device if generator is not None else device
+    ``arange(n) % p``, exactly equi-numerous when p divides n, drawn from
+    ``generator`` on its device and moved to ``device`` (the generator's
+    when None)."""
+    gdev = generator.device
     perm = torch.randperm(n, generator=generator, device=gdev)
     ids = (torch.arange(n, dtype=torch.int32, device=gdev) % p)[perm]
-    return ids.to(device if device is not None else gdev)
+    return ids.to(device or gdev)
 
 
 def grid_cell_coords(pts: torch.Tensor, m: int) -> torch.Tensor:
-    """(N, d) int32 grid coordinates on [0,1]^d with m slices per dim."""
-    cell = torch.floor(flush_subnormal(flush_subnormal(pts) * m))
+    """(N, d) int32 grid coordinates on [0,1]^d with m slices per dim.
+    The product of a flushed coordinate and m >= 1 is zero, normal or
+    infinite, so it needs no flush of its own."""
+    cell = torch.floor(flush_subnormal(pts) * m)
     return torch.clamp(cell, 0, m - 1).to(torch.int32)
 
 
@@ -73,9 +74,10 @@ def angular_part_ids(pts: torch.Tensor, m: int) -> torch.Tensor:
 
     The tail sums are accumulated one attribute at a time from the last,
     as the reference's reversed ``cumsum`` adds (``torch.cumsum`` on the
-    flipped array uses another order and other bits); every product, sum
-    and angle is flushed.  The ids are those of the reference under
-    ``jit``, as its pipeline runs them."""
+    flipped array uses another order and other bits).  Squares, angles
+    and scaled angles are flushed; sums of flushed squares and their
+    square roots cannot be subnormal.  The ids are those of the
+    reference under ``jit``, as its pipeline runs them."""
     n, d = pts.shape
     if d < 2:
         return torch.zeros((n,), dtype=torch.int32, device=pts.device)
@@ -85,9 +87,9 @@ def angular_part_ids(pts: torch.Tensor, m: int) -> torch.Tensor:
     acc = x2[:, d - 1]
     for i in range(d - 2, -1, -1):
         tails.append(acc)              # tail[i] = sum_{j > i} x_j^2
-        acc = flush_subnormal(acc + x2[:, i])
+        acc = acc + x2[:, i]
     tail = torch.stack(tails[::-1][:d - 1], dim=1)
-    phi = flush_subnormal(torch.atan2(flush_subnormal(torch.sqrt(tail)),
+    phi = flush_subnormal(torch.atan2(torch.sqrt(tail),
                                       x[:, :d - 1]))    # [0, pi/2]
     # the reference's 2.0 * phi / pi * m runs under jit, where XLA folds
     # the constants into one product with f32((2 / pi) * m)

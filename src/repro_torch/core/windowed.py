@@ -190,10 +190,13 @@ def _expired_tuples(state: WindowedSkylineState, idx: torch.Tensor,
     return cnt.sum(dtype=torch.int32)
 
 
-def _advance(state: WindowedSkylineState):
+def advance_epoch(state: WindowedSkylineState, *, donate: bool = True):
     """Open the next ring slot as head.  With the ring full the claimed
     slot holds the tail epoch: clearing it is the expiry, and nothing is
-    recomputed (the next merge-on-read resolves what it un-dominates)."""
+    recomputed (the next merge-on-read resolves what it un-dominates).
+    Returns ``(new_state, stats)``: rebind the state (``donate`` has no
+    effect)."""
+    del donate
     epochs, axis = window_epochs(state), _epoch_axis(state)
     new_head, new_active, expired = ring_advance(state.head, state.active,
                                                  epochs)
@@ -203,29 +206,17 @@ def _advance(state: WindowedSkylineState):
     return state._replace(head=new_head, active=new_active), stats
 
 
-def _expire(state: WindowedSkylineState):
-    """Drop the tail epoch without opening a new one.  Expiring the only
-    live epoch clears it in place: the window empties and stays open."""
+def expire_epoch(state: WindowedSkylineState, *, donate: bool = True):
+    """Drop the tail epoch without opening a new one; expiring the only
+    live epoch clears it in place, and the window stays open.  Returns
+    ``(new_state, stats)``: rebind the state (``donate`` has no
+    effect)."""
+    del donate
     epochs, axis = window_epochs(state), _epoch_axis(state)
     tail = ring_tail(state.head, state.active, epochs)
     stats = {"expired_tuples": _expired_tuples(state, tail, axis)}
     state = _clear_slot(state, tail, axis)
     return state._replace(active=(state.active - 1).clamp(min=1)), stats
-
-
-def advance_epoch(state: WindowedSkylineState, *, donate: bool = True):
-    """Open a new head epoch; a full ring expires its tail epoch.
-    Returns ``(new_state, stats)``: rebind the state (``donate`` has no
-    effect)."""
-    del donate
-    return _advance(state)
-
-
-def expire_epoch(state: WindowedSkylineState, *, donate: bool = True):
-    """Drop the tail epoch.  Returns ``(new_state, stats)``: rebind the
-    state (``donate`` has no effect)."""
-    del donate
-    return _expire(state)
 
 
 # -- insert: the incremental insert, restricted to the head epoch ----------
@@ -309,11 +300,11 @@ def window_tick(state: WindowedSkylineState, pts, mask=None, *,
     the device, with no host read).  Returns ``(new_state, front,
     stats)`` with the insert's stats; bit for bit the separate calls."""
     if isinstance(advance, torch.Tensor):
-        rotated, _ = _advance(state)
+        rotated, _ = advance_epoch(state)
         state = WindowedSkylineState(*(
             torch.where(advance, r, s) for r, s in zip(rotated, state)))
     elif advance:
-        state, _ = _advance(state)
+        state, _ = advance_epoch(state)
     state, stats = insert_chunk(state, pts, mask, cfg=cfg,
                                 generator=generator)
     return state, finalize(state, cfg=cfg), stats
