@@ -49,7 +49,7 @@ def grid_filter(pts: torch.Tensor, mask: torch.Tensor,
     plain scatter (invalid rows mark a spare slot), which gives the same
     occupancy: an accumulating ``index_put_`` sorts its indices and adds
     the rows of a cell one after another on the card, which took 93-427
-    ms at N = 10^7 on skewed cells (``PERF.md``, PR 16)."""
+    ms at N = 10^7 on skewed cells on an H100 (``PERF.md``)."""
     d = pts.shape[1]
     coords = grid_cell_coords(pts, m)
     cells = m ** d
