@@ -74,6 +74,33 @@ It builds the port's CUDA kernels from the sources in the checkout
      tick, Q = 4 windows against four single ones); and the default,
      grid and angular queries on the HOU (2,049,280 x 7) and RES
      (3,569,678 x 7) surrogates, bit for bit the plain version's;
+  6c. drives the serving layer (``repro_torch.serve``), after step 7's
+     kernel times: E1, 64 ragged requests (N from 2^12 to 2^20, the
+     three distributions, one masked) through ``submit_many``, 2 sweep
+     launches per N bucket, every answer bit for bit its single
+     ``parallel_skyline`` and the plain version's (stats included), the
+     batch timed against the 64 single calls (queries/s), the partition
+     stage's device operations (counted in a CUDA graph capture) equal
+     at Q = 4 and Q = 64 under the sliced, grid and angular strategies
+     at 4,096 rows a query, and at Q = 4 and Q = 16 at 2^20 rows, and
+     its share of the largest bucket; E1's and E2's ``submit_many`` under
+     set_sync_debug_mode("error"); E2, 64 scale and 64
+     subspace views of one anticorrelated 10^6 x 4 dataset, one run of
+     2 sweep launches each, bit for bit ``parallel_skyline`` of the
+     flushed product or the zeroed attributes; E3, grid, angular and
+     random through ``submit_many`` with buckets sized to the largest;
+     E4, ``admit_many`` and ``member_masks`` over 16 queues of 4,096
+     requests, one dominance launch, fronts and admitted indices the
+     plain version's; E5, one stream of 256 tenants fed ten waves of
+     10^3..10^4 anticorrelated rows each (2 + 2 launches a wave, at
+     least two slot promotions, ``feed`` and ``snapshot`` under
+     set_sync_debug_mode("error"), every snapshot the plain version's,
+     after ``drain()`` the one-shot answer over each history), and a
+     wave of two streams through ``_wave_feed`` against serial feeds;
+     E6, a windowed stream (q = 64, E = 4) ticked for all tenants, then
+     half of them, then expired to empty, every snapshot the one-shot
+     answer over the unexpired rows; E7, 1,000 idle streams in one
+     arena; with feed, snapshot and tick ms per wave;
   7. times the queries end to end, their stages, each sweep call and
      each dominance call of the paths above (the kernel, the plain
      version, and the least time the card could take), each sweep
@@ -88,7 +115,9 @@ It builds the port's CUDA kernels from the sources in the checkout
   8. prints the script's run time, one JSON line with both kernels, then
      the device line.
 
-With ``--kernels-only`` it stops after step 3 and prints no result.
+With ``--kernels-only`` it stops after step 3 and prints no result;
+with ``--engine-only`` it runs the build and then the engine step
+(step 6c) alone, and prints no result either.
 Every check that fails ends the run with a non-zero exit code.  The
 script needs a CUDA card; without one, or outside a checkout of the
 repository, it exits non-zero and prints no result.
@@ -1025,6 +1054,517 @@ def windows_phase(data, cfg, tag, kernels):
           f"{bsnap.count.tolist()})")
 
 
+# -- the batched engine, the slab arena and Pareto admission ------------------
+
+ENGINE_Q = 64                  # requests of the ragged batch (E1)
+ENGINE_N_LOG2 = (12, 20)       # their N, log-uniform over 2^12 .. 2^20
+VIEW_N = 1_000_000             # rows of the dataset behind the views (E2)
+STRAT_Q, STRAT_N = 8, 1 << 18  # strategy requests per batch and rows (E3)
+ADMIT_QUEUES, ADMIT_N = 16, 4096  # admission queues and requests (E4)
+STREAM_Q, STREAM_WAVES = 256, 10  # stream tenants and waves (E5)
+CHUNK_ROWS = (1000, 10000)        # rows per tenant and wave (E5, E6)
+WINDOW_Q, WINDOW_E = 64, 4        # windowed tenants and epochs (E6)
+IDLE_STREAMS = 1000               # idle single-tenant streams (E7)
+
+
+_GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                     4: "graph", 5: "empty", 6: "wait", 7: "record",
+                     10: "alloc", 11: "free"}
+
+
+def graph_ops(fn) -> dict:
+    """The device operations of one call of ``fn``, counted the same way
+    every time: after a warm-up on a side stream, the call is captured
+    into a CUDA graph, and libcuda lists the graph's nodes
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``).  Returns the count of
+    each node type.  A host sync inside ``fn`` fails the capture."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    counts: dict[str, int] = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        name = _GRAPH_NODE_TYPES.get(kind.value, f"type{kind.value}")
+        counts[name] = counts.get(name, 0) + 1
+    graph.reset()
+    torch.cuda.synchronize()
+    return dict(sorted(counts.items()))
+
+
+def event_ms(fn):
+    """One call of ``fn`` timed by CUDA events (for stateful calls that
+    cannot be repeated); returns (result, ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def no_sync(fn):
+    """``fn()`` under torch.cuda.set_sync_debug_mode("error"): a host
+    synchronisation inside raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def buffers_equal(got, want) -> bool:
+    return leaves_equal(tuple(got), tuple(want))
+
+
+def member_set(buf) -> set:
+    return {tuple(r) for r in
+            buf.points[buf.mask].view(torch.int32).tolist()}
+
+
+def span(ts) -> str:
+    return (f"min {min(ts):.3f}, median {sorted(ts)[len(ts) // 2]:.3f}, "
+            f"max {max(ts):.3f} ms")
+
+
+def engine_phase(tag, kernels, dev=torch.device("cuda")) -> None:
+    """The serving layer on the card (E1-E7, see the module docstring)."""
+    from repro_torch.core import api, datagen, parallel
+    from repro_torch.core.dominance import flush_subnormal
+    from repro_torch.serve import engine as eng
+    from repro_torch.serve import scheduler as sched
+    from repro_torch.serve.api import SkylineRequest, StreamOptions
+    cfg = parallel.SkyConfig(capacity=65536)
+    plain = dataclasses.replace(cfg, impl="torch")
+    engine = eng.SkylineEngine(cfg, device=dev)
+    pengine = eng.SkylineEngine(plain, device=dev)
+    dists = ("uniform", "correlated", "anticorrelated")
+    t_phase = time.perf_counter()
+
+    # -- E1: a ragged batch of plain requests --------------------------------
+    g = torch.Generator().manual_seed(2024)
+    lo, hi = ENGINE_N_LOG2
+    sizes = [int(2 ** (lo + (hi - lo) * float(u)))
+             for u in torch.rand(ENGINE_Q, generator=g)]
+    sizes[0], sizes[1] = 2 ** lo, 2 ** hi
+    reqs = []
+    for i, n in enumerate(sizes):
+        gen = torch.Generator(device=dev).manual_seed(5000 + i)
+        x = datagen.generate(dists[i % 3], gen, n, D_MAIN)
+        mask = (torch.rand((n,), generator=gen, device=dev) > 0.3
+                if i == 5 else None)
+        reqs.append(SkylineRequest(data=x, mask=mask))
+    buckets = sorted({eng._next_bucket(n, engine.min_n_bucket)
+                      for n in sizes})
+    check(len(buckets) >= 4, f"E1: only {len(buckets)} N buckets")
+    before = engine.batches_dispatched
+    with Launches(*kernels) as run:
+        out = no_sync(lambda: engine.submit_many(reqs))
+    nb_runs = engine.batches_dispatched - before
+    check(nb_runs == len(buckets) and run.counts == (2 * nb_runs, 0),
+          f"E1: {nb_runs} runs for {len(buckets)} buckets, launches "
+          f"{run.counts}, expected {(2 * len(buckets), 0)}")
+    pout = pengine.submit_many(reqs)
+    for i, (r, (buf, stats), (pbuf, pstats)) in enumerate(
+            zip(reqs, out, pout)):
+        ref, _ = api.parallel_skyline(r.data, r.mask, cfg=cfg)
+        check(not bool(buf.overflow) and buffers_equal(buf, ref),
+              f"E1 request {i} (N={sizes[i]}): differs from its single "
+              f"parallel_skyline or overflows")
+        check(buffers_equal(buf, pbuf) and stats_equal(dict(stats),
+                                                       dict(pstats)),
+              f"E1 request {i}: differs from impl='torch'")
+    t_batch, runs = time_ms(lambda: engine.submit_many(reqs))
+    t_single, sruns = time_ms(lambda: [api.parallel_skyline(
+        r.data, r.mask, cfg=cfg) for r in reqs])
+    per_bucket = {}
+    for n in sizes:
+        nb = eng._next_bucket(n, engine.min_n_bucket)
+        per_bucket[nb] = per_bucket.get(nb, 0) + 1
+    print(f"{tag} E1 ragged batch: {ENGINE_Q} requests, N from {min(sizes)} "
+          f"to {max(sizes)} ({sum(sizes)} rows; uniform, correlated and "
+          f"anticorrelated; one masked), {len(buckets)} N buckets "
+          f"{per_bucket}: launches {run.counts} = 2 sweep + 0 dominance per "
+          f"bucket, under set_sync_debug_mode('error'); every answer bitwise equal to its single "
+          f"parallel_skyline and to impl='torch', stats included")
+    print(f"{tag} E1 time: the batch {t_batch:.3f} ms best of 3 "
+          f"({', '.join(f'{t:.3f}' for t in runs)}), "
+          f"{ENGINE_Q / t_batch * 1e3:.1f} queries/s; the {ENGINE_Q} single "
+          f"calls {t_single:.3f} ms ({', '.join(f'{t:.3f}' for t in sruns)}),"
+          f" {ENGINE_Q / t_single * 1e3:.1f} queries/s; "
+          f"{t_single / t_batch:.3f}x")
+    # the partition stage: one bucket's device operations at Q = 4 and 64
+    # under each strategy that needs no draw (the random strategy draws
+    # once per query), and its share of the bucket's run
+    nb = 4096
+    xs = datagen.uniform(torch.Generator(device=dev).manual_seed(9),
+                         ENGINE_Q * nb, D_MAIN).reshape(ENGINE_Q, nb, D_MAIN)
+    ms = torch.ones((ENGINE_Q, nb), dtype=torch.bool, device=dev)
+    pcfgs = (("sliced", cfg),
+             ("grid m=2", dataclasses.replace(cfg, strategy="grid", m=2)),
+             ("angular m=2", dataclasses.replace(cfg, strategy="angular",
+                                                 m=2)))
+    stage_ops = {}
+    for sname, scfg in pcfgs:
+        ops4 = graph_ops(lambda: parallel.partition_stage(xs[:4], ms[:4],
+                                                          scfg))
+        ops64 = graph_ops(lambda: parallel.partition_stage(xs, ms, scfg))
+        check(ops4 == ops64, f"E1 {sname}: the partition stage of a bucket "
+              f"makes {ops4} device operations at Q=4 and {ops64} at Q=64")
+        stage_ops[sname] = ops4
+    print(f"{tag} E1 partition stage of one bucket (nb={nb}), device "
+          f"operations in a CUDA graph capture, equal at Q=4 and Q=64: "
+          + "; ".join(f"{k} {v}" for k, v in stage_ops.items()))
+    # and at 2^20 rows a query, where a batched torch.sort would sort row
+    # by row (the stage sorts all Q x N keys at once)
+    del xs, ms
+    nbl = 2 ** ENGINE_N_LOG2[1]
+    xl = datagen.uniform(torch.Generator(device=dev).manual_seed(10),
+                         16 * nbl, D_MAIN).reshape(16, nbl, D_MAIN)
+    ml = torch.ones((16, nbl), dtype=torch.bool, device=dev)
+    large = {q: graph_ops(lambda: parallel.partition_stage(xl[:q], ml[:q],
+                                                            cfg))
+             for q in (4, 16)}
+    check(large[4] == large[16], f"E1: the sliced partition stage at "
+          f"nb={nbl} makes {large[4]} device operations at Q=4 and "
+          f"{large[16]} at Q=16")
+    print(f"{tag} E1 partition stage at nb={nbl}, sliced, device operations "
+          f"in a CUDA graph capture, equal at Q=4 and Q=16: {large[4]}")
+    del xl, ml
+    big = max(per_bucket)
+    bidx = [i for i, n in enumerate(sizes)
+            if eng._next_bucket(n, engine.min_n_bucket) == big]
+    qb = engine._q_bucket(len(bidx))
+    pts_b, mask_b = engine._pack([reqs[i].data for i in bidx],
+                                 [reqs[i].mask for i in bidx],
+                                 range(len(bidx)), qb)
+    t_part, _ = time_ms(lambda: parallel.partition_stage(pts_b, mask_b, cfg))
+    t_run, _ = time_ms(lambda: engine._run(pts_b, mask_b, [0] * qb, cfg))
+    print(f"{tag} E1 the "
+          f"largest bucket (nb={big}, {len(bidx)} requests, qb={qb}): "
+          f"partition {t_part:.3f} ms of the run's {t_run:.3f} ms "
+          f"(share {t_part / t_run:.4f})")
+
+    # -- E2: scale and subspace views of one dataset -------------------------
+    gen = torch.Generator(device=dev).manual_seed(77)
+    base = datagen.anticorrelated(gen, VIEW_N, D_MAIN)
+    weights = 0.5 + 1.5 * torch.rand((ENGINE_Q, D_MAIN), generator=gen,
+                                     device=dev)
+    dims = torch.rand((ENGINE_Q, D_MAIN), generator=gen, device=dev) < 0.6
+    dims[:, :2] = torch.rand((ENGINE_Q, 2), generator=gen, device=dev) < 2
+    for kind, params in (("scale", weights), ("subspace", dims)):
+        vreqs = [SkylineRequest(data=base, **{kind: params[j]})
+                 for j in range(ENGINE_Q)]
+        before = engine.batches_dispatched
+        with Launches(*kernels) as run:
+            vout = no_sync(lambda: engine.submit_many(vreqs))
+        check(engine.batches_dispatched - before == 1
+              and run.counts == (2, 0), f"E2 {kind}: "
+              f"{engine.batches_dispatched - before} runs, launches "
+              f"{run.counts}, expected one run of (2, 0)")
+        for j, (buf, _) in enumerate(vout):
+            view = (flush_subnormal(flush_subnormal(base)
+                                    * flush_subnormal(params[j]))
+                    if kind == "scale"
+                    else torch.where(params[j], base, 0.0))
+            ref, _ = api.parallel_skyline(view, cfg=cfg)
+            check(not bool(buf.overflow) and buffers_equal(buf, ref),
+                  f"E2 {kind} view {j}: differs from parallel_skyline of "
+                  f"the {'flushed product' if kind == 'scale' else 'zeroed attributes'}")
+        t_v, _ = time_ms(lambda: engine.submit_many(vreqs))
+        fronts = [int(b.count) for b, _ in vout]
+        print(f"{tag} E2 {ENGINE_Q} {kind} views of one anticorrelated "
+              f"{VIEW_N} x {D_MAIN} dataset: one run, launches {run.counts} "
+              f"under set_sync_debug_mode('error'), "
+              f"{t_v:.3f} ms best of 3 ({ENGINE_Q / t_v * 1e3:.1f} views/s); "
+              f"fronts {min(fronts)}..{max(fronts)}; every view bitwise "
+              f"equal to parallel_skyline of the "
+              f"{'flushed f32 product' if kind == 'scale' else 'zeroed attributes'}")
+    del base
+
+    # -- E3: the other strategies through submit_many ------------------------
+    sreqs = []
+    for i in range(STRAT_Q):
+        gen = torch.Generator(device=dev).manual_seed(8000 + i)
+        sreqs.append(SkylineRequest(
+            data=datagen.generate(dists[i % 3], gen, STRAT_N - 17 * i,
+                                  D_MAIN), key=300 + i))
+    sliced = engine.submit_many(sreqs)
+    for sname, fields in (("grid m=2", dict(strategy="grid", m=2)),
+                          ("angular m=2", dict(strategy="angular", m=2)),
+                          ("random p=8", dict(strategy="random"))):
+        scfg = dataclasses.replace(cfg, **fields)
+        first = eng.SkylineEngine(scfg, device=dev).submit_many(sreqs)
+        largest = max(int(s["bucket_counts"].max()) for _, s in first)
+        sized = dataclasses.replace(scfg, bucket_capacity=_ceil_to(
+            largest, cfg.block))
+        se = eng.SkylineEngine(sized, device=dev)
+        with Launches(*kernels) as run:
+            sout = se.submit_many(sreqs)
+        check(run.counts == (2, 0), f"E3 {sname}: launches {run.counts}")
+        pout = eng.SkylineEngine(dataclasses.replace(sized, impl="torch"),
+                                 device=dev).submit_many(sreqs)
+        for i, ((buf, st), (pbuf, pst), (ref, _)) in enumerate(
+                zip(sout, pout, sliced)):
+            check(not bool(buf.overflow), f"E3 {sname} request {i}: "
+                  f"overflow with buckets sized to the largest")
+            if sized.strategy == "random":
+                check(member_set(buf) == member_set(ref)
+                      and int(buf.count) == int(ref.count),
+                      f"E3 {sname} request {i}: the member set or count "
+                      f"differs from the sliced answer")
+            else:
+                single, _ = api.parallel_skyline(sreqs[i].data, cfg=sized)
+                check(buffers_equal(buf, single) and buffers_equal(buf, pbuf)
+                      and stats_equal(dict(st), dict(pst)),
+                      f"E3 {sname} request {i}: differs from its single "
+                      f"parallel_skyline or from impl='torch'")
+        t_s, _ = time_ms(lambda: se.submit_many(sreqs))
+        print(f"{tag} E3 {sname}: {STRAT_Q} requests of about {STRAT_N} rows "
+              f"in one bucket, buckets sized to the largest "
+              f"({sized.bucket_capacity} rows), launches {run.counts}, "
+              f"{t_s:.3f} ms best of 3; "
+              + ("member sets and counts equal to the sliced answers"
+                 if sized.strategy == "random" else
+                 "bitwise equal to the single parallel_skyline and to "
+                 "impl='torch', stats included"))
+
+    # -- E4: Pareto admission -------------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(44)
+    queues = [sched.Request(
+        slack=torch.empty(ADMIT_N, device=dev).exponential_(0.1,
+                                                            generator=gen),
+        neg_priority=-torch.randint(0, 3, (ADMIT_N,), generator=gen,
+                                    device=dev).float(),
+        cost=torch.randint(8, 64, (ADMIT_N,), generator=gen,
+                           device=dev).float())
+        for _ in range(ADMIT_QUEUES)]
+    with Launches(*kernels) as run:
+        adm = sched.admit_many(queues, 64, engine=engine)
+    check(run.counts == (0, 1), f"E4 admit_many: launches {run.counts}, "
+          f"expected (0, 1)")
+    padm = sched.admit_many(queues, 64, engine=pengine)
+    for j, ((idx, front), (pidx, pfront)) in enumerate(zip(adm, padm)):
+        check(bits_equal(idx, pidx) and bits_equal(front, pfront),
+              f"E4 queue {j}: admitted indices or front differ from "
+              f"impl='torch'")
+    with Launches(*kernels) as run:
+        masks = engine.member_masks([sched._criteria(r, dev)
+                                     for r in queues])
+    check(run.counts == (0, 1), f"E4 member_masks: launches {run.counts}")
+    t_a, _ = time_ms(lambda: sched.admit_many(queues, 64, engine=engine))
+    print(f"{tag} E4 admission: {ADMIT_QUEUES} queues x {ADMIT_N} requests "
+          f"x 3 criteria, one dominance launch (member_masks and admit_many "
+          f"alike); fronts {[int(m.sum()) for m in masks]}; fronts and "
+          f"admitted indices bitwise equal to impl='torch'; admit_many "
+          f"{t_a:.3f} ms best of 3")
+
+    # -- E5: one stream of 256 tenants ---------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(55)
+    hist = [[] for _ in range(STREAM_Q)]
+    s = engine.open_stream(D_MAIN, StreamOptions(q=STREAM_Q, key=1))
+    ps = pengine.open_stream(D_MAIN, StreamOptions(q=STREAM_Q, key=1))
+    rows_seen = [s.rows]
+    t_feed, t_snap = [], []
+    for w in range(STREAM_WAVES):
+        ns = torch.randint(CHUNK_ROWS[0], CHUNK_ROWS[1] + 1, (STREAM_Q,),
+                           generator=g).tolist()
+        chunks = [datagen.anticorrelated(gen, n, D_MAIN) for n in ns]
+        for t, c in enumerate(chunks):
+            hist[t].append(c)
+        with Launches(*kernels) as run:
+            _, tf = event_ms(lambda: no_sync(lambda: s.feed(chunks)))
+        check(run.counts == (2, 2), f"E5 wave {w}: feed launches "
+              f"{run.counts}, expected (2, 2)")
+        with Launches(*kernels) as run:
+            snap, tsn = event_ms(lambda: no_sync(s.snapshot))
+        check(run.counts == (0, 0), f"E5 wave {w}: snapshot launches "
+              f"{run.counts}")
+        rows_seen.append(s.rows)
+        t_feed.append(tf)
+        t_snap.append(tsn)
+        ps.feed(chunks)
+        psnap = ps.snapshot()
+        check(all(buffers_equal(a, b) for a, b in zip(snap, psnap)),
+              f"E5 wave {w}: a snapshot differs from impl='torch'")
+    s.drain()
+    rows_seen.append(s.rows)
+    promotions = sum(a != b for a, b in zip(rows_seen, rows_seen[1:]))
+    check(promotions >= 2, f"E5: {promotions} promotions (slot rows "
+          f"{rows_seen}), expected at least two")
+    final = s.snapshot()
+    one = engine.submit_many([SkylineRequest(data=torch.cat(h))
+                              for h in hist])
+    check(all(buffers_equal(a, b) for a, (b, _) in zip(final, one)),
+          "E5: after drain() a tenant's snapshot differs from the one-shot "
+          "answer over its history")
+    counters = s.counters()
+    fronts = [int(b.count) for b in final]
+    print(f"{tag} E5 stream: q={STREAM_Q} tenants, {STREAM_WAVES} waves of "
+          f"{CHUNK_ROWS[0]}..{CHUNK_ROWS[1]} anticorrelated rows per tenant: "
+          f"launches (2, 2) per "
+          f"feed and (0, 0) per snapshot; feed and snapshot under "
+          f"set_sync_debug_mode('error'); slot rows per wave {rows_seen} "
+          f"({promotions} promotions, min_slab_rows "
+          f"{engine.min_slab_rows}); fronts "
+          f"{min(fronts)}..{max(fronts)}, seen {int(counters['seen'].sum())}; "
+          f"every snapshot bitwise equal to impl='torch', and after drain() "
+          f"to the one-shot answer over each tenant's history")
+    print(f"{tag} E5 per wave (CUDA events, one call each): feed "
+          f"{span(t_feed)}; snapshot {span(t_snap)}")
+    s.close()
+    ps.close()
+    # coalescing: a wave of two streams against serial feeds
+    a1, a2, b1, b2 = (engine.open_stream(D_MAIN, StreamOptions(q=16, key=k))
+                      for k in (3, 4, 3, 4))
+    for w in range(3):
+        c1 = [datagen.anticorrelated(gen, 3 * CHUNK_ROWS[0], D_MAIN)
+              for _ in range(16)]
+        c2 = [datagen.uniform(gen, 2 * CHUNK_ROWS[0], D_MAIN)
+              for _ in range(16)]
+        a1.feed(c1)
+        a2.feed(c2)
+        with Launches(*kernels) as run:
+            no_sync(lambda: eng._wave_feed(engine, [
+                (b1, *b1._feed_args(c1, None)),
+                (b2, *b2._feed_args(c2, None))]))
+        # one wave, or one per rows bucket once a promotion split them
+        check(run.counts in ((2, 2), (4, 4)), f"E5 coalesced wave {w}: "
+              f"launches {run.counts}")
+        for sa, sb in ((a1, b1), (a2, b2)):
+            check(all(buffers_equal(x, y) for x, y in
+                      zip(sa.snapshot(), sb.snapshot())),
+                  f"E5 coalesced wave {w}: differs from serial feeds")
+    print(f"{tag} E5 coalescing: three waves of two 16-tenant streams "
+          f"through _wave_feed bitwise equal to serial feeds")
+    for st in (a1, a2, b1, b2):
+        st.close()
+
+    # -- E6: windows ----------------------------------------------------------
+    ws = engine.open_stream(D_MAIN, StreamOptions(q=WINDOW_Q,
+                                                  window_epochs=WINDOW_E))
+    rings = [[[]] for _ in range(WINDOW_Q)]
+
+    def tick_model(sel):
+        expired = False
+        for t in sel:
+            rings[t].append([])
+            if len(rings[t]) > WINDOW_E:
+                rings[t].pop(0)
+                expired = True
+        return expired
+
+    def expire_model():
+        for r in rings:
+            if len(r) > 1:
+                r.pop(0)
+            else:
+                r[0] = []
+
+    def check_window(where):
+        with Launches(*kernels) as run:
+            snap, tsn = event_ms(lambda: no_sync(ws.snapshot))
+        check(run.counts == (1, 0), f"E6 {where}: snapshot launches "
+              f"{run.counts}")
+        live = [[c for ep in r for c in ep] for r in rings]
+        want = engine.submit_many([SkylineRequest(data=torch.cat(c))
+                                   for c in live if c])
+        it = iter(want)
+        for t, (buf, c) in enumerate(zip(snap, live)):
+            if c:
+                ok = buffers_equal(buf, next(it)[0])
+            else:
+                ok = int(buf.count) == 0 and not bool(buf.mask.any())
+            check(ok, f"E6 {where} tenant {t}: the snapshot differs from "
+                  f"the one-shot answer over the unexpired rows")
+        return tsn
+
+    t_wfeed, t_wsnap, t_tick = [], [], []
+    for w in range(8):
+        ns = torch.randint(CHUNK_ROWS[0], CHUNK_ROWS[1] + 1, (WINDOW_Q,),
+                           generator=g).tolist()
+        chunks = [datagen.anticorrelated(gen, n, D_MAIN) for n in ns]
+        for r, c in zip(rings, chunks):
+            r[-1].append(c)
+        with Launches(*kernels) as run:
+            _, tf = event_ms(lambda: no_sync(lambda: ws.feed(chunks)))
+        check(run.counts == (2, 2), f"E6 wave {w}: feed launches "
+              f"{run.counts}")
+        t_wfeed.append(tf)
+        t_wsnap.append(check_window(f"wave {w}"))
+        if w % 2:
+            sel = list(range(WINDOW_Q)) if w < 6 else \
+                list(range(0, WINDOW_Q, 2))
+            with Launches(*kernels) as run:
+                got, tt = event_ms(lambda: no_sync(
+                    lambda: ws.tick(None if len(sel) == WINDOW_Q else sel)))
+            check(run.counts == (0, 0) and got == tick_model(sel),
+                  f"E6 tick after wave {w}: launches {run.counts}, expired "
+                  f"{got}")
+            t_tick.append(tt)
+            check_window(f"tick after wave {w}")
+    ws.drain()
+    for k in range(WINDOW_E):
+        ws.expire_epoch()
+        expire_model()
+        check_window(f"expiry {k}")
+    check(all(int(b.count) == 0 for b in ws.snapshot()),
+          "E6: the windows are not empty after expiring every epoch")
+    print(f"{tag} E6 windows: q={WINDOW_Q}, E={WINDOW_E}, 8 waves of "
+          f"{CHUNK_ROWS[0]}..{CHUNK_ROWS[1]} anticorrelated rows per tenant, "
+          f"ticking all tenants "
+          f"after every second wave, then half of them, then expired to "
+          f"empty: feed (2, 2), snapshot (1, 0), tick (0, 0) launches, all "
+          f"under set_sync_debug_mode('error'); every snapshot bitwise the "
+          f"one-shot answer over the unexpired rows")
+    print(f"{tag} E6 per wave (CUDA events, one call each): feed "
+          f"{span(t_wfeed)}; snapshot {span(t_wsnap)}; tick {span(t_tick)}")
+    ws.close()
+
+    # -- E7: an idle fleet -----------------------------------------------------
+    fleet = eng.SkylineEngine(cfg, device=dev)
+    streams = [fleet.open_stream(D_MAIN, StreamOptions(q=1))
+               for _ in range(IDLE_STREAMS)]
+    report = fleet.arena_report()
+    check(len(report) == 1, f"E7: {len(report)} arenas for one bucket")
+    (key, rep), = report.items()
+    for st in streams:
+        st.close()
+    after = fleet.arena_report()[key]
+    check(after["leased"] == 0, f"E7: {after['leased']} slots still leased")
+    print(f"{tag} E7 idle fleet: {IDLE_STREAMS} single-tenant streams in one "
+          f"arena {key}: {rep['slots']} slots, {rep['buffers']} device "
+          f"tensors, {rep['bytes']} bytes, {rep['grows']} growths; after "
+          f"closing {after['slots'] - after['leased']} free slots of "
+          f"{after['slots']}")
+    print(f"{tag} engine step ran {time.perf_counter() - t_phase:.3f} s; "
+          f"peak device memory so far {torch.cuda.max_memory_allocated()} "
+          f"bytes")
+
+
 def real_data_phase(cfg, tag, kernels):
     """The paper's real datasets at their published shapes, HOU
     (2,049,280 x 7) and RES (3,569,678 x 7), as the surrogate (no CSV is
@@ -1536,6 +2076,13 @@ def main() -> None:
                   f"{p.get('spills', '?')}{law}")
     print(f"{tag} {sass_ftz_report(libs)}")
 
+    # a quicker run: the build, then the engine step alone
+    if "--engine-only" in sys.argv[1:]:
+        engine_phase(tag, (kernel.sfs_sweep_cuda, dkernel.dominated_mask_cuda))
+        print(f"--engine-only: stopped after the engine step; chip_smoke.py "
+              f"ran {time.perf_counter() - T_START:.3f} s")
+        return
+
     # -- 3. kernel against the plain version, bit for bit -------------------
     max_err = sweep_cases(dev)
     dom_err = dominance_cases(dev)
@@ -1722,6 +2269,7 @@ def main() -> None:
     strategies_phase(data, oneshot, cfg, tag, kernels)
     windows_phase(data, cfg, tag, kernels)
     real_data_phase(cfg, tag, kernels)
+    engine_phase(tag, kernels)
     print(f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
 
     # -- 8. the kernel record and the device line ----------------------------

@@ -36,7 +36,7 @@ __all__ = [
     "SENTINEL", "flush_subnormal", "dominates", "dominated_mask",
     "region_volume",
     "monotone_score", "canonical_order", "apply_sentinel", "sort_key",
-    "stable_argsort", "topk_order",
+    "stable_argsort", "stable_argsort_rows", "topk_order",
 ]
 
 # Large but finite.  Sums of sentinels overflow to inf once d >= 3; an
@@ -97,6 +97,30 @@ def stable_argsort(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
     if v.is_floating_point():
         v = sort_key(v)
     return torch.sort(v, dim=dim, stable=True).indices
+
+
+def stable_argsort_rows(v: torch.Tensor) -> torch.Tensor:
+    """`stable_argsort` of each row of a (Q, N) batch, in ONE sort of the
+    Q x N keys whatever Q and N.
+
+    A batched ``torch.sort`` on the card sorts rows of 10^6 keys or more
+    one row at a time (PyTorch's schedule), so its launches would grow
+    with Q.  Here each key becomes 32 bits in the same order (f32: the
+    bits of `sort_key` mapped to integers in the floats' order, NaN last;
+    integers must fit in int32), the row index goes above them in an
+    int64, and one stable sort of the flat keys orders every row.  Other
+    dtypes, and a single row, take `stable_argsort`."""
+    q, n = v.shape
+    if q == 1 or not (v.dtype == torch.float32 or not v.is_floating_point()):
+        return stable_argsort(v)
+    if v.is_floating_point():
+        v = sort_key(v)
+        bits = torch.where(torch.isnan(v), float("nan"), v).view(torch.int32)
+        v = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    rows = torch.arange(q, dtype=torch.int64, device=v.device)[:, None]
+    key = (rows << 32) + (v.to(torch.int32).to(torch.int64) + 2 ** 31)
+    flat = torch.sort(key.reshape(-1), stable=True).indices
+    return flat.reshape(q, n) - rows * n
 
 
 def topk_order(merit: torch.Tensor) -> torch.Tensor:

@@ -49,20 +49,43 @@ def grid_filter(pts: torch.Tensor, mask: torch.Tensor,
     plain scatter (invalid rows mark a spare slot), which gives the same
     occupancy: an accumulating ``index_put_`` sorts its indices and adds
     the rows of a cell one after another on the card, which took 93-427
-    ms at N = 10^7 on skewed cells on an H100 (``PERF.md``)."""
-    d = pts.shape[1]
+    ms at N = 10^7 on skewed cells on an H100 (``PERF.md``).
+
+    (Q, N, d) points filter Q queries at once: query q's flags start at
+    q * (m^d + 1), and every field gains the Q axis."""
+    if pts.ndim == 2:
+        out = grid_filter(pts[None], mask[None], m)
+        return GridFilterResult(*(x[0] for x in out))
+    q, _, d = pts.shape
+    dev = pts.device
     coords = grid_cell_coords(pts, m)
     cells = m ** d
-    radix = m ** torch.arange(d - 1, -1, -1, device=pts.device)
-    flat = (coords.long() * radix).sum(dim=1)       # row-major cell index
-    occ = torch.zeros((cells + 1,), dtype=torch.bool, device=pts.device)
-    occ[torch.where(mask, flat, cells)] = True
-    strict = occ[:cells].reshape((m,) * d)
-    for axis in range(d):
+    radix = m ** torch.arange(d - 1, -1, -1, device=dev)
+    flat = (coords.long() * radix).sum(dim=-1)      # row-major cell index
+    base = torch.arange(q, device=dev)[:, None] * (cells + 1)
+    occ = torch.zeros((q * (cells + 1),), dtype=torch.bool, device=dev)
+    # index_fill_ takes the value as a scalar argument; occ[idx] = True
+    # would first copy it to the card from pageable memory (a host sync)
+    occ.index_fill_(0, (torch.where(mask, flat, cells) + base).reshape(-1),
+                    True)
+    strict = occ.reshape(q, cells + 1)[:, :cells].reshape((q,) + (m,) * d)
+    for axis in range(1, d + 1):
         strict = _exclusive_cumor(strict, axis)
-    keep = mask & ~strict.reshape(-1)[flat]
-    dropped = (mask.sum() - keep.sum()).to(torch.int32)
+    keep = mask & ~torch.gather(strict.reshape(q, cells), 1, flat)
+    dropped = (mask.sum(dim=-1) - keep.sum(dim=-1)).to(torch.int32)
     return GridFilterResult(keep, strict, dropped)
+
+
+def _uniform(shape, generator) -> torch.Tensor:
+    """Uniform draws of ``shape``: from one generator, or, given a
+    sequence of Q generators, the leading axis cut into Q equal runs,
+    each drawn from its own."""
+    if not isinstance(generator, (list, tuple)):
+        return torch.rand(shape, generator=generator,
+                          device=generator.device)
+    run = (shape[0] // len(generator),) + tuple(shape[1:])
+    return torch.cat([torch.rand(run, generator=g, device=g.device)
+                      for g in generator])
 
 
 def select_representatives(pts: torch.Tensor, mask: torch.Tensor, k: int, *,
@@ -74,9 +97,11 @@ def select_representatives(pts: torch.Tensor, mask: torch.Tensor, k: int, *,
 
     Strategies: 'sorted' (first k in monotone-score order), 'region'
     (largest dominance-region volume prod(1 - t[i]); [0,1] data), 'random'
-    (a baseline; draws from ``generator``, which it needs).  The pick is
-    ``jax.lax.top_k``'s: descending merit, ``+0.0`` above ``-0.0``, the
-    lower index first among equal merits (``topk_order``)."""
+    (a baseline; draws from ``generator``, which it needs: one
+    ``torch.Generator``, or one per equal run of the leading axis).  The
+    pick is ``jax.lax.top_k``'s: descending merit, ``+0.0`` above
+    ``-0.0``, the lower index first among equal merits
+    (``topk_order``)."""
     if strategy == "sorted":
         merit = -monotone_score(pts, mask)          # larger = better
     elif strategy == "region":
@@ -84,8 +109,7 @@ def select_representatives(pts: torch.Tensor, mask: torch.Tensor, k: int, *,
     elif strategy == "random":
         if generator is None:
             raise ValueError("the random strategy needs a torch.Generator")
-        merit = torch.rand(mask.shape, generator=generator,
-                           device=generator.device).to(pts.device)
+        merit = _uniform(mask.shape, generator).to(pts.device)
     else:
         raise ValueError(f"unknown representative strategy {strategy!r}")
     merit = torch.where(mask, merit, torch.full_like(merit, -float("inf")))

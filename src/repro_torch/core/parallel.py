@@ -20,12 +20,17 @@ phases:
              union, one dominance launch for all p); then the members go
              into the canonical order.
 
-The local and merge stages take an optional leading query axis Q: the
-streaming batch insert (`repro_torch.core.incremental`) flattens Q x p
-into the sweep's partition axis and into the dominance kernel's batch
-axis, so Q queries cost the launches of one.  Shapes depend only on the
-input size and the config; the plain versions sync with the host, the
-kernels do not.
+Every stage takes an optional leading query axis Q: the partition
+stage routes the Q queries with one sort along N for all of them, and
+the local and merge stages flatten Q x p into the sweep's partition
+axis and into the dominance kernel's batch axis, so Q queries cost the
+launches of one (`fused_skyline_batch_fn`, the engine's pipeline, and
+the streaming batch insert of `repro_torch.core.incremental`).  The
+random draws are the exception: ``strategy='random'`` draws one
+permutation and ``rep_filter='random'`` one set of uniforms per query,
+from that query's own generator, so their operations grow with Q.  Shapes
+depend only on the input size and the config; the plain versions sync
+with the host, the kernels do not.
 
 ``merge='tree'`` without a mesh runs the flat merge, as the reference
 does without a workers axis (the merge mode changes the collective
@@ -48,7 +53,8 @@ from repro_torch.core.sfs import (SkyBuffer, as_inputs, compact,
                                   local_skyline_batch)
 from repro_torch.kernels.backend import resolve_spec
 
-__all__ = ["SkyConfig", "parallel_skyline", "effective_parts",
+__all__ = ["SkyConfig", "parallel_skyline", "fused_skyline_batch_fn",
+           "effective_parts",
            "partition_stage", "local_stage", "compact_union", "merge_stage",
            "as_inputs"]
 
@@ -119,32 +125,51 @@ def _grid_cells(p: int, m: int, d: int, device) -> torch.Tensor:
     return torch.stack([(i // (m ** k)) % m for k in range(d)], dim=1)
 
 
+def _random_ids(generator, q: int, n: int, p: int, device) -> torch.Tensor:
+    """(q, n) random-strategy ids: one draw per query, from that query's
+    own generator when ``generator`` is a sequence of q of them, else q
+    draws in turn from the one generator (seeded with 0 on the data's
+    device when None)."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    gens = (list(generator) if isinstance(generator, (list, tuple))
+            else [generator] * q)
+    if len(gens) != q:
+        raise ValueError(f"got {len(gens)} generators for {q} queries")
+    return torch.stack([partition.random_part_ids(g, n, p, device=device)
+                        for g in gens])
+
+
 def partition_stage(pts: torch.Tensor, mask: torch.Tensor, cfg: SkyConfig,
-                    generator: torch.Generator | None = None):
+                    generator=None):
     """Partition-id map + routing into (p, C, d) buckets.
 
     Returns ``(buckets, meta, stats)`` as the reference does, with
-    ``meta = {p, m, cells (p, d) int32, part_idx (p,) int32}``.  The
-    random strategy draws its ids from ``generator`` (one seeded with 0
-    on the data's device when None).  A (Q, N, d) batch is routed query
-    by query and stacked; ``meta`` is the same for every query."""
+    ``meta = {p, m, cells (p, d) int32, part_idx (p,) int32}``.  A
+    (Q, N, d) batch is routed in the launches of one query: every
+    strategy's ids, Grid Filtering and ``bucketize`` take the leading
+    axis (one stable sort along N for all Q, a batched searchsorted, one
+    scatter), every bucket and stat gains it, and ``meta`` is the same
+    for every query.  Only the random strategy draws per query, so its
+    device operations grow with Q (Q permutations): ``generator`` is one
+    ``torch.Generator``, drawn from query after query, or a sequence of
+    one per query (when None, one seeded with 0 on the data's
+    device)."""
     check_supported(cfg)
-    if cfg.strategy == "random" and generator is None:
-        generator = torch.Generator(device=pts.device).manual_seed(0)
-    if pts.ndim == 3:
-        outs = [partition_stage(x, m, cfg, generator)
-                for x, m in zip(pts, mask)]
-        buckets = partition.Buckets(*(torch.stack(leaf) for leaf in
-                                      zip(*(b for b, _, _ in outs))))
-        return buckets, outs[0][1], {
-            k: torch.stack([s[k] for _, _, s in outs]) for k in outs[0][2]}
-    n, d = pts.shape
+    if pts.ndim == 2:
+        if isinstance(generator, torch.Generator):
+            generator = [generator]
+        buckets, meta, stats = partition_stage(pts[None], mask[None], cfg,
+                                               generator)
+        return (partition.Buckets(*(x[0] for x in buckets)), meta,
+                {k: v[0] for k, v in stats.items()})
+    q, n, d = pts.shape
     dev = pts.device
     p, m = effective_parts(cfg, d)
     stats: dict[str, Any] = {}
     cells = torch.zeros((p, d), dtype=torch.int32, device=dev)
     if cfg.strategy == "random":
-        ids = partition.random_part_ids(generator, n, p, device=dev)
+        ids = _random_ids(generator, q, n, p, dev)
     elif cfg.strategy == "sliced":
         ids = partition.sliced_part_ids(pts, mask, p, cfg.sliced_dim)
     elif cfg.strategy == "grid":
@@ -163,7 +188,7 @@ def partition_stage(pts: torch.Tensor, mask: torch.Tensor, cfg: SkyConfig,
             "part_idx": torch.arange(p, dtype=torch.int32, device=dev)}
     stats["bucket_counts"] = buckets.counts
     stats["bucket_overflow"] = buckets.overflow
-    stats["n_valid"] = mask.sum().to(torch.int32)
+    stats["n_valid"] = mask.sum(dim=-1).to(torch.int32)
     return buckets, meta, stats
 
 
@@ -304,6 +329,30 @@ def _local_merge(bufs, bmask, meta, *, cfg: SkyConfig, generator=None):
     sky, s2 = local_stage(bufs, bmask, cfg, generator=generator)
     final, s3 = merge_stage(sky, meta, cfg)
     return final, dict(s2, **s3)
+
+
+def fused_skyline_batch_fn(cfg: SkyConfig, mesh=None):
+    """The batched pipeline, counterpart of the reference's
+    ``fused_skyline_batch_fn(cfg)`` without a mesh: ``(pts (Q, N, d),
+    mask (Q, N), generators) -> (SkyBuffer, stats)`` with a leading Q
+    axis on every leaf.  ``generators`` is None or one
+    ``torch.Generator`` per query (the random strategy's ids and
+    representatives).  Q queries take the kernel launches of one: the
+    partition stage routes all Q at once, and the local and merge stages
+    flatten Q x p into the kernels' batch axes.  The random draws
+    (``strategy='random'``, ``rep_filter='random'``) are made once per
+    query, so their operations grow with Q.  A mesh raises (item 8 of
+    ROADMAP.md)."""
+    from repro_torch.core import incremental
+    check_supported(cfg, mesh)
+
+    def run(pts, mask, generators=None):
+        state, stats = incremental._insert_batch(None, pts, mask, cfg=cfg,
+                                                 generator=generators)
+        return SkyBuffer(state.points, state.mask, state.count,
+                         state.overflow), stats
+
+    return run
 
 
 def parallel_skyline(pts, mask=None, *, cfg: SkyConfig = SkyConfig(),

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dominance import (SENTINEL, flush_subnormal,
-                                        stable_argsort)
+                                        stable_argsort_rows)
 
 __all__ = ["Buckets", "random_part_ids", "grid_cell_coords", "grid_part_ids",
            "angular_part_ids", "sliced_part_ids", "bucketize",
@@ -30,6 +30,8 @@ __all__ = ["Buckets", "random_part_ids", "grid_cell_coords", "grid_part_ids",
 
 
 class Buckets(NamedTuple):
+    """Routed buckets; a batch of Q queries adds a leading Q axis to
+    every leaf."""
     points: torch.Tensor    # (p, C, d)
     mask: torch.Tensor      # (p, C) bool
     counts: torch.Tensor    # (p,) int32 true per-partition populations
@@ -49,7 +51,7 @@ def random_part_ids(generator: torch.Generator, n: int, p: int, *,
 
 
 def grid_cell_coords(pts: torch.Tensor, m: int) -> torch.Tensor:
-    """(N, d) int32 grid coordinates on [0,1]^d with m slices per dim.
+    """(..., N, d) int32 grid coordinates on [0,1]^d with m slices per dim.
     The product of a flushed coordinate and m >= 1 is zero, normal or
     infinite, so it needs no flush of its own."""
     cell = torch.floor(flush_subnormal(pts) * m)
@@ -57,10 +59,10 @@ def grid_cell_coords(pts: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def _radix_sum(coords: torch.Tensor, m: int) -> torch.Tensor:
-    """sum_i coords[:, i] * m^i in int32."""
-    radix = m ** torch.arange(coords.shape[1], dtype=torch.int32,
+    """sum_i coords[..., i] * m^i in int32."""
+    radix = m ** torch.arange(coords.shape[-1], dtype=torch.int32,
                               device=coords.device)
-    return (coords * radix).sum(dim=1, dtype=torch.int32)
+    return (coords * radix).sum(dim=-1, dtype=torch.int32)
 
 
 def grid_part_ids(pts: torch.Tensor, m: int) -> torch.Tensor:
@@ -78,19 +80,19 @@ def angular_part_ids(pts: torch.Tensor, m: int) -> torch.Tensor:
     and scaled angles are flushed; sums of flushed squares and their
     square roots cannot be subnormal.  The ids are those of the
     reference under ``jit``, as its pipeline runs them."""
-    n, d = pts.shape
+    lead, d = pts.shape[:-1], pts.shape[-1]
     if d < 2:
-        return torch.zeros((n,), dtype=torch.int32, device=pts.device)
+        return torch.zeros(lead, dtype=torch.int32, device=pts.device)
     x = flush_subnormal(pts.to(torch.float32))
     x2 = flush_subnormal(x * x)
-    tails = [torch.zeros((n,), dtype=torch.float32, device=pts.device)]
-    acc = x2[:, d - 1]
+    tails = [torch.zeros(lead, dtype=torch.float32, device=pts.device)]
+    acc = x2[..., d - 1]
     for i in range(d - 2, -1, -1):
         tails.append(acc)              # tail[i] = sum_{j > i} x_j^2
-        acc = acc + x2[:, i]
-    tail = torch.stack(tails[::-1][:d - 1], dim=1)
+        acc = acc + x2[..., i]
+    tail = torch.stack(tails[::-1][:d - 1], dim=-1)
     phi = flush_subnormal(torch.atan2(torch.sqrt(tail),
-                                      x[:, :d - 1]))    # [0, pi/2]
+                                      x[..., :d - 1]))  # [0, pi/2]
     # the reference's 2.0 * phi / pi * m runs under jit, where XLA folds
     # the constants into one product with f32((2 / pi) * m)
     scale = float(np.float32(np.float32(2.0) / np.float32(np.pi))
@@ -103,14 +105,19 @@ def angular_part_ids(pts: torch.Tensor, m: int) -> torch.Tensor:
 def sliced_part_ids(pts: torch.Tensor, mask: torch.Tensor, p: int,
                     dim: int = 0) -> torch.Tensor:
     """SLICED (paper §3.4): sort on one dimension (index tie-break, so a
-    total order), cut into p equal runs: p(t) = floor(rank * p / N_valid)."""
-    n = pts.shape[0]
-    v = torch.where(mask, pts[:, dim], torch.full_like(pts[:, dim],
-                                                       float("inf")))
-    order = stable_argsort(v)
-    ranks = torch.empty((n,), dtype=torch.int64, device=pts.device)
-    ranks[order] = torch.arange(n, device=pts.device)
-    nvalid = mask.sum().clamp(min=1)
+    total order), cut into p equal runs: p(t) = floor(rank * p / N_valid).
+
+    (Q, N, d) points take one stable sort of all Q x N keys
+    (`stable_argsort_rows`), each query cut by its own valid count."""
+    n = pts.shape[-2]
+    v = pts[..., dim]
+    v = torch.where(mask, v, torch.full_like(v, float("inf")))
+    order = stable_argsort_rows(v if v.ndim == 2 else v[None]).reshape(
+        v.shape)
+    ranks = torch.empty(order.shape, dtype=torch.int64, device=pts.device)
+    ranks.scatter_(-1, order, torch.arange(n, device=pts.device).expand(
+        order.shape))
+    nvalid = mask.sum(dim=-1, keepdim=True).clamp(min=1)
     return torch.clamp(ranks * p // nvalid, 0, p - 1).to(torch.int32)
 
 
@@ -141,26 +148,37 @@ def bucketize(pts: torch.Tensor, mask: torch.Tensor, ids: torch.Tensor,
 
     Stable sort by partition id (invalid rows sort to a virtual partition
     p), positions within a partition by searchsorted on the sorted ids;
-    rows beyond capacity are dropped and flagged as overflow."""
-    n, d = pts.shape
+    rows beyond capacity are dropped and flagged as overflow.
+
+    (Q, N, d) points route Q queries at once: one stable sort of all
+    Q x N ids (`stable_argsort_rows`), one batched searchsorted, and one scatter whose destinations query q
+    offsets by q * (p * capacity + 1); every leaf gains the Q axis."""
+    if pts.ndim == 2:
+        out = bucketize(pts[None], mask[None], ids[None], p, capacity)
+        return Buckets(*(x[0] for x in out))
+    q, n, d = pts.shape
     dev = pts.device
     ids_eff = torch.where(mask, ids.to(torch.int64), p)
-    order = stable_argsort(ids_eff)
-    ids_s = ids_eff[order]
-    pts_s = pts[order]
-    mask_s = mask[order]
+    order = stable_argsort_rows(ids_eff)
+    ids_s = torch.gather(ids_eff, -1, order)
+    pts_s = torch.gather(pts, 1, order[..., None].expand(q, n, d))
+    mask_s = torch.gather(mask, -1, order)
     pos = torch.arange(n, device=dev) - torch.searchsorted(ids_s, ids_s)
     ok = mask_s & (ids_s < p) & (pos < capacity)
-    # row p * capacity is a dump slot for the dropped rows
-    dest = torch.where(ok, ids_s * capacity + pos, p * capacity)
-    flat = torch.full((p * capacity + 1, d), SENTINEL, dtype=pts.dtype,
-                      device=dev)
-    flat[dest] = pts_s
-    fmask = torch.zeros((p * capacity + 1,), dtype=torch.bool, device=dev)
-    fmask[dest] = ok
-    counts = torch.zeros((p + 1,), dtype=torch.int64, device=dev)
-    counts.index_add_(0, ids_eff, torch.ones_like(ids_eff))
-    counts = counts[:p].to(torch.int32)
-    return Buckets(flat[:-1].reshape(p, capacity, d),
-                   fmask[:-1].reshape(p, capacity), counts,
-                   (counts > capacity).any())
+    # row p * capacity of each query is a dump slot for its dropped rows
+    span = p * capacity + 1
+    base = torch.arange(q, device=dev)[:, None] * span
+    dest = torch.where(ok, ids_s * capacity + pos, p * capacity) + base
+    flat = torch.full((q * span, d), SENTINEL, dtype=pts.dtype, device=dev)
+    flat[dest.reshape(-1)] = pts_s.reshape(-1, d)
+    fmask = torch.zeros((q * span,), dtype=torch.bool, device=dev)
+    fmask[dest.reshape(-1)] = ok.reshape(-1)
+    counts = torch.zeros((q * (p + 1),), dtype=torch.int64, device=dev)
+    cidx = ids_eff + torch.arange(q, device=dev)[:, None] * (p + 1)
+    counts.index_add_(0, cidx.reshape(-1), torch.ones_like(cidx).reshape(-1))
+    counts = counts.reshape(q, p + 1)[:, :p].to(torch.int32)
+    flat = flat.reshape(q, span, d)[:, :-1]
+    fmask = fmask.reshape(q, span)[:, :-1]
+    return Buckets(flat.reshape(q, p, capacity, d),
+                   fmask.reshape(q, p, capacity), counts,
+                   (counts > capacity).any(dim=-1))

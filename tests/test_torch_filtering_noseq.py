@@ -13,6 +13,7 @@ does not depend on the draw, is compared (ROADMAP.md, contract 5).
 """
 
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +31,17 @@ from repro_torch.core import api as tapi
 from repro_torch.core import dominance as tdom
 from repro_torch.core import filtering as tfilt
 from repro_torch.core import noseq as tnoseq
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Drop the JAX programs this module compiled once it ends: each
+    keeps memory mappings of its machine code, and a test worker that
+    runs several such modules would reach the kernel's map limit
+    (vm.max_map_count), where XLA's next compile crashes the worker."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 def _bits(a):

@@ -12,7 +12,9 @@ entry points are compared the same way.
 """
 
 import dataclasses
+import gc
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +26,17 @@ from repro.core import partition as jpart
 from repro_torch import convert
 from repro_torch.core import api as tapi
 from repro_torch.core import partition as tpart
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Drop the JAX programs this module compiled once it ends: each
+    keeps memory mappings of its machine code, and a test worker that
+    runs several such modules would reach the kernel's map limit
+    (vm.max_map_count), where XLA's next compile crashes the worker."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 def _bits(a):

@@ -286,3 +286,40 @@ def test_buffer_round_trip_keeps_bits():
                                   pts.view(np.int32))
     for got, want in zip(back[1:], leaves[1:]):
         np.testing.assert_array_equal(got, want)
+
+
+def test_serve_modules_are_scanned_for_jax():
+    """The import scan above covers the serving layer."""
+    names = {p.name for p in PORT_FILES if p.parent.name == "serve"}
+    assert {"api.py", "slab.py", "engine.py", "scheduler.py"} <= names
+
+
+def test_engine_and_streams_raise_without_cuda(monkeypatch):
+    """``SkylineEngine()`` (and the scheduler's default engine) runs on
+    the card unless given ``device="cpu"``; without CUDA it raises.  A
+    CPU engine's streams keep their arenas on the CPU."""
+    from repro_torch.serve import engine as teng
+    from repro_torch.serve import scheduler as tsched
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tsched, "_DEFAULT_ENGINE", None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        teng.SkylineEngine()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tsched.default_engine()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tsched.admit(tsched.Request(np.ones(3), np.ones(3), np.ones(3)), 2)
+    engine = teng.SkylineEngine(device="cpu")
+    stream = engine.open_stream(3, teng.StreamOptions(q=2))
+    assert all(a.device.type == "cpu" for a in stream.arena.leaves())
+    stream.feed([np.random.default_rng(0).random((9, 3)), None])
+    assert stream.snapshot()[0].points.device.type == "cpu"
+
+
+def test_cuda_impl_on_a_cpu_engine_raises():
+    from repro_torch.serve import engine as teng
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        teng.SkylineEngine(parallel.SkyConfig(impl="cuda"), device="cpu")
+    engine = teng.SkylineEngine(device="cpu")
+    x = np.random.default_rng(0).random((20, 3)).astype(np.float32)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        engine.submit(teng.SkylineRequest(data=x, impl="cuda"))

@@ -10,6 +10,9 @@ tests/test_sfs_kernel.py: ties and duplicates, masked rows, overflow at a
 capacity far below n, n not a multiple of the block, block 2, d 12.
 """
 
+import gc
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +24,18 @@ from repro.kernels.sfs import ops as jops
 from repro_torch.core import sfs as tsfs
 from repro_torch.core.dominance import SENTINEL
 from repro_torch.kernels.sfs import ops as tops
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Drop the JAX programs this module compiled once it ends: each
+    keeps memory mappings of its machine code, and a test worker that
+    runs several such modules would reach the kernel's map limit
+    (vm.max_map_count), where XLA's next compile crashes the worker."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 CASES = [  # (P, n, d, capacity, block)
     (1, 1, 2, 4, 8),

@@ -11,6 +11,7 @@ arrays go through both packages (JAX on the CPU, impls ``'jnp'`` and
 """
 
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,18 @@ from repro_torch.core import partition as tpart
 from repro_torch.core import sfs as tsfs
 from repro_torch.kernels.dominance import ops as tdops
 from repro_torch.kernels.sfs import ops as tsops
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Drop the JAX programs this module compiled once it ends: each
+    keeps memory mappings of its machine code, and a test worker that
+    runs several such modules would reach the kernel's map limit
+    (vm.max_map_count), where XLA's next compile crashes the worker."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 # (1e-40, 1) and (2e-40, 1) tie once flushed, so neither dominates the
 # other; kept, the first dominates the second

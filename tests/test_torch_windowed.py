@@ -14,6 +14,7 @@ tests/test_windowed.py without its mesh and compile-count tests.
 """
 
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,18 @@ from repro_torch import convert
 from repro_torch.core import api as tapi
 from repro_torch.core import partition as tpart
 from repro_torch.core import windowed as twin
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Drop the JAX programs this module compiled once it ends: each
+    keeps memory mappings of its machine code, and a test worker that
+    runs several such modules would reach the kernel's map limit
+    (vm.max_map_count), where XLA's next compile crashes the worker."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 BASE = dict(strategy="sliced", p=4, capacity=512, block=64,
             bucket_factor=6.0, impl="perpair", donate=False)
