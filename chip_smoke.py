@@ -101,6 +101,29 @@ It builds the port's CUDA kernels from the sources in the checkout
      half of them, then expired to empty, every snapshot the one-shot
      answer over the unexpired rows; E7, 1,000 idle streams in one
      arena; with feed, snapshot and tick ms per wave;
+  6d. drives the serve loop (``repro_torch.serve.loop.ServeLoop``) and
+     donation, after the engine step: checks that
+     ``torch.cuda.Event.synchronize`` releases the interpreter lock; S1,
+     the reference's ``serving_latency`` schedule (12 bursts of 4
+     requests of 1,024 x 4 host rows, exponential gaps of mean 12 ms,
+     seed 0, p = 4, capacity 512) replayed at depth 1 and depth 2; S2,
+     the same schedule with 48 card-resident requests of 2^20 rows (the
+     three distributions) at the default config with capacity 65,536,
+     the mean gap set to one measured 4-query wave: for both, p50, p99,
+     waves, stage_overlap_s, p99(depth 1) / p99(depth 2), every ticket
+     bit for bit the synchronous ``submit_many`` and 2 sweep launches a
+     wave; S3, E5's traffic split into two 128-tenant streams fed through
+     ``loop.feed`` with one 2^20 query a wave at depth 2 (feeds
+     coalesced, a promotion riding a pending record, 2 + 2 launches a
+     fused wave, after ``drain()`` every snapshot bit for bit serial
+     feeds on a second engine, no stream watched after ``close``); S4,
+     admission (past deadlines shed, or answered on ``data[::2]`` under
+     ``degrade=True``; overload above ``max_queue`` sheds the oldest
+     deadline first); S5, step 5's ten inserts and a 4-epoch window
+     with donation on and off (same bits, donated leaves keep their
+     ``data_ptr``, insert ms and peak device memory of each mode);
+     ``ServeLoop._stage_once`` of an S2 and an S3 wave under
+     set_sync_debug_mode("error"); prints the step's run time;
   7. times the queries end to end, their stages, each sweep call and
      each dominance call of the paths above (the kernel, the plain
      version, and the least time the card could take), each sweep
@@ -116,8 +139,10 @@ It builds the port's CUDA kernels from the sources in the checkout
      the device line.
 
 With ``--kernels-only`` it stops after step 3 and prints no result;
-with ``--engine-only`` it runs the build and then the engine step
-(step 6c) alone, and prints no result either.
+with ``--engine-only`` (``--serve-only``) it runs the build and then the
+engine step 6c (the serve step 6d) alone, and prints no result either.
+Steps 5 and 6 time and trace inserts on a kept state, so they run with
+``donate=False``; step 6d holds donation on against off.
 Every check that fails ends the run with a non-zero exit code.  The
 script needs a CUDA card; without one, or outside a checkout of the
 repository, it exits non-zero and prints no result.
@@ -910,6 +935,9 @@ def windows_phase(data, cfg, tag, kernels):
     from repro_torch.core import api
     from repro_torch.core import windowed as win
     epochs = 4
+    # ring operations are timed on a kept state, so this step keeps its
+    # inputs (donation on and off are held alike in S5)
+    cfg = dataclasses.replace(cfg, donate=False)
     plain = dataclasses.replace(cfg, impl="torch")
     noseq = dataclasses.replace(cfg, noseq=True)
 
@@ -970,7 +998,8 @@ def windows_phase(data, cfg, tag, kernels):
                       f"window {dist} after insert {i + 1}: the snapshot "
                       f"differs from the one-shot answer over the unexpired "
                       f"rows")
-                t_adv, _ = time_ms(lambda: win.advance_epoch(state))
+                t_adv, _ = time_ms(lambda: win.advance_epoch(state,
+                                                             donate=False))
                 msg = (f"; advance {t_adv:.3f} ms (expired "
                        f"{int(astats['expired_tuples'])} retained rows), "
                        f"{sum(len(ep) for ep in live)} chunks live, snapshot "
@@ -984,8 +1013,8 @@ def windows_phase(data, cfg, tag, kernels):
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            adv, _ = win.advance_epoch(state)
-            exp, _ = win.expire_epoch(adv)
+            adv, _ = win.advance_epoch(state, donate=False)
+            exp, _ = win.expire_epoch(adv, donate=False)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
@@ -1010,7 +1039,7 @@ def windows_phase(data, cfg, tag, kernels):
         fused, front, _ = win.window_tick(state, data[dist][:CHUNK], cfg=cfg,
                                           advance=torch.tensor(
                                               True, device=x.device))
-        sep, _ = win.advance_epoch(state)
+        sep, _ = win.advance_epoch(state, donate=False)
         sep, _ = win.insert_chunk(sep, data[dist][:CHUNK], cfg=cfg)
         check(leaves_equal(fused, sep)
               and leaves_equal(front, win.finalize(sep, cfg=cfg)),
@@ -1565,6 +1594,408 @@ def engine_phase(tag, kernels, dev=torch.device("cuda")) -> None:
           f"bytes")
 
 
+# -- the serve loop and donation ------------------------------------------------
+
+SERVE_BURSTS, SERVE_WIDTH = 12, 4    # bursts of requests (S1, S2)
+SERVE_N, SERVE_GAP_MS = 1024, 12.0   # S1: serving_latency's defaults
+SERVE_BIG_N = 1 << 20                # rows of an S2 and S3 query
+SERVE_TENANTS = 128                  # tenants of each S3 stream
+SERVE_WAIT_S = 300                   # bound on every wait of the step
+SERVE_TURNS = (1, 2, 2, 1, 1, 2, 2, 1)  # depths of the S1 and S2 replays
+
+
+def drain(loop) -> None:
+    """``loop.drain()``, bounded by SERVE_WAIT_S: the wait runs on a
+    daemon thread."""
+    import threading
+    waiter = threading.Thread(target=loop.drain, daemon=True)
+    waiter.start()
+    waiter.join(SERVE_WAIT_S)
+    check(not waiter.is_alive(), f"the serve loop did not drain in "
+          f"{SERVE_WAIT_S} s")
+
+
+def percentiles(tickets) -> tuple[float, float]:
+    """p50 and p99 latency (ms) of resolved tickets, as the reference's
+    serving_latency reads them."""
+    lats = sorted(t.latency for t in tickets)
+    return (lats[len(lats) // 2] * 1e3,
+            lats[min(len(lats) - 1, int(len(lats) * 0.99))] * 1e3)
+
+
+def replay(engine, reqs, arrivals, depth, width, kernels):
+    """Submit ``reqs`` at their arrival offsets (seconds) through a
+    ``ServeLoop(depth=depth, max_wave=width)``; returns the tickets, the
+    loop's stats and the launches of the run."""
+    from repro_torch.serve.loop import ServeLoop
+    with Launches(*kernels) as run:
+        with ServeLoop(engine, depth=depth, max_wave=width) as loop:
+            t0 = time.monotonic()
+            tickets = []
+            for r, at in zip(reqs, arrivals):
+                while time.monotonic() - t0 < at:
+                    time.sleep(0.0002)
+                tickets.append(loop.submit(r))
+            drain(loop)
+    return tickets, dict(loop.stats), run.counts
+
+
+def schedule_cell(name, engine, reqs, arrivals, width, kernels, tag):
+    """One arrival schedule replayed in turns at depth 1 and depth 2
+    (SERVE_TURNS): every ticket ok and bit for bit the synchronous
+    ``submit_many`` answer of its burst, 2 sweep launches a wave; prints
+    p50, p99, waves and stage_overlap_s of each replay, then the median
+    p50 and p99 per depth, p99(1) / p99(2) of the medians, and in how
+    many turn pairs depth 2 had the lower p99."""
+    want = []
+    for i in range(0, len(reqs), width):
+        want += engine.submit_many(reqs[i:i + width])
+    p50s, p99s = {1: [], 2: []}, {1: [], 2: []}
+    for depth in SERVE_TURNS:
+        tickets, stats, counts = replay(engine, reqs, arrivals, depth,
+                                        width, kernels)
+        check(all(t.status == "ok" for t in tickets)
+              and stats["completed"] == len(reqs),
+              f"{name} depth {depth}: not every ticket is ok ({stats})")
+        check(all(buffers_equal(t.result[0], w[0])
+                  for t, w in zip(tickets, want)),
+              f"{name} depth {depth}: a ticket differs from the "
+              f"synchronous submit_many")
+        check(counts == (2 * stats["waves"], 0),
+              f"{name} depth {depth}: launches {counts} for "
+              f"{stats['waves']} waves, expected 2 sweeps a wave")
+        p50, p99 = percentiles(tickets)
+        p50s[depth].append(p50)
+        p99s[depth].append(p99)
+        print(f"{tag} {name} depth={depth}: p50 {p50:.3f} ms, p99 "
+              f"{p99:.3f} ms, waves {stats['waves']}, stage_overlap_s "
+              f"{stats['stage_overlap_s']:.6f}, launches {counts}; every "
+              f"ticket bitwise the synchronous submit_many")
+    med = {d: (sorted(v)[len(v) // 2], sorted(p99s[d])[len(v) // 2])
+           for d, v in p50s.items()}
+    pairs = list(zip(SERVE_TURNS[::2], SERVE_TURNS[1::2]))
+    it = {1: iter(p99s[1]), 2: iter(p99s[2])}
+    wins = 0
+    for a, b in pairs:
+        got = {a: next(it[a]), b: next(it[b])}
+        wins += got[2] < got[1]
+    print(f"{tag} {name}: over {len(p99s[1])} replays a depth, median p50 "
+          f"{med[1][0]:.3f} / {med[2][0]:.3f} ms and median p99 "
+          f"{med[1][1]:.3f} / {med[2][1]:.3f} ms at depth 1 / 2; "
+          f"p99(depth 1) / p99(depth 2) = {med[1][1] / med[2][1]:.4f}; "
+          f"depth 2 had the lower p99 in {wins} of {len(pairs)} turn pairs")
+
+
+def gil_check() -> None:
+    """``torch.cuda.Event.synchronize`` releases the interpreter lock:
+    the main thread keeps running Python while a second thread waits on
+    an event behind device work (the completion thread's wait)."""
+    import threading
+    torch.cuda.synchronize()
+    ev = torch.cuda.Event()
+    torch.cuda._sleep(200_000_000)   # cycles: about 0.1 s of device time
+    ev.record()
+    waiter = threading.Thread(target=ev.synchronize)
+    t0 = time.perf_counter()
+    waiter.start()
+    spins = 0
+    while waiter.is_alive():
+        spins += 1
+    waited = (time.perf_counter() - t0) * 1e3
+    waiter.join()
+    check(waited > 10 and spins > 10_000, f"Event.synchronize: the main "
+          f"thread ran {spins} loop turns in {waited:.3f} ms of waiting")
+    print(f"Event.synchronize releases the interpreter lock: the main "
+          f"thread ran {spins} loop turns while another thread waited "
+          f"{waited:.3f} ms on an event")
+
+
+def donation_run(x, cfg, where, kernels):
+    """Step 5's ten inserts of ``x`` into a state, then into a 4-epoch
+    window advancing after every second, under ``cfg`` (its ``donate``):
+    returns every state, window and snapshot (copied to the host, so
+    that they hold no device memory), the insert and window-insert ms
+    (CUDA events, one call each) and the peak device memory of each
+    part above what was allocated when it began.  Donated leaves must
+    keep their ``data_ptr``."""
+    from repro_torch.core import api
+    from repro_torch.core import windowed as win
+    kept, t_ins, t_win, peaks = [], [], [], []
+    for part in ("state", "window"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state = (api.init_state(cfg, D_MAIN) if part == "state" else
+                 win.init_window_state(cfg, D_MAIN, epochs=4))
+        ptrs = [leaf.data_ptr() for leaf in state]
+        for i in range(N_MAIN // CHUNK):
+            chunk = x[i * CHUNK:(i + 1) * CHUNK]
+            with Launches(*kernels) as run:
+                if part == "state":
+                    (state, _), ms = event_ms(
+                        lambda: api.insert_chunk(state, chunk, cfg=cfg))
+                    snap = api.finalize(state, cfg=cfg)
+                else:
+                    (state, _), ms = event_ms(
+                        lambda: win.insert_chunk(state, chunk, cfg=cfg))
+                    if i % 2:
+                        state, _ = win.advance_epoch(state,
+                                                     donate=cfg.donate)
+                    snap = win.finalize(state, cfg=cfg)
+            want = (2, 2) if part == "state" else (3, 2)
+            check(run.counts == want, f"{where} {part} insert {i + 1}: "
+                  f"launches {run.counts}, expected {want}")
+            (t_ins if part == "state" else t_win).append(ms)
+            kept += [tuple(leaf.to("cpu", copy=True) for leaf in state),
+                     tuple(leaf.to("cpu", copy=True) for leaf in snap)]
+        check(not cfg.donate or [leaf.data_ptr() for leaf in state] == ptrs,
+              f"{where}: a donated {part} leaf moved")
+        del state, snap, chunk
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+    return kept, t_ins, t_win, *peaks
+
+
+def serve_phase(tag, kernels, dev=torch.device("cuda")) -> None:
+    """The serve loop and donation on the card (S1-S5, see the module
+    docstring)."""
+    from repro_torch.core import datagen, parallel
+    from repro_torch.serve import engine as eng
+    from repro_torch.serve import loop as loop_mod
+    from repro_torch.serve.api import SkylineRequest, StreamOptions
+    from repro_torch.serve.loop import ServeLoop, Ticket
+    import numpy as np
+    t_phase = time.perf_counter()
+    dists = ("uniform", "correlated", "anticorrelated")
+    if dev.type == "cuda":
+        gil_check()
+
+    # -- S1: the reference's serving_latency schedule --------------------------
+    engine = eng.SkylineEngine(parallel.SkyConfig(
+        strategy="sliced", p=4, capacity=512, block=64, bucket_factor=4.0),
+        device=dev)
+    rng = np.random.default_rng(0)
+    total = SERVE_BURSTS * SERVE_WIDTH
+    datas = [np.asarray(rng.random((SERVE_N, D_MAIN)), np.float32)
+             for _ in range(total)]
+    arrivals = np.repeat(np.cumsum(rng.exponential(
+        SERVE_GAP_MS / 1e3, SERVE_BURSTS)), SERVE_WIDTH)
+    reqs = [SkylineRequest(data=x) for x in datas]
+    for w in range(1, SERVE_WIDTH + 1):
+        engine.submit_many(reqs[:w])
+    schedule_cell(f"S1 serving_latency ({SERVE_BURSTS} bursts of "
+                  f"{SERVE_WIDTH}, n={SERVE_N}, mean gap {SERVE_GAP_MS} ms, "
+                  f"host data)", engine, reqs, arrivals, SERVE_WIDTH,
+                  kernels, tag)
+
+    # -- S2: the same schedule at full size ------------------------------------
+    cfg = parallel.SkyConfig(capacity=65536)
+    engine = eng.SkylineEngine(cfg, device=dev)
+    big = []
+    for i in range(total):
+        gen = torch.Generator(device=dev).manual_seed(7000 + i)
+        big.append(SkylineRequest(data=datagen.generate(
+            dists[i % 3], gen, SERVE_BIG_N, D_MAIN)))
+    t_wave, _ = time_ms(lambda: engine.submit_many(big[:SERVE_WIDTH]))
+    arrivals = np.repeat(np.cumsum(np.random.default_rng(0).exponential(
+        t_wave / 1e3, SERVE_BURSTS)), SERVE_WIDTH)
+    schedule_cell(f"S2 ({SERVE_BURSTS} bursts of {SERVE_WIDTH}, "
+                  f"N={SERVE_BIG_N}, mean gap {t_wave:.3f} ms = one "
+                  f"{SERVE_WIDTH}-query wave, card data)", engine, big,
+                  arrivals, SERVE_WIDTH, kernels, tag)
+    probe = ServeLoop(engine)
+    no_sync(lambda: probe._stage_once(
+        [Ticket("query", request=r) for r in big[:SERVE_WIDTH]]))
+    torch.cuda.synchronize()
+    print("S2: ServeLoop._stage_once of one wave under "
+          "set_sync_debug_mode('error'): no host sync raised")
+
+    # -- S3: E5's traffic fed through the loop, with S2's queries -------------
+    serial = eng.SkylineEngine(cfg, device=dev)
+    g = torch.Generator().manual_seed(2025)
+    gen = torch.Generator(device=dev).manual_seed(56)
+    waves = []
+    for w in range(STREAM_WAVES):
+        ns = torch.randint(CHUNK_ROWS[0], CHUNK_ROWS[1] + 1,
+                           (2 * SERVE_TENANTS,), generator=g).tolist()
+        waves.append([datagen.anticorrelated(gen, n, D_MAIN) for n in ns])
+    halves = [(c[:SERVE_TENANTS], c[SERVE_TENANTS:]) for c in waves]
+    streams = [engine.open_stream(D_MAIN, StreamOptions(q=SERVE_TENANTS,
+                                                        key=k))
+               for k in (1, 2)]
+    refs = [serial.open_stream(D_MAIN, StreamOptions(q=SERVE_TENANTS,
+                                                     key=k))
+            for k in (1, 2)]
+    probe_engine = eng.SkylineEngine(cfg, device=dev)
+    probe_streams = [probe_engine.open_stream(
+        D_MAIN, StreamOptions(q=SERVE_TENANTS, key=k)) for k in (1, 2)]
+    probe = ServeLoop(probe_engine)
+    no_sync(lambda: probe._stage_once(
+        [Ticket("feed", stream=s, chunks=list(c), masks=[None] * len(c))
+         for s, c in zip(probe_streams, halves[0])]
+        + [Ticket("query", request=big[0])]))
+    torch.cuda.synchronize()
+    print("S3: ServeLoop._stage_once of one fused feed wave and a query "
+          "under set_sync_debug_mode('error'): no host sync raised")
+    calls = {"feed": [], "query": [], "promotions": 0}
+
+    def counted(kind, fn):
+        def wrapper(*args, **kw):
+            before = [k.launches for k in kernels]
+            out = fn(*args, **kw)
+            calls[kind].append(tuple(k.launches - b
+                                     for k, b in zip(kernels, before)))
+            return out
+        return wrapper
+
+    orig_promote = eng.SkylineStream._promote
+
+    def promote(self, *args):
+        if self.engine is engine:
+            calls["promotions"] += 1
+        return orig_promote(self, *args)
+
+    orig_feed, orig_submit = loop_mod._wave_feed, engine.submit_many
+    loop_mod._wave_feed = counted("feed", orig_feed)
+    engine.submit_many = counted("query", orig_submit)
+    eng.SkylineStream._promote = promote
+    try:
+        with Launches(*kernels) as run:
+            with ServeLoop(engine, depth=2) as loop:
+                tickets = []
+                for w, (ca, cb) in enumerate(halves):
+                    tickets.append(loop.feed(streams[0], ca))
+                    tickets.append(loop.feed(streams[1], cb))
+                    tickets.append(loop.submit(big[w]))
+                drain(loop)
+                promoted_in_loop = calls["promotions"]
+    finally:
+        loop_mod._wave_feed = orig_feed
+        engine.submit_many = orig_submit
+        eng.SkylineStream._promote = orig_promote
+    stats = loop.stats
+    check(all(t.status == "ok" for t in tickets),
+          f"S3: not every ticket is ok ({stats})")
+    check(stats["coalesced_feeds"] >= 1, f"S3: no feeds coalesced ({stats})")
+    check(promoted_in_loop >= 1, "S3: no promotion rode a pending record "
+          "while the loop served")
+    check(not loop._watch, f"S3: {len(loop._watch)} streams still watched "
+          f"after close")
+    check(all(c in ((2, 2), (4, 4)) for c in calls["feed"]),
+          f"S3: launches per fused feed wave {calls['feed']}")
+    check(all(c == (2, 0) for c in calls["query"]),
+          f"S3: launches per query wave {calls['query']}")
+    check(run.counts == tuple(map(sum, zip(*(calls["feed"]
+                                              + calls["query"])))),
+          f"S3: launches {run.counts} do not add up per wave")
+    for ca, cb in halves:
+        refs[0].feed(ca)
+        refs[1].feed(cb)
+    for s, r in zip(streams, refs):
+        s.drain()
+        r.drain()
+        check(all(buffers_equal(a, b) for a, b in
+                  zip(s.snapshot(), r.snapshot())),
+              "S3: after drain() a snapshot differs from serial feeds on a "
+              "second engine")
+    for t, w in zip(tickets[2::3], range(STREAM_WAVES)):
+        (buf, _), = engine.submit_many([big[w]])
+        check(buffers_equal(t.result[0], buf),
+              f"S3: query {w} differs from the synchronous submit_many")
+    p50, p99 = percentiles(tickets)
+    print(f"{tag} S3 feeds through the loop: two {SERVE_TENANTS}-tenant "
+          f"streams of one bucket, {STREAM_WAVES} waves of "
+          f"{CHUNK_ROWS[0]}..{CHUNK_ROWS[1]} anticorrelated rows a tenant, "
+          f"with a query of N={SERVE_BIG_N} per wave, depth=2: "
+          f"{stats['waves']} loop waves, {len(calls['feed'])} feed waves "
+          f"(launches {sorted(set(calls['feed']))} each), coalesced_feeds "
+          f"{stats['coalesced_feeds']}, {promoted_in_loop} promotions "
+          f"while serving ({calls['promotions']} in all), p50 {p50:.3f} "
+          f"ms, p99 {p99:.3f} ms, stage_overlap_s "
+          f"{stats['stage_overlap_s']:.6f}; after drain() every snapshot "
+          f"bitwise the serial feeds', every query the synchronous "
+          f"answer; no stream watched after close")
+    for s in streams + refs + probe_streams:
+        s.close()
+
+    # -- S4: admission -----------------------------------------------------------
+    burst = big[:SERVE_WIDTH]
+    with ServeLoop(engine) as loop:
+        now = loop._clock()
+        doomed = [loop.submit(dataclasses.replace(r, deadline=now - 1))
+                  for r in burst]
+        kept = [loop.submit(r) for r in burst]
+        drain(loop)
+    check(all(t.status == "shed" and t.result is None for t in doomed)
+          and all(t.status == "ok" for t in kept)
+          and loop.stats["shed"] == len(burst)
+          and loop.stats["completed"] == len(burst),
+          f"S4: past deadlines: {loop.stats}")
+    with ServeLoop(engine, degrade=True) as loop:
+        now = loop._clock()
+        late = [loop.submit(dataclasses.replace(r, deadline=now - 1))
+                for r in burst]
+        drain(loop)
+    check(all(t.status == "ok" and t.degraded
+              and t.request.data.device == engine.device for t in late)
+          and loop.stats["degraded"] == len(burst)
+          and loop.stats["shed"] == 0, f"S4 degrade: {loop.stats}")
+    for t, r in zip(late, burst):
+        buf, _ = engine.submit(SkylineRequest(data=r.data[::2]))
+        check(buffers_equal(t.result[0], buf), "S4: a degraded answer "
+              "differs from submit(data[::2])")
+    loop = ServeLoop(engine, max_wave=4, max_queue=2, clock=lambda: 100.0)
+    loop._started = True  # enqueue without running the threads
+    order = [200.0, 150.0, 300.0, None, 250.0]
+    ts = [loop.submit(dataclasses.replace(burst[0], deadline=dl))
+          for dl in order]
+    with loop._lock:
+        batch = loop._admit_locked()
+    check([t.status for t in ts] == ["shed", "shed", "pending", "pending",
+                                     "shed"]
+          and batch == [ts[2], ts[3]] and loop.stats["shed"] == 3,
+          f"S4 overload: statuses {[t.status for t in ts]}")
+    no_sync(lambda: loop._stage_once(batch))
+    want, _ = engine.submit(burst[0])
+    check(all(buffers_equal(t.result[0], want) for t in batch),
+          "S4 overload: an admitted answer differs")
+    print(f"{tag} S4 admission: {len(burst)} requests of N={SERVE_BIG_N} "
+          f"past their deadline shed and {len(burst)} undated answered; "
+          f"under degrade=True all {len(burst)} answered on data[::2] "
+          f"(still on the card), bitwise submit(data[::2]); above "
+          f"max_queue=2 the deadlines 150, 200, 250 shed oldest first, "
+          f"300 and the undated admitted in that order and answered")
+
+    # -- S5: donation on and off, in turns ----------------------------------------
+    for seed, dist in ((0, "uniform"), (2, "anticorrelated")):
+        gen = torch.Generator(device=dev).manual_seed(1000 + seed)
+        x = datagen.generate(dist, gen, N_MAIN, D_MAIN)
+        runs = {True: [], False: []}
+        for donate in (True, False, False, True):
+            runs[donate].append(donation_run(x, dataclasses.replace(
+                cfg, donate=donate), f"S5 {dist}", kernels))
+        first = runs[True][0][0]
+        check(all(leaves_equal(a, b) for r in runs[True][1:] + runs[False]
+                  for a, b in zip(r[0], first)),
+              f"S5 {dist}: donation on and off give different bits")
+
+        def mode(donate):
+            rs = runs[donate]
+            return (f"insert {span([t for r in rs for t in r[1]])}, "
+                    f"window insert {span([t for r in rs for t in r[2]])}, "
+                    f"peak bytes {[r[3] for r in rs]} (inserts) and "
+                    f"{[r[4] for r in rs]} (window)")
+        print(f"{tag} S5 donation {dist} N={N_MAIN} (ten inserts of {CHUNK} "
+              f"rows into a state, then into a 4-epoch window advancing "
+              f"after every second; turns on, off, off, on): every state, "
+              f"window and snapshot bitwise alike on and off; donated "
+              f"leaves kept their data_ptr; CUDA events, one call each, "
+              f"both turns of a mode together; peak device memory above "
+              f"what was allocated when the part began. On: {mode(True)}. "
+              f"Off: {mode(False)}")
+    print(f"{tag} serve step ran {time.perf_counter() - t_phase:.3f} s")
+
+
 def real_data_phase(cfg, tag, kernels):
     """The paper's real datasets at their published shapes, HOU
     (2,049,280 x 7) and RES (3,569,678 x 7), as the surrogate (no CSV is
@@ -1670,6 +2101,9 @@ def streaming_phase(data, oneshot, cfg, tag, kernels):
     its launch counts, by distribution."""
     from repro_torch.core import api
     from repro_torch.kernels.sfs import kernel
+    # this step inserts into a kept state again to time and trace it, so
+    # it keeps its inputs (donation on and off are held alike in S5)
+    cfg = dataclasses.replace(cfg, donate=False)
     plain = dataclasses.replace(cfg, impl="torch")
     out = {}
     for dist in ("uniform", "anticorrelated"):
@@ -2076,12 +2510,14 @@ def main() -> None:
                   f"{p.get('spills', '?')}{law}")
     print(f"{tag} {sass_ftz_report(libs)}")
 
-    # a quicker run: the build, then the engine step alone
-    if "--engine-only" in sys.argv[1:]:
-        engine_phase(tag, (kernel.sfs_sweep_cuda, dkernel.dominated_mask_cuda))
-        print(f"--engine-only: stopped after the engine step; chip_smoke.py "
-              f"ran {time.perf_counter() - T_START:.3f} s")
-        return
+    # a quicker run: the build, then the engine step or the serve step
+    for flag, phase in (("--engine-only", engine_phase),
+                        ("--serve-only", serve_phase)):
+        if flag in sys.argv[1:]:
+            phase(tag, (kernel.sfs_sweep_cuda, dkernel.dominated_mask_cuda))
+            print(f"{flag}: stopped after that step; chip_smoke.py ran "
+                  f"{time.perf_counter() - T_START:.3f} s")
+            return
 
     # -- 3. kernel against the plain version, bit for bit -------------------
     max_err = sweep_cases(dev)
@@ -2271,6 +2707,7 @@ def main() -> None:
     real_data_phase(cfg, tag, kernels)
     engine_phase(tag, kernels)
     print(f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
+    serve_phase(tag, kernels)
 
     # -- 8. the kernel record and the device line ----------------------------
     def entry(name, route, source, replaces, launches_n, err, rec):

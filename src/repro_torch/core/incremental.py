@@ -31,9 +31,13 @@ a surviving new member or dominated by one (never by a live member: the
 buffer is an antichain), so testing the buffer against the chunk's
 survivors alone evicts completely.
 
-Each insert returns a new state and the caller rebinds it, as in the
-reference; ``SkyConfig.donate`` has no effect here (in-place updates
-come with the serve loop, ROADMAP.md item 10).
+``SkyConfig.donate`` is the reference's buffer donation.  With it on
+(the default) an insert writes the state in place and returns it: the
+compaction gathers straight into the state's points and mask, the
+counters are updated in place, and the returned leaves are the input's
+own tensors, so the old binding reads the new values.  With
+``donate=False`` the input state is left as it was and a new one comes
+back.  Both give the same bits.  Snapshots never alias a state leaf.
 """
 
 from __future__ import annotations
@@ -126,10 +130,11 @@ def _chunk_skyline(pts, mask, *, cfg: SkyConfig, generator=None):
 
 
 def _insert_batch(state: SkylineState | None, pts, mask, *, cfg: SkyConfig,
-                  generator=None):
+                  generator=None, donate: bool = False):
     """Q live skylines advanced together: (Q, N, d) chunks into a state
     with a leading Q axis.  ``state=None`` is the fresh-state path,
-    exactly the one-shot pipeline."""
+    exactly the one-shot pipeline.  ``donate`` writes the result into
+    ``state``'s own tensors and returns ``state``."""
     c = state_capacity(cfg) if state is None else state.points.shape[-2]
     dom_impl = resolve_spec(cfg.impl, pts.device).dominance
     stats: dict[str, Any] = {}
@@ -152,27 +157,39 @@ def _insert_batch(state: SkylineState | None, pts, mask, *, cfg: SkyConfig,
     # merge both antichains with one stable compaction pass
     evict = state.mask & dominated_mask(state.points, new_pts, new_mask,
                                         impl=dom_impl)
+    # the concatenation is a copy, so the compaction may gather straight
+    # into a donated state's points and mask
     merged = compact(torch.cat([state.points, new_pts], dim=-2),
-                     torch.cat([state.mask & ~evict, new_mask], dim=-1), c)
+                     torch.cat([state.mask & ~evict, new_mask], dim=-1), c,
+                     out=(state.points, state.mask) if donate else None)
     overflow = (state.overflow | sky.overflow | merged.overflow
                 | (merged.count > cfg.capacity) | (sky.count > c))
-    nst = SkylineState(merged.points, merged.mask, merged.count, overflow,
-                       seen=state.seen + stats["chunk_arrivals"],
-                       chunks=state.chunks + 1)
+    if donate:
+        state.count.copy_(merged.count)
+        state.overflow.copy_(overflow)
+        state.seen.add_(stats["chunk_arrivals"])
+        state.chunks.add_(1)
+        nst = state
+    else:
+        nst = SkylineState(merged.points, merged.mask, merged.count,
+                           overflow, seen=state.seen + stats["chunk_arrivals"],
+                           chunks=state.chunks + 1)
     stats["evicted"] = evict.sum(dim=-1).to(torch.int32)
     stats["inserted"] = sky.count
     return nst, stats
 
 
 def _insert(state: SkylineState | None, pts, mask, *, cfg: SkyConfig,
-            generator=None):
-    """One live skyline's insert: the batched insert with Q = 1."""
-    if state is not None:
-        state = SkylineState(*(x[None] for x in state))
-    nst, stats = _insert_batch(state, pts[None], mask[None], cfg=cfg,
-                               generator=generator)
-    return (SkylineState(*(x[0] for x in nst)),
-            {k: v[0] for k, v in stats.items()})
+            generator=None, donate: bool = False):
+    """One live skyline's insert: the batched insert with Q = 1 (under
+    ``donate`` through views of ``state``, which comes back itself)."""
+    batch = None if state is None else SkylineState(*(x[None] for x in state))
+    nst, stats = _insert_batch(batch, pts[None], mask[None], cfg=cfg,
+                               generator=generator, donate=donate)
+    stats = {k: v[0] for k, v in stats.items()}
+    if donate:
+        return state, stats
+    return SkylineState(*(x[0] for x in nst)), stats
 
 
 def insert_chunk(state: SkylineState, pts, mask=None, *, cfg: SkyConfig,
@@ -181,7 +198,9 @@ def insert_chunk(state: SkylineState, pts, mask=None, *, cfg: SkyConfig,
     them when the state has a leading Q axis, (Q, N, d) points.
 
     Runs where the state lies; the chunk is moved there.  Returns
-    ``(new_state, stats)``: rebind the state.  ``generator`` draws the
+    ``(new_state, stats)``: rebind the state.  Under ``cfg.donate`` (the
+    default) ``new_state`` is ``state``, written in place; with
+    ``donate=False`` ``state`` is left as it was.  ``generator`` draws the
     partition ids of ``strategy='random'`` and the representatives of
     ``rep_filter='random'`` (when None, each draws from its own
     generator seeded with 0)."""
@@ -196,7 +215,8 @@ def insert_chunk(state: SkylineState, pts, mask=None, *, cfg: SkyConfig,
     else:
         mask = torch.as_tensor(mask, device=dev).bool()
     insert = _insert_batch if state.points.ndim == 3 else _insert
-    return insert(state, pts, mask, cfg=cfg, generator=generator)
+    return insert(state, pts, mask, cfg=cfg, generator=generator,
+                  donate=cfg.donate)
 
 
 def finalize(state: SkylineState, *, cfg: SkyConfig) -> SkyBuffer:
@@ -204,9 +224,10 @@ def finalize(state: SkylineState, *, cfg: SkyConfig) -> SkyBuffer:
     total order of ``canonical_order`` and sentinel fill.  The state is an
     antichain, so no dominance test is needed, and the total order makes
     the snapshot bit for bit the one-shot answer for the same data.  The
-    state stays live."""
+    state stays live, and no leaf of the snapshot aliases it (a donated
+    insert would write it)."""
     del cfg  # the snapshot depends on the state alone
     order = canonical_order(state.points, state.mask)
     mask = torch.gather(state.mask, -1, order)
     return SkyBuffer(apply_sentinel(gather_rows(state.points, order), mask),
-                     mask, state.count, state.overflow)
+                     mask, state.count.clone(), state.overflow.clone())

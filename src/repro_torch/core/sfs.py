@@ -154,12 +154,20 @@ def gather_rows(pts: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
         order.shape + pts.shape[-1:]))
 
 
-def compact(pts: torch.Tensor, mask: torch.Tensor,
-            capacity: int) -> SkyBuffer:
+def compact(pts: torch.Tensor, mask: torch.Tensor, capacity: int,
+            out: tuple[torch.Tensor, torch.Tensor] | None = None) -> SkyBuffer:
     """Stable-move valid rows to the front; truncate to capacity.
-    Leading axes are batch axes, compacted each on its own."""
+    Leading axes are batch axes, compacted each on its own.  ``out``
+    (points, mask), shaped like the result and sharing no memory with
+    the inputs, receives it in place."""
     order = compact_order(mask, capacity)
-    mask_c = torch.gather(mask, -1, order)
-    pts_c = apply_sentinel(gather_rows(pts, order), mask_c)
+    if out is None:
+        mask_c = torch.gather(mask, -1, order)
+        pts_c = apply_sentinel(gather_rows(pts, order), mask_c)
+    else:
+        mask_c = torch.gather(mask, -1, order, out=out[1])
+        pts_c = torch.gather(pts, -2, order[..., None].expand(
+            order.shape + pts.shape[-1:]), out=out[0])
+        pts_c.masked_fill_(~mask_c[..., None], SENTINEL)
     count = mask.sum(dim=-1).to(torch.int32)
     return SkyBuffer(pts_c, mask_c, count, count > capacity)

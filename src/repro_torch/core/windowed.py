@@ -33,10 +33,13 @@ cross-epoch dominance is resolved at merge-on-read.
                     call.
 
 The ring operations index slots with tensor operations, so they never
-read the device from the host.  Every operation returns a new state and
-leaves its argument as it was: rebind the result.  ``SkyConfig.donate``
-and the ``donate`` flags have no effect here, as in
-``repro_torch.core.incremental``.
+read the device from the host.  Every operation returns ``(state,
+...)``: rebind the result.  Under ``SkyConfig.donate`` (inserts and the
+tick) or the ``donate`` flag (advance and expiry), the reference's
+buffer donation, both on by default, the operation writes the ring in
+place (the head epoch with ``index_copy_``, the ring scalars with
+``copy_``) and returns the state it was given; with donation off the
+argument is left as it was.  Both give the same bits.
 """
 
 from __future__ import annotations
@@ -137,13 +140,27 @@ def _sub_state(state: WindowedSkylineState, idx: torch.Tensor,
 
 
 def _set_sub(state: WindowedSkylineState, sub: inc.SkylineState,
-             idx: torch.Tensor, axis: int) -> WindowedSkylineState:
-    """A copy of ``state`` with ``sub`` in ring slot ``idx``."""
+             idx: torch.Tensor, axis: int,
+             donate: bool = False) -> WindowedSkylineState:
+    """``state`` with ``sub`` in ring slot ``idx``: written in place
+    under ``donate``, else a copy."""
     at = idx.reshape(1).long()
+    op = "index_copy_" if donate else "index_copy"
     return state._replace(**{
-        name: getattr(state, name).index_copy(
+        name: getattr(getattr(state, name), op)(
             axis, at, getattr(sub, name).unsqueeze(axis))
         for name in _EPOCH_LEAVES})
+
+
+def _set_clock(state: WindowedSkylineState, donate: bool,
+               **scalars: torch.Tensor) -> WindowedSkylineState:
+    """``state`` with new ring scalars (``head``, ``active``): copied
+    into its own under ``donate``."""
+    if donate:
+        for name, value in scalars.items():
+            getattr(state, name).copy_(value)
+        return state
+    return state._replace(**scalars)
 
 
 def _blank_sub(state: WindowedSkylineState, axis: int) -> inc.SkylineState:
@@ -158,8 +175,8 @@ def _blank_sub(state: WindowedSkylineState, axis: int) -> inc.SkylineState:
 
 
 def _clear_slot(state: WindowedSkylineState, idx: torch.Tensor,
-                axis: int) -> WindowedSkylineState:
-    return _set_sub(state, _blank_sub(state, axis), idx, axis)
+                axis: int, donate: bool = False) -> WindowedSkylineState:
+    return _set_sub(state, _blank_sub(state, axis), idx, axis, donate)
 
 
 # -- the ring clock ---------------------------------------------------------
@@ -194,29 +211,28 @@ def advance_epoch(state: WindowedSkylineState, *, donate: bool = True):
     """Open the next ring slot as head.  With the ring full the claimed
     slot holds the tail epoch: clearing it is the expiry, and nothing is
     recomputed (the next merge-on-read resolves what it un-dominates).
-    Returns ``(new_state, stats)``: rebind the state (``donate`` has no
-    effect)."""
-    del donate
+    Returns ``(new_state, stats)``: rebind the state (``donate``: written
+    in place)."""
     epochs, axis = window_epochs(state), _epoch_axis(state)
     new_head, new_active, expired = ring_advance(state.head, state.active,
                                                  epochs)
     stats = {"expired_epoch": expired,
              "expired_tuples": _expired_tuples(state, new_head, axis)}
-    state = _clear_slot(state, new_head, axis)
-    return state._replace(head=new_head, active=new_active), stats
+    state = _clear_slot(state, new_head, axis, donate)
+    return _set_clock(state, donate, head=new_head, active=new_active), stats
 
 
 def expire_epoch(state: WindowedSkylineState, *, donate: bool = True):
     """Drop the tail epoch without opening a new one; expiring the only
-    live epoch clears it in place, and the window stays open.  Returns
-    ``(new_state, stats)``: rebind the state (``donate`` has no
-    effect)."""
-    del donate
+    live epoch clears it, and the window stays open.  Returns
+    ``(new_state, stats)``: rebind the state (``donate``: written in
+    place)."""
     epochs, axis = window_epochs(state), _epoch_axis(state)
     tail = ring_tail(state.head, state.active, epochs)
     stats = {"expired_tuples": _expired_tuples(state, tail, axis)}
-    state = _clear_slot(state, tail, axis)
-    return state._replace(active=(state.active - 1).clamp(min=1)), stats
+    state = _clear_slot(state, tail, axis, donate)
+    return _set_clock(state, donate,
+                      active=(state.active - 1).clamp(min=1)), stats
 
 
 # -- insert: the incremental insert, restricted to the head epoch ----------
@@ -226,8 +242,9 @@ def insert_chunk(state: WindowedSkylineState, pts, mask=None, *,
     """Route an arriving chunk, (N, d), or (Q, N, d) for Q windows, into
     the head epoch: pre-filter and evict run against the head epoch only
     (an older epoch's dominator may expire first).  Runs where the state
-    lies.  Returns ``(new_state, stats)``: rebind the state.
-    ``generator`` draws what ``incremental.insert_chunk`` draws."""
+    lies.  Returns ``(new_state, stats)``: rebind the state (under
+    ``cfg.donate`` it is ``state``, written in place).  ``generator``
+    draws what ``incremental.insert_chunk`` draws."""
     par.check_supported(cfg)
     batched = state.points.ndim == 4
     axis = 1 if batched else 0
@@ -241,10 +258,13 @@ def insert_chunk(state: WindowedSkylineState, pts, mask=None, *,
         mask = torch.ones(pts.shape[:-1], dtype=torch.bool, device=dev)
     else:
         mask = torch.as_tensor(mask, device=dev).bool()
+    # the head epoch is gathered into a copy, so its insert may write it
+    # in place whatever the donation
     sub = _sub_state(state, state.head, axis)
     insert = inc._insert_batch if batched else inc._insert
-    sub, stats = insert(sub, pts, mask, cfg=cfg, generator=generator)
-    return _set_sub(state, sub, state.head, axis), stats
+    sub, stats = insert(sub, pts, mask, cfg=cfg, generator=generator,
+                        donate=True)
+    return _set_sub(state, sub, state.head, axis, cfg.donate), stats
 
 
 # -- merge-on-read ----------------------------------------------------------
@@ -296,15 +316,27 @@ def window_tick(state: WindowedSkylineState, pts, mask=None, *,
                 generator: torch.Generator | None = None):
     """One serving tick: optionally rotate the ring, insert the arrivals
     into the head epoch and merge on read.  ``advance`` is a bool or a
-    0-d bool tensor (then both states are made and one is selected on
-    the device, with no host read).  Returns ``(new_state, front,
-    stats)`` with the insert's stats; bit for bit the separate calls."""
+    0-d bool tensor (then the claimed slot and the ring scalars are
+    selected on the device, with no host read).  Donates as
+    ``cfg.donate`` says.  Returns ``(new_state, front, stats)`` with the
+    insert's stats; bit for bit the separate calls."""
     if isinstance(advance, torch.Tensor):
-        rotated, _ = advance_epoch(state)
-        state = WindowedSkylineState(*(
-            torch.where(advance, r, s) for r, s in zip(rotated, state)))
+        epochs, axis = window_epochs(state), _epoch_axis(state)
+        new_head, new_active, _ = ring_advance(state.head, state.active,
+                                               epochs)
+        # only the claimed slot and the clock change: blank the slot, or
+        # write back what it holds
+        kept = _sub_state(state, new_head, axis)
+        slot = inc.SkylineState(*(
+            torch.where(advance, b, k)
+            for b, k in zip(_blank_sub(state, axis), kept)))
+        state = _set_sub(state, slot, new_head, axis, cfg.donate)
+        state = _set_clock(
+            state, cfg.donate,
+            head=torch.where(advance, new_head, state.head),
+            active=torch.where(advance, new_active, state.active))
     elif advance:
-        state, _ = advance_epoch(state)
+        state, _ = advance_epoch(state, donate=cfg.donate)
     state, stats = insert_chunk(state, pts, mask, cfg=cfg,
                                 generator=generator)
     return state, finalize(state, cfg=cfg), stats
@@ -318,4 +350,4 @@ def window_counters(state: WindowedSkylineState) -> dict[str, Any]:
             "seen": state.seen.sum(dim=ax, dtype=torch.int32),
             "chunks": state.chunks.sum(dim=ax, dtype=torch.int32),
             "overflow": state.overflow.any(dim=ax),
-            "head": state.head, "active": state.active}
+            "head": state.head.clone(), "active": state.active.clone()}

@@ -1,5 +1,4 @@
 """Serving layer of the port: the batched query engine, the slab arena
-of stream states, and Pareto-front admission.
+of stream states, Pareto-front admission and the async serve loop.
 
-Counterpart of ``repro.serve`` without the serve loop (ROADMAP.md,
-item 10)."""
+Counterpart of ``repro.serve``."""

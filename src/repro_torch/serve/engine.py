@@ -28,7 +28,8 @@ for bit the answer over the whole (unexpired) history.  Stream states
 live in the engine's slab arenas (`repro_torch.serve.slab`): one
 device-resident arena per (d, dtype, epochs, slot-rows) bucket, tenants
 lease front-sized slots, and each feed gathers the slots, inserts and
-writes the packed fronts back in place.  With ``window_epochs=E`` the
+writes the packed fronts back (in place under ``SkyConfig.donate``, the
+default; see `repro_torch.serve.slab`).  With ``window_epochs=E`` the
 streams are sliding windows over an epoch ring
 (`repro_torch.core.windowed`).
 
@@ -86,8 +87,7 @@ from repro_torch.core.sfs import SkyBuffer
 from repro_torch.kernels.backend import resolve_device, resolve_spec
 from repro_torch.serve.api import (SkylineRequest, StreamOptions,
                                    check_impl_name)
-from repro_torch.serve.slab import (SlabArena, blank_value, index_tensor,
-                                    slot_rows_bucket)
+from repro_torch.serve.slab import SlabArena, index_tensor, slot_rows_bucket
 
 __all__ = ["SkylineEngine", "SkylineStream", "SkylineRequest",
            "StreamOptions", "pack_trace_count", "calibrate_shard_threshold",
@@ -245,6 +245,12 @@ class SkylineEngine:
                                     collections.Counter] = {}
         self.queries_answered = 0
         self.batches_dispatched = 0
+        # the serve loop's admission model: per-(d, dtype, rows-bucket)
+        # wave times in seconds, which the reference's calibration
+        # writes (`calibrate_shard_threshold` measures nothing here: no
+        # mesh), and the kernel tuning table (item 11, not ported)
+        self.wave_time_hints: dict[tuple, float] = {}
+        self.kernel_tuning = None
 
     # -- planning ----------------------------------------------------------
 
@@ -282,7 +288,7 @@ class SkylineEngine:
         if arena is None:
             arena = self._arenas[key] = SlabArena(
                 epochs=epochs, rows=rows, d=d, dtype=dtype,
-                device=self.device)
+                device=self.device, donate=self.cfg.donate)
         return arena
 
     def arena_report(self) -> dict[tuple, dict[str, int]]:
@@ -615,16 +621,19 @@ def _sub_of_epoch(gathered, heads: torch.Tensor, c: int):
     return sub._replace(points=points, mask=mask)
 
 
-def _put_epoch(gathered, sub, heads: torch.Tensor, rows: int):
-    """Copies of the gathered leaves with ``sub`` in each slot's
-    ``heads[i]`` epoch, truncated to ``rows`` (callers guarantee the
-    packed fronts fit, or withhold the write)."""
+def _put_epoch(gathered, sub, heads: torch.Tensor, rows: int,
+               take: torch.Tensor, in_place: bool):
+    """The gathered leaves with ``sub`` in each slot's ``heads[i]``
+    epoch where ``take[i]``, truncated to ``rows`` (callers take only
+    fronts that fit).  Written into ``gathered`` itself when
+    ``in_place`` (the arena's donation; the gathered leaves are the
+    caller's own copies), else into clones."""
     sub = sub._replace(points=sub.points[:, :rows], mask=sub.mask[:, :rows])
     ar = _rows(heads)
     out = []
     for a, v in zip(gathered, sub):
-        u = a.clone()
-        u[ar, heads] = v
+        u = a if in_place else a.clone()
+        u[ar, heads] = torch.where(_lead(take, v), v, a[ar, heads])
         out.append(u)
     return tuple(out)
 
@@ -670,32 +679,33 @@ def _slab_feed(cfg: SkyConfig, arena: SlabArena, rows: int, q: int,
         sel = p_sel & (p_eps == heads)
         sub = incremental.SkylineState(*(
             torch.where(_lead(sel, a), pa, a) for a, pa in zip(sub, psub)))
+    # sub2 becomes the wave's pending record, a shared overlay: it is
+    # never written in place
     sub2, stats = incremental._insert_batch(sub, pts, mask, cfg=cfg,
                                             generator=generators)
     # a slot at the epoch-capacity ceiling can never outgrow it
     fits = (torch.ones((q,), dtype=torch.bool, device=pts.device)
             if rows >= cap else sub2.count[:q] <= rows)
-    updated = _put_epoch(gathered, sub2, heads, rows)
-    arena.write(idx[:q], tuple(
-        torch.where(_lead(fits, u[:q]), u[:q], g[:q])
-        for u, g in zip(updated, gathered)))
+    arena.write(idx[:q], _put_epoch(
+        tuple(g[:q] for g in gathered),
+        incremental.SkylineState(*(x[:q] for x in sub2)), heads[:q], rows,
+        fits, arena.donate))
     return sub2, fits, stats
 
 
-def _slab_promote(old_leaves, idx, eps, rec_sub, pos, take, new_rows: int):
+def _slab_promote(old_leaves, idx, eps, rec_sub, pos, take, new_rows: int,
+                  in_place: bool):
     """The (q, E, new_rows, ...) slot values of q streams moving to a
     bigger rows bucket: the old slots re-padded, with the pending wave's
     inserted states spliced in at each tenant's recorded epoch where
-    ``take``."""
+    ``take`` (into the gathered copy itself when ``in_place``)."""
     gathered = _gather_slots(old_leaves, idx)
     points, mask = incremental._fit_rows(gathered[0], gathered[1],
                                          new_rows)
     gathered = (points, mask) + gathered[2:]
     sub = incremental.SkylineState(*(a.index_select(0, pos)
                                      for a in rec_sub))
-    spliced = _put_epoch(gathered, sub, eps, new_rows)
-    return tuple(torch.where(_lead(take, s), s, g)
-                 for s, g in zip(spliced, gathered))
+    return _put_epoch(gathered, sub, eps, new_rows, take, in_place)
 
 
 def _slab_clear_epoch(arena: SlabArena, slots: np.ndarray,
@@ -703,15 +713,9 @@ def _slab_clear_epoch(arena: SlabArena, slots: np.ndarray,
     """Blank one epoch ring slot per selected tenant, in place (the
     O(1) expiry: nothing is recomputed, merge-on-read resolves the
     rest).  The selection is on the host, so only the selected (slot,
-    epoch) pairs are written."""
+    epoch) pairs are written (in place under the arena's donation)."""
     dev = arena.device
-    s = index_tensor(slots[sel], dev)
-    e = index_tensor(epoch[sel], dev)
-    for a in arena.leaves():
-        # the blank value made on the device: a Python scalar would be
-        # copied from pageable host memory, a host sync
-        a.index_put_((s, e), torch.full((), blank_value(a.dtype),
-                                        dtype=a.dtype, device=dev))
+    arena.blank(index_tensor(slots[sel], dev), index_tensor(epoch[sel], dev))
 
 
 def _slab_snapshot(cfg: SkyConfig, arena: SlabArena, idx, epochs: int,
@@ -1034,7 +1038,8 @@ class SkylineStream:
         vals = _slab_promote(
             self.arena.leaves(), idx, index_tensor(pend.epochs, dev),
             pend.record.sub, index_tensor(pend.pos, dev),
-            index_tensor(pend.alive, dev).bool(), max(new_rows, self.rows))
+            index_tensor(pend.alive, dev).bool(), max(new_rows, self.rows),
+            self.arena.donate)
         if new_rows <= self.rows:
             # an earlier resolve already promoted past this need
             self.arena.write(idx, vals)

@@ -15,10 +15,14 @@ engine's full C-row state capacity.
   ``release``    return slots to the free list (cleared lazily at the
                  next lease, in one batched write).
 
-What the reference's buffer donation does becomes writes in place: the
+The reference's buffer donation (``SlabArena(..., donate=True)``, the
+engine passes ``SkyConfig.donate``) becomes writes in place: the
 engine's feed, promotion, tick and blanking write the leased slots of
-the leaves with ``index_copy_`` / ``index_fill_``; growth copies the
-leaves into tensors of twice the slots once.
+the leaves with ``index_copy_`` / ``index_fill_`` / ``index_put_``, and
+the leaves stay the same tensors.  With ``donate=False`` every update
+makes new leaf tensors and installs them, so leaves taken before it
+stay readable.  Growth copies the leaves into tensors of twice the
+slots once.
 """
 
 from __future__ import annotations
@@ -73,15 +77,18 @@ class SlabArena:
     The six leaves mirror the windowed state's epoch leaves with a
     leading slot axis; slot contents are always a *packed* state (valid
     rows first), so an R-row slot faithfully round-trips any state whose
-    per-epoch fronts fit in R rows."""
+    per-epoch fronts fit in R rows.  ``donate`` (default on) updates the
+    leaves in place; off, each update installs new leaves."""
 
     def __init__(self, *, epochs: int, rows: int, d: int,
-                 dtype=torch.float32, init_slots: int = 8, device=None):
+                 dtype=torch.float32, init_slots: int = 8, device=None,
+                 donate: bool = True):
         self.epochs = int(epochs)
         self.rows = int(rows)
         self.d = int(d)
         self.dtype = dtype
         self.device = torch.device("cpu" if device is None else device)
+        self.donate = bool(donate)
         s = max(int(init_slots), 1)
         self._leaves = self._alloc(s)
         self._free: list[int] = list(range(s))[::-1]
@@ -114,14 +121,33 @@ class SlabArena:
 
     def leaves(self):
         """The arena leaves (points, mask, count, overflow, seen,
-        chunks); the engine's programs write leased slots in place."""
+        chunks), updated through `write`, `blank` and `lease`."""
         return self._leaves
+
+    def _update(self, op: str, *args, values=None) -> None:
+        """Apply the tensor method ``op`` (``index_copy``, ``index_fill``
+        or ``index_put``) to every leaf: in place under donation (the
+        trailing-underscore form), else out of place, installing the new
+        leaves.  ``values`` gives each leaf its last argument."""
+        name = op + "_" if self.donate else op
+        if values is None:
+            values = [blank_value(a.dtype) for a in self._leaves]
+        self._leaves = tuple(getattr(a, name)(*args, v) for a, v in
+                             zip(self._leaves, values, strict=True))
 
     def write(self, idx: torch.Tensor, values) -> None:
         """Write ``values`` (one per leaf, leading axis len(idx)) into
-        the slots ``idx`` of every leaf, in place."""
-        for a, v in zip(self._leaves, values, strict=True):
-            a.index_copy_(0, idx, v)
+        the slots ``idx`` of every leaf."""
+        self._update("index_copy", 0, idx, values=values)
+
+    def blank(self, slots: torch.Tensor, epochs: torch.Tensor) -> None:
+        """Blank ring slot ``epochs[i]`` of arena slot ``slots[i]`` in
+        every leaf (the engine's epoch clear).  The blank values are made
+        on the device: a Python scalar would be copied from pageable
+        host memory, a host sync."""
+        self._update("index_put", (slots, epochs), values=[
+            torch.full((), blank_value(a.dtype), dtype=a.dtype,
+                       device=self.device) for a in self._leaves])
 
     # -- accounting (the O(#buckets) assertion reads these) ----------------
 
@@ -159,9 +185,7 @@ class SlabArena:
         self._free_set.difference_update(slots)
         stale = [s for s in slots if s in self._dirty]
         if stale:
-            idx = index_tensor(stale, self.device)
-            for a in self._leaves:
-                a.index_fill_(0, idx, blank_value(a.dtype))
+            self._update("index_fill", 0, index_tensor(stale, self.device))
             self._dirty.difference_update(stale)
         self.leased += k
         return slots

@@ -291,7 +291,8 @@ def test_buffer_round_trip_keeps_bits():
 def test_serve_modules_are_scanned_for_jax():
     """The import scan above covers the serving layer."""
     names = {p.name for p in PORT_FILES if p.parent.name == "serve"}
-    assert {"api.py", "slab.py", "engine.py", "scheduler.py"} <= names
+    assert {"api.py", "slab.py", "engine.py", "scheduler.py",
+            "loop.py"} <= names
 
 
 def test_engine_and_streams_raise_without_cuda(monkeypatch):
