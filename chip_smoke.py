@@ -141,8 +141,10 @@ It builds the port's CUDA kernels from the sources in the checkout
 With ``--kernels-only`` it stops after step 3 and prints no result;
 with ``--engine-only`` (``--serve-only``) it runs the build and then the
 engine step 6c (the serve step 6d) alone, and prints no result either.
-Steps 5 and 6 time and trace inserts on a kept state, so they run with
-``donate=False``; step 6d holds donation on against off.
+Steps 5 and 6 run the default config, so inserts and ring operations
+write their state in place; each timed or traced rerun works on a fresh
+copy of the state it starts from.  Step 6d holds donation on against
+off.
 Every check that fails ends the run with a non-zero exit code.  The
 script needs a CUDA card; without one, or outside a checkout of the
 repository, it exits non-zero and prints no result.
@@ -226,16 +228,21 @@ class Launches:
         self.counts = tuple(k.launches for k in self.kernels)
 
 
-def time_ms(fn, reps: int = 3):
-    """Best of ``reps`` timed calls after one warm-up, by CUDA events."""
-    fn()
+def time_ms(fn, reps: int = 3, fresh=None):
+    """Best of ``reps`` timed calls after one warm-up, by CUDA events.
+    With ``fresh``, each call is ``fn(fresh())``, the argument made
+    before the start event (a copy of a state that a donated call
+    writes in place)."""
+    call = fn if fresh is None else (lambda: fn(fresh()))
+    call()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        arg = () if fresh is None else (fresh(),)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        fn(*arg)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
@@ -935,9 +942,9 @@ def windows_phase(data, cfg, tag, kernels):
     from repro_torch.core import api
     from repro_torch.core import windowed as win
     epochs = 4
-    # ring operations are timed on a kept state, so this step keeps its
-    # inputs (donation on and off are held alike in S5)
-    cfg = dataclasses.replace(cfg, donate=False)
+    # the default config, so inserts and ring operations write the
+    # window in place; each timed rerun works on a fresh copy of the
+    # window it starts from, made outside the timed span
     plain = dataclasses.replace(cfg, impl="torch")
     noseq = dataclasses.replace(cfg, noseq=True)
 
@@ -967,7 +974,7 @@ def windows_phase(data, cfg, tag, kernels):
         live = [[]]
         for i in range(N_MAIN // CHUNK):
             chunk = x[i * CHUNK:(i + 1) * CHUNK]
-            before = state
+            before = clone_tree(state)
             with Launches(*kernels) as run:
                 state, stats = win.insert_chunk(state, chunk, cfg=cfg)
             check(run.counts == (2, 2), f"window {dist} insert {i + 1}: "
@@ -978,12 +985,12 @@ def windows_phase(data, cfg, tag, kernels):
                   f"impl='torch'")
             live[-1].append(i)
             snap = snapshots(state, pstate, f"window {dist} insert {i + 1}")
-            t_ins, _ = time_ms(lambda: win.insert_chunk(before, chunk,
-                                                        cfg=cfg))
+            t_ins, _ = time_ms(lambda w: win.insert_chunk(w, chunk, cfg=cfg),
+                               fresh=lambda: clone_tree(before))
             t_snap, _ = time_ms(lambda: win.finalize(state, cfg=cfg))
             t_nsnap, _ = time_ms(lambda: win.finalize(state, cfg=noseq))
-            t_tick, _ = time_ms(lambda: win.window_tick(before, chunk,
-                                                        cfg=cfg))
+            t_tick, _ = time_ms(lambda w: win.window_tick(w, chunk, cfg=cfg),
+                                fresh=lambda: clone_tree(before))
             msg = ""
             if i % 2:
                 with Launches(*kernels) as run:
@@ -998,8 +1005,8 @@ def windows_phase(data, cfg, tag, kernels):
                       f"window {dist} after insert {i + 1}: the snapshot "
                       f"differs from the one-shot answer over the unexpired "
                       f"rows")
-                t_adv, _ = time_ms(lambda: win.advance_epoch(state,
-                                                             donate=False))
+                t_adv, _ = time_ms(win.advance_epoch,
+                                   fresh=lambda: clone_tree(state))
                 msg = (f"; advance {t_adv:.3f} ms (expired "
                        f"{int(astats['expired_tuples'])} retained rows), "
                        f"{sum(len(ep) for ep in live)} chunks live, snapshot "
@@ -1010,11 +1017,12 @@ def windows_phase(data, cfg, tag, kernels):
                   f"ms, tick {t_tick:.3f} ms (best of 3); retained "
                   f"{int(state.count.sum())}, front {int(snap.count)}; state, "
                   f"stats and snapshots bitwise equal to impl='torch'{msg}")
+        spare = clone_tree(state)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            adv, _ = win.advance_epoch(state, donate=False)
-            exp, _ = win.expire_epoch(adv, donate=False)
+            spare, _ = win.advance_epoch(spare)
+            spare, _ = win.expire_epoch(spare)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
@@ -1036,10 +1044,11 @@ def windows_phase(data, cfg, tag, kernels):
         check(int(state.count.sum()) == 0 and int(state.active) == 1,
               f"window {dist}: not empty after expiring every epoch")
         # the fused tick against the separate calls
-        fused, front, _ = win.window_tick(state, data[dist][:CHUNK], cfg=cfg,
+        fused, front, _ = win.window_tick(clone_tree(state),
+                                          data[dist][:CHUNK], cfg=cfg,
                                           advance=torch.tensor(
                                               True, device=x.device))
-        sep, _ = win.advance_epoch(state, donate=False)
+        sep, _ = win.advance_epoch(clone_tree(state))
         sep, _ = win.insert_chunk(sep, data[dist][:CHUNK], cfg=cfg)
         check(leaves_equal(fused, sep)
               and leaves_equal(front, win.finalize(sep, cfg=cfg)),
@@ -1140,6 +1149,11 @@ def graph_ops(fn) -> dict:
     graph.reset()
     torch.cuda.synchronize()
     return dict(sorted(counts.items()))
+
+
+def clone_tree(state):
+    """A copy of every leaf of a state (a named tuple of tensors)."""
+    return type(state)(*(leaf.clone() for leaf in state))
 
 
 def event_ms(fn):
@@ -2101,9 +2115,12 @@ def streaming_phase(data, oneshot, cfg, tag, kernels):
     its launch counts, by distribution."""
     from repro_torch.core import api
     from repro_torch.kernels.sfs import kernel
-    # this step inserts into a kept state again to time and trace it, so
-    # it keeps its inputs (donation on and off are held alike in S5)
-    cfg = dataclasses.replace(cfg, donate=False)
+    # the default config, so every insert writes its state in place; the
+    # timed and traced reruns each insert into a fresh copy of the state
+    # before the insert, made outside the timed span.  The kernel calls
+    # are recorded with donation off, the same launches, so that the
+    # recorded arguments (views of the state) keep their values
+    keep = dataclasses.replace(cfg, donate=False)
     plain = dataclasses.replace(cfg, impl="torch")
     out = {}
     for dist in ("uniform", "anticorrelated"):
@@ -2112,7 +2129,7 @@ def streaming_phase(data, oneshot, cfg, tag, kernels):
         pstate = api.init_state(plain, D_MAIN)
         for i in range(N_MAIN // CHUNK):
             chunk = x[i * CHUNK:(i + 1) * CHUNK]
-            before = state
+            before = clone_tree(state)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with Launches(*kernels) as run:
@@ -2122,8 +2139,8 @@ def streaming_phase(data, oneshot, cfg, tag, kernels):
             snap = api.finalize(state, cfg=cfg)
             torch.cuda.synchronize()
             t_fin = (time.perf_counter() - t0) * 1e3
-            t_ev, _ = time_ms(lambda: api.insert_chunk(before, chunk,
-                                                       cfg=cfg))
+            t_ev, _ = time_ms(lambda s: api.insert_chunk(s, chunk, cfg=cfg),
+                              fresh=lambda: clone_tree(before))
             check(run.counts == (2, 2), f"streaming {dist} insert {i + 1}: "
                   f"{run.counts} sweep and dominance launches, expected "
                   f"(2, 2)")
@@ -2154,14 +2171,15 @@ def streaming_phase(data, oneshot, cfg, tag, kernels):
               f"final snapshot (skyline {int(snap.count)}) bitwise equal to "
               f"the one-shot parallel_skyline answer")
         if dist == "anticorrelated":
-            trace_call(lambda: api.insert_chunk(before, chunk, cfg=cfg), tag,
+            trace_call(lambda s: api.insert_chunk(s, chunk, cfg=cfg), tag,
                        f"streaming {dist} insert {N_MAIN // CHUNK} "
-                       f"({CHUNK} rows)")
+                       f"({CHUNK} rows, donated)",
+                       fresh=lambda: clone_tree(before))
         out[dist] = (record_dominance_calls(
-            lambda: api.insert_chunk(before, chunk, cfg=cfg)), run.counts)
+            lambda: api.insert_chunk(before, chunk, cfg=keep)), run.counts)
         for name, (pts_p, mask_p, kw) in zip(("local", "merge"),
                                              record_sweep_calls(
-            lambda: api.insert_chunk(before, chunk, cfg=cfg))):
+            lambda: api.insert_chunk(before, chunk, cfg=keep))):
             got = kernel.sfs_sweep_cuda(pts_p, mask_p, **kw)
             t_k, _ = time_ms(lambda: kernel.sfs_sweep_cuda(pts_p, mask_p,
                                                           **kw))
@@ -2366,19 +2384,21 @@ def sync_debug_call(calls):
     return out
 
 
-def trace_call(fn, tag: str, label: str):
-    """``fn`` traced once by torch.profiler after a warm-up: prints the
-    eight device operations that took the most time and the device's
-    idle share over the traced window (from the first event to the last,
-    host or device) and over the device span alone (from the first
-    device operation to the end of the last)."""
+def trace_call(fn, tag: str, label: str, fresh):
+    """``fn(fresh())`` traced once by torch.profiler after a warm-up,
+    ``fresh()`` made before the trace: prints the eight device
+    operations that took the most time and the device's idle share over
+    the traced window (from the first event to the last, host or
+    device) and over the device span alone (from the first device
+    operation to the end of the last)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    fn(fresh())
+    arg = fresh()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        fn(arg)
         torch.cuda.synchronize()
     events = list(prof.events())
     dev = sorted((e.time_range.start, e.time_range.end, e.name)

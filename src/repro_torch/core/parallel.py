@@ -80,8 +80,8 @@ class SkyConfig:
     sliced_dim: int = 0
     impl: str = "auto"            # kernel backend (repro_torch.kernels.backend)
     merge: str = "flat"           # union merge topology: flat | tree | auto
-    donate: bool = True           # buffer donation: inserts, window ops and
-    #                               slab arenas write their state in place
+    donate: bool = True           # buffer donation: inserts and window ops
+    #                               write the caller's state in place
 
 
 def _not_ported(what: str, item: str):

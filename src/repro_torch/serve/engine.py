@@ -28,8 +28,9 @@ for bit the answer over the whole (unexpired) history.  Stream states
 live in the engine's slab arenas (`repro_torch.serve.slab`): one
 device-resident arena per (d, dtype, epochs, slot-rows) bucket, tenants
 lease front-sized slots, and each feed gathers the slots, inserts and
-writes the packed fronts back (in place under ``SkyConfig.donate``, the
-default; see `repro_torch.serve.slab`).  With ``window_epochs=E`` the
+writes the packed fronts back in place (the arenas are the engine's
+own, so whatever ``SkyConfig.donate`` says; see
+`repro_torch.serve.slab`).  With ``window_epochs=E`` the
 streams are sliding windows over an epoch ring
 (`repro_torch.core.windowed`).
 
@@ -87,7 +88,8 @@ from repro_torch.core.sfs import SkyBuffer
 from repro_torch.kernels.backend import resolve_device, resolve_spec
 from repro_torch.serve.api import (SkylineRequest, StreamOptions,
                                    check_impl_name)
-from repro_torch.serve.slab import SlabArena, index_tensor, slot_rows_bucket
+from repro_torch.serve.slab import (SlabArena, blank_value, index_tensor,
+                                    slot_rows_bucket)
 
 __all__ = ["SkylineEngine", "SkylineStream", "SkylineRequest",
            "StreamOptions", "pack_trace_count", "calibrate_shard_threshold",
@@ -248,9 +250,8 @@ class SkylineEngine:
         # the serve loop's admission model: per-(d, dtype, rows-bucket)
         # wave times in seconds, which the reference's calibration
         # writes (`calibrate_shard_threshold` measures nothing here: no
-        # mesh), and the kernel tuning table (item 11, not ported)
+        # mesh)
         self.wave_time_hints: dict[tuple, float] = {}
-        self.kernel_tuning = None
 
     # -- planning ----------------------------------------------------------
 
@@ -288,7 +289,7 @@ class SkylineEngine:
         if arena is None:
             arena = self._arenas[key] = SlabArena(
                 epochs=epochs, rows=rows, d=d, dtype=dtype,
-                device=self.device, donate=self.cfg.donate)
+                device=self.device)
         return arena
 
     def arena_report(self) -> dict[tuple, dict[str, int]]:
@@ -622,19 +623,18 @@ def _sub_of_epoch(gathered, heads: torch.Tensor, c: int):
 
 
 def _put_epoch(gathered, sub, heads: torch.Tensor, rows: int,
-               take: torch.Tensor, in_place: bool):
+               take: torch.Tensor):
     """The gathered leaves with ``sub`` in each slot's ``heads[i]``
     epoch where ``take[i]``, truncated to ``rows`` (callers take only
-    fronts that fit).  Written into ``gathered`` itself when
-    ``in_place`` (the arena's donation; the gathered leaves are the
-    caller's own copies), else into clones."""
+    fronts that fit).  Written into ``gathered`` itself: the gathered
+    leaves are the caller's own ``index_select`` copies, read no more
+    after this."""
     sub = sub._replace(points=sub.points[:, :rows], mask=sub.mask[:, :rows])
     ar = _rows(heads)
     out = []
     for a, v in zip(gathered, sub):
-        u = a if in_place else a.clone()
-        u[ar, heads] = torch.where(_lead(take, v), v, a[ar, heads])
-        out.append(u)
+        a[ar, heads] = torch.where(_lead(take, v), v, a[ar, heads])
+        out.append(a)
     return tuple(out)
 
 
@@ -689,23 +689,22 @@ def _slab_feed(cfg: SkyConfig, arena: SlabArena, rows: int, q: int,
     arena.write(idx[:q], _put_epoch(
         tuple(g[:q] for g in gathered),
         incremental.SkylineState(*(x[:q] for x in sub2)), heads[:q], rows,
-        fits, arena.donate))
+        fits))
     return sub2, fits, stats
 
 
-def _slab_promote(old_leaves, idx, eps, rec_sub, pos, take, new_rows: int,
-                  in_place: bool):
+def _slab_promote(old_leaves, idx, eps, rec_sub, pos, take, new_rows: int):
     """The (q, E, new_rows, ...) slot values of q streams moving to a
     bigger rows bucket: the old slots re-padded, with the pending wave's
     inserted states spliced in at each tenant's recorded epoch where
-    ``take`` (into the gathered copy itself when ``in_place``)."""
+    ``take``."""
     gathered = _gather_slots(old_leaves, idx)
     points, mask = incremental._fit_rows(gathered[0], gathered[1],
                                          new_rows)
     gathered = (points, mask) + gathered[2:]
     sub = incremental.SkylineState(*(a.index_select(0, pos)
                                      for a in rec_sub))
-    return _put_epoch(gathered, sub, eps, new_rows, take, in_place)
+    return _put_epoch(gathered, sub, eps, new_rows, take)
 
 
 def _slab_clear_epoch(arena: SlabArena, slots: np.ndarray,
@@ -713,9 +712,15 @@ def _slab_clear_epoch(arena: SlabArena, slots: np.ndarray,
     """Blank one epoch ring slot per selected tenant, in place (the
     O(1) expiry: nothing is recomputed, merge-on-read resolves the
     rest).  The selection is on the host, so only the selected (slot,
-    epoch) pairs are written (in place under the arena's donation)."""
+    epoch) pairs are written."""
     dev = arena.device
-    arena.blank(index_tensor(slots[sel], dev), index_tensor(epoch[sel], dev))
+    s = index_tensor(slots[sel], dev)
+    e = index_tensor(epoch[sel], dev)
+    for a in arena.leaves():
+        # the blank value made on the device: a Python scalar would be
+        # copied from pageable host memory, a host sync
+        a.index_put_((s, e), torch.full((), blank_value(a.dtype),
+                                        dtype=a.dtype, device=dev))
 
 
 def _slab_snapshot(cfg: SkyConfig, arena: SlabArena, idx, epochs: int,
@@ -1038,8 +1043,7 @@ class SkylineStream:
         vals = _slab_promote(
             self.arena.leaves(), idx, index_tensor(pend.epochs, dev),
             pend.record.sub, index_tensor(pend.pos, dev),
-            index_tensor(pend.alive, dev).bool(), max(new_rows, self.rows),
-            self.arena.donate)
+            index_tensor(pend.alive, dev).bool(), max(new_rows, self.rows))
         if new_rows <= self.rows:
             # an earlier resolve already promoted past this need
             self.arena.write(idx, vals)

@@ -26,8 +26,8 @@ dispatch-ahead shape of LLM serving stacks:
 * **One stream.** Every wave runs on the stream that was current on the
   engine's device when the loop was made, which is the stream the
   caller's `SkylineStream.snapshot` and synchronous calls use.  Program
-  order on that stream is what makes the arena's in-place writes
-  (`SkyConfig.donate`) safe between wave k and wave k+1.
+  order on that stream is what makes the arena's in-place writes safe
+  between wave k and wave k+1.
 
 * **Cross-tenant feed coalescing.** Pending `SkylineStream.feed` work
   items whose streams lease from the same slab bucket fuse into ONE
@@ -195,21 +195,6 @@ class ServeLoop:
         self._ewma = 0.0
         self._ewma_tab: dict[tuple, float] = dict(
             getattr(engine, "wave_time_hints", {}) or {})
-        # kernel-tuning sweep timings ("sweep/d=4/dtype=float32") give a
-        # weak per-(d, dtype) floor for buckets calibration never saw;
-        # the table is item 11 of ROADMAP.md, so an engine of the port
-        # has none and the floor stays empty
-        self._tuning_floor: dict[tuple, float] = {}
-        table = getattr(engine, "kernel_tuning", None)
-        for key, entry in (getattr(table, "entries", None) or {}).items():
-            parts = key.split("/")
-            if parts[0] == "sweep" and len(parts) == 3:
-                try:
-                    d = int(parts[1].split("=")[1])
-                    dt = parts[2].split("=")[1]
-                except (IndexError, ValueError):
-                    continue
-                self._tuning_floor[(d, dt)] = entry.time_us * 1e-6
         self.stats = {"completed": 0, "shed": 0, "degraded": 0,
                       "waves": 0, "coalesced_feeds": 0,
                       "stage_overlap_s": 0.0}
@@ -428,14 +413,11 @@ class ServeLoop:
 
     def _wave_time(self, key: tuple) -> float:
         """Modeled wave time for one bucket: its EWMA entry, falling
-        back to the cross-bucket scalar, then to the kernel-tuning
-        floor, until the bucket has history."""
+        back to the cross-bucket scalar until the bucket has history
+        (the reference's kernel-tuning floor waits for ROADMAP item
+        11)."""
         t = self._ewma_tab.get(key)
-        if t is not None:
-            return t
-        if self._ewma:
-            return self._ewma
-        return self._tuning_floor.get(key[:2], 0.0)
+        return self._ewma if t is None else t
 
     def _stage_once(self, batch: list[Ticket]) -> _Wave:
         """Pack and dispatch one wave WITHOUT waiting on the device:

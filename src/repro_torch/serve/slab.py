@@ -15,14 +15,14 @@ engine's full C-row state capacity.
   ``release``    return slots to the free list (cleared lazily at the
                  next lease, in one batched write).
 
-The reference's buffer donation (``SlabArena(..., donate=True)``, the
-engine passes ``SkyConfig.donate``) becomes writes in place: the
+What the reference's buffer donation does becomes writes in place: the
 engine's feed, promotion, tick and blanking write the leased slots of
-the leaves with ``index_copy_`` / ``index_fill_`` / ``index_put_``, and
-the leaves stay the same tensors.  With ``donate=False`` every update
-makes new leaf tensors and installs them, so leaves taken before it
-stay readable.  Growth copies the leaves into tensors of twice the
-slots once.
+the leaves with ``index_copy_`` / ``index_fill_``; growth copies the
+leaves into tensors of twice the slots once.  The arenas belong to the
+engine: every caller fetches ``leaves()`` anew and snapshots are
+separate tensors, so no one can hold an old leaf, and the arena writes
+in place whatever ``SkyConfig.donate`` says (the reference's
+``SlabArena(donate=)`` has no counterpart).
 """
 
 from __future__ import annotations
@@ -77,18 +77,15 @@ class SlabArena:
     The six leaves mirror the windowed state's epoch leaves with a
     leading slot axis; slot contents are always a *packed* state (valid
     rows first), so an R-row slot faithfully round-trips any state whose
-    per-epoch fronts fit in R rows.  ``donate`` (default on) updates the
-    leaves in place; off, each update installs new leaves."""
+    per-epoch fronts fit in R rows."""
 
     def __init__(self, *, epochs: int, rows: int, d: int,
-                 dtype=torch.float32, init_slots: int = 8, device=None,
-                 donate: bool = True):
+                 dtype=torch.float32, init_slots: int = 8, device=None):
         self.epochs = int(epochs)
         self.rows = int(rows)
         self.d = int(d)
         self.dtype = dtype
         self.device = torch.device("cpu" if device is None else device)
-        self.donate = bool(donate)
         s = max(int(init_slots), 1)
         self._leaves = self._alloc(s)
         self._free: list[int] = list(range(s))[::-1]
@@ -121,33 +118,14 @@ class SlabArena:
 
     def leaves(self):
         """The arena leaves (points, mask, count, overflow, seen,
-        chunks), updated through `write`, `blank` and `lease`."""
+        chunks); the engine's programs write leased slots in place."""
         return self._leaves
-
-    def _update(self, op: str, *args, values=None) -> None:
-        """Apply the tensor method ``op`` (``index_copy``, ``index_fill``
-        or ``index_put``) to every leaf: in place under donation (the
-        trailing-underscore form), else out of place, installing the new
-        leaves.  ``values`` gives each leaf its last argument."""
-        name = op + "_" if self.donate else op
-        if values is None:
-            values = [blank_value(a.dtype) for a in self._leaves]
-        self._leaves = tuple(getattr(a, name)(*args, v) for a, v in
-                             zip(self._leaves, values, strict=True))
 
     def write(self, idx: torch.Tensor, values) -> None:
         """Write ``values`` (one per leaf, leading axis len(idx)) into
-        the slots ``idx`` of every leaf."""
-        self._update("index_copy", 0, idx, values=values)
-
-    def blank(self, slots: torch.Tensor, epochs: torch.Tensor) -> None:
-        """Blank ring slot ``epochs[i]`` of arena slot ``slots[i]`` in
-        every leaf (the engine's epoch clear).  The blank values are made
-        on the device: a Python scalar would be copied from pageable
-        host memory, a host sync."""
-        self._update("index_put", (slots, epochs), values=[
-            torch.full((), blank_value(a.dtype), dtype=a.dtype,
-                       device=self.device) for a in self._leaves])
+        the slots ``idx`` of every leaf, in place."""
+        for a, v in zip(self._leaves, values, strict=True):
+            a.index_copy_(0, idx, v)
 
     # -- accounting (the O(#buckets) assertion reads these) ----------------
 
@@ -185,7 +163,9 @@ class SlabArena:
         self._free_set.difference_update(slots)
         stale = [s for s in slots if s in self._dirty]
         if stale:
-            self._update("index_fill", 0, index_tensor(stale, self.device))
+            idx = index_tensor(stale, self.device)
+            for a in self._leaves:
+                a.index_fill_(0, idx, blank_value(a.dtype))
             self._dirty.difference_update(stale)
         self.leased += k
         return slots

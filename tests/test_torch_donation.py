@@ -1,9 +1,10 @@
 """Donation (``SkyConfig.donate``) in the port: writes in place, same bits.
 
 Case for case the counterpart of ``tests/test_donation.py``.  With
-donation on (the default) an insert, a window operation or a slab
-update writes the state's or the arena's own tensors and returns them;
-with it off the inputs are left as they were.  Every streaming and
+donation on (the default) an insert or a window operation writes the
+state's own tensors and returns them; with it off the inputs are left
+as they were.  The engine's slab arenas are its own and are written in
+place under either setting.  Every streaming and
 serving path gives the same bits either way: chunked inserts, window
 ticks, advance and expiry, slab feeds, windowed slab feeds and ticks,
 coalesced serve-loop waves, and chained pending overlays with promotion
@@ -33,7 +34,6 @@ from repro_torch.serve import engine as teng
 from repro_torch.serve.api import StreamOptions
 from repro_torch.serve.engine import SkylineEngine
 from repro_torch.serve.loop import ServeLoop
-from repro_torch.serve.slab import SlabArena
 
 WAIT_S = 60
 
@@ -235,36 +235,33 @@ def test_advance_and_expire_bit_identical_donate_on_off():
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("donate", [True, False], ids=["on", "off"])
-def test_arena_updates_in_place_or_install_new_leaves(donate):
-    """``SlabArena(donate=True)`` writes, blanks and re-leases in place
-    (the leaves stay the same tensors); ``donate=False`` installs new
-    leaves and the ones taken before stay readable."""
-    arena = SlabArena(epochs=2, rows=4, d=2, init_slots=2, donate=donate)
-    slots = arena.lease(2)
-    idx = torch.tensor(slots)
-    old = arena.leaves()
-    kept = _copy(old)
-    vals = tuple(torch.ones_like(a[:2]) for a in old)
-    arena.write(idx, vals)
-    arena.blank(idx[:1], torch.tensor([1]))
-    arena.release(slots[:1])
-    arena.lease(1)                       # re-blanks the released slot
-    new = arena.leaves()
-    assert all((a is b) == donate for a, b in zip(new, old))
-    if not donate:
-        _assert_trees_equal(old, kept)
-    # slot slots[1]: written, epoch 1 kept; slot slots[0]: blank again
-    assert bool(new[1][slots[1]].all()) and not bool(new[1][slots[0]].any())
-    assert float(new[0][slots[0]].max()) > 1e38
+def test_engine_arena_writes_in_place_whatever_donate(donate):
+    """The engine owns its arenas, so a feed, a tick, an expiry and a
+    re-lease write the leased slots in place under either setting of
+    ``SkyConfig.donate``: the arena keeps the same six tensors, and a
+    re-leased slot comes back blank."""
+    engine = SkylineEngine(_cfg(donate, capacity=128), min_n_bucket=64,
+                           min_slab_rows=8, device="cpu")
+    pts = _dataset(3, n=12)             # fronts fit the 8-row slots
+    opts = StreamOptions(q=1, window_epochs=2)
+    s = engine.open_stream(pts.shape[1], opts)
+    leaves = s.arena.leaves()
+    s.feed([pts[:6]])
+    s.tick()
+    s.feed([pts[6:]])
+    s.expire_epoch()
+    s.close()
+    t = engine.open_stream(pts.shape[1], opts)
+    assert t.arena is s.arena
+    assert all(a is b for a, b in zip(t.arena.leaves(), leaves))
+    buf = t.snapshot()[0]
+    assert int(buf.count) == 0 and not bool(buf.mask.any())
 
 
 def _snap(engine_donate: bool, drive) -> list:
     engine = SkylineEngine(_cfg(engine_donate, capacity=128),
                            min_n_bucket=64, min_slab_rows=8, device="cpu")
-    out = drive(engine)
-    for arena in engine._arenas.values():
-        assert arena.donate == engine_donate
-    return out
+    return drive(engine)
 
 
 def test_slab_feed_bit_identical_donate_on_off():
