@@ -135,12 +135,24 @@ It builds the port's CUDA kernels from the sources in the checkout
      data);
      runs one pre-filter call under torch.cuda.set_sync_debug_mode
      ("error"), so that a host sync in the entry fails the run;
+  V. runs the program verifier (``repro_torch.analysis.verifier``) on
+     the card, after the serve step: first which of the census's host
+     operations raise under set_sync_debug_mode("error") on this card,
+     then every cell of ``repro_torch.launch.cells`` with the CUDA
+     kernels, under set_sync_debug_mode("error") and the dispatch census
+     (no host round-trip, no collective, Q-independent operation counts,
+     slab boundary shapes, in-place state updates, the shared-memory
+     laws under the sm_90 cap), captured into a CUDA graph at q and 2q
+     (equal kernel nodes) and under the 64 MiB peak-memory budget; one
+     line per cell (operations, graph kernel nodes, peak bytes, shared
+     memory by family, run time), and both kernels must launch;
   8. prints the script's run time, one JSON line with both kernels, then
      the device line.
 
 With ``--kernels-only`` it stops after step 3 and prints no result;
-with ``--engine-only`` (``--serve-only``) it runs the build and then the
-engine step 6c (the serve step 6d) alone, and prints no result either.
+with ``--engine-only`` (``--serve-only``, ``--verify-only``) it runs the
+build and then the engine step 6c (the serve step 6d, step V) alone,
+and prints no result either.
 Steps 5 and 6 run the default config, so inserts and ring operations
 write their state in place; each timed or traced rerun works on a fresh
 copy of the state it starts from.  Step 6d holds donation on against
@@ -939,6 +951,7 @@ def windows_phase(data, cfg, tag, kernels):
     One advance and one expiry run under set_sync_debug_mode("error").
     The fused tick is held against the separate calls; Q = 4 windows
     against four single ones."""
+    from repro_torch.analysis.verifier import no_sync
     from repro_torch.core import api
     from repro_torch.core import windowed as win
     epochs = 4
@@ -1018,13 +1031,7 @@ def windows_phase(data, cfg, tag, kernels):
                   f"{int(state.count.sum())}, front {int(snap.count)}; state, "
                   f"stats and snapshots bitwise equal to impl='torch'{msg}")
         spare = clone_tree(state)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            spare, _ = win.advance_epoch(spare)
-            spare, _ = win.expire_epoch(spare)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+        no_sync(lambda: win.expire_epoch(win.advance_epoch(spare)[0]))
         torch.cuda.synchronize()
         print(f"window {dist}: advance_epoch and expire_epoch under "
               f"torch.cuda.set_sync_debug_mode('error'): no host sync raised")
@@ -1105,52 +1112,6 @@ WINDOW_Q, WINDOW_E = 64, 4        # windowed tenants and epochs (E6)
 IDLE_STREAMS = 1000               # idle single-tenant streams (E7)
 
 
-_GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
-                     4: "graph", 5: "empty", 6: "wait", 7: "record",
-                     10: "alloc", 11: "free"}
-
-
-def graph_ops(fn) -> dict:
-    """The device operations of one call of ``fn``, counted the same way
-    every time: after a warm-up on a side stream, the call is captured
-    into a CUDA graph, and libcuda lists the graph's nodes
-    (``cuGraphGetNodes``, ``cuGraphNodeGetType``).  Returns the count of
-    each node type.  A host sync inside ``fn`` fails the capture."""
-    import ctypes
-    cu = ctypes.CDLL("libcuda.so.1")
-    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.POINTER(ctypes.c_size_t)]
-    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
-                                      ctypes.POINTER(ctypes.c_int)]
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
-        fn()
-    raw = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0,
-          "cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0,
-          "cuGraphGetNodes failed")
-    counts: dict[str, int] = {}
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
-                                    ctypes.byref(kind)) == 0,
-              "cuGraphNodeGetType failed")
-        name = _GRAPH_NODE_TYPES.get(kind.value, f"type{kind.value}")
-        counts[name] = counts.get(name, 0) + 1
-    graph.reset()
-    torch.cuda.synchronize()
-    return dict(sorted(counts.items()))
-
-
 def clone_tree(state):
     """A copy of every leaf of a state (a named tuple of tensors)."""
     return type(state)(*(leaf.clone() for leaf in state))
@@ -1166,17 +1127,6 @@ def event_ms(fn):
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
-
-
-def no_sync(fn):
-    """``fn()`` under torch.cuda.set_sync_debug_mode("error"): a host
-    synchronisation inside raises."""
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        return fn()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
 
 
 def buffers_equal(got, want) -> bool:
@@ -1195,6 +1145,7 @@ def span(ts) -> str:
 
 def engine_phase(tag, kernels, dev=torch.device("cuda")) -> None:
     """The serving layer on the card (E1-E7, see the module docstring)."""
+    from repro_torch.analysis.verifier import graph_ops, no_sync
     from repro_torch.core import api, datagen, parallel
     from repro_torch.core.dominance import flush_subnormal
     from repro_torch.serve import engine as eng
@@ -1773,6 +1724,7 @@ def donation_run(x, cfg, where, kernels):
 def serve_phase(tag, kernels, dev=torch.device("cuda")) -> None:
     """The serve loop and donation on the card (S1-S5, see the module
     docstring)."""
+    from repro_torch.analysis.verifier import no_sync
     from repro_torch.core import datagen, parallel
     from repro_torch.serve import engine as eng
     from repro_torch.serve import loop as loop_mod
@@ -2062,6 +2014,56 @@ def real_data_phase(cfg, tag, kernels):
                   f"{stats['bucket_counts'].shape[0]}; launches "
                   f"{run.counts}; bitwise equal to impl='torch' and the "
                   f"default answer")
+
+
+def verify_phase(tag, kernels) -> None:
+    """Step V: the program verifier (``repro_torch.analysis``) on the
+    card over every cell of its suite, with the 'auto' registry choice
+    (the CUDA kernels): each cell under set_sync_debug_mode("error") and
+    a dispatch census, captured into a CUDA graph at q and 2q, under the
+    memory and shared-memory caps.  First, which host operations of the
+    census raise under set_sync_debug_mode("error") on this card."""
+    from repro_torch.analysis.verifier import (HOST_OPS, host_op_probe,
+                                               verify_programs)
+    t0 = time.perf_counter()
+    probe = host_op_probe(torch.device("cuda"))
+    listed = {k: v for k, v in probe.items() if "none expected" not in k}
+    quiet = sorted(k for k, v in listed.items() if not v)
+    loud = sorted(k for k, v in probe.items()
+                  if v and "none expected" in k)
+    print(f"{tag} V host-op probe: {sum(listed.values())} of "
+          f"{len(listed)} census host operations raise under "
+          f"set_sync_debug_mode('error') (HOST_OPS holds {len(HOST_OPS)} "
+          f"aten names); not raising: {quiet or 'none'}; raising where "
+          f"none was expected: {loud or 'none'}")
+    with Launches(*kernels) as run:
+        report, errors = verify_programs(device="cuda")
+    for name, rec in report["cells"].items():
+        if "error" in rec:
+            print(f"{tag} V {name}: {rec['error']}")
+            continue
+        graph = rec.get("graph", {})
+        mem = rec["memory"]
+        nodes = " / ".join(
+            f"{k} {graph[k].get('kernel', 0)}" for k in ("q", "2q")
+            if k in graph)
+        qcount = (f", ops at 2q {rec['op_count_2q']}"
+                  if "op_count_2q" in rec else "")
+        print(f"{tag} V {name} ({rec['kind']}): {rec['ops']} ops"
+              f"{qcount}, kernel calls {rec['kernels']}, graph kernel "
+              f"nodes {nodes} (all nodes {graph.get('q')}), peak "
+              f"{mem['peak_bytes']} B ({mem['call_bytes']} B beyond the "
+              f"inputs), smem sweep {rec['smem']['sweep']} B / dominance "
+              f"{rec['smem']['dominance']} B, {rec['seconds']:.3f} s")
+    for e in errors:
+        print(f"VERIFY {e}")
+    check(not errors, f"step V: {len(errors)} invariant violation(s)")
+    check(all(run.counts), f"step V: launches {run.counts}: a kernel of "
+          f"the suite never launched")
+    print(f"{tag} V: {len(report['cells'])} programs verified on the card "
+          f"(smem cap {report['smem_cap']} B, memory cap "
+          f"{report['mem_cap']} B), launches {run.counts}, "
+          f"{time.perf_counter() - t0:.3f} s")
 
 
 def record_dominance_calls(fn) -> list:
@@ -2372,14 +2374,10 @@ def time_dom_grids(c, r, m, lt, want) -> str:
 def sync_debug_call(calls):
     """One recorded pre-filter call under set_sync_debug_mode("error"):
     a host synchronisation in the entry raises there."""
+    from repro_torch.analysis.verifier import no_sync
     from repro_torch.kernels.dominance import kernel as dkernel
     c, r, m, lt = calls[0]
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out = dkernel.dominated_mask_cuda(c, r, m, lower_tri=lt)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+    out = no_sync(lambda: dkernel.dominated_mask_cuda(c, r, m, lower_tri=lt))
     torch.cuda.synchronize()
     return out
 
@@ -2532,7 +2530,8 @@ def main() -> None:
 
     # a quicker run: the build, then the engine step or the serve step
     for flag, phase in (("--engine-only", engine_phase),
-                        ("--serve-only", serve_phase)):
+                        ("--serve-only", serve_phase),
+                        ("--verify-only", verify_phase)):
         if flag in sys.argv[1:]:
             phase(tag, (kernel.sfs_sweep_cuda, dkernel.dominated_mask_cuda))
             print(f"{flag}: stopped after that step; chip_smoke.py ran "
@@ -2728,6 +2727,7 @@ def main() -> None:
     engine_phase(tag, kernels)
     print(f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
     serve_phase(tag, kernels)
+    verify_phase(tag, kernels)
 
     # -- 8. the kernel record and the device line ----------------------------
     def entry(name, route, source, replaces, launches_n, err, rec):

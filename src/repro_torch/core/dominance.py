@@ -26,11 +26,10 @@ from __future__ import annotations
 
 import torch
 
-# the dominance entry the core modules call
-from repro_torch.kernels.dominance.ops import dominated_mask
-# the flush lives beside the dominance oracle, the lowest layer that
-# compares coordinates, so the kernels' plain versions share it
-from repro_torch.kernels.dominance.ref import flush_subnormal
+# the dominance entry the core modules call, and the flush, which lives
+# beside the dominance oracle (the lowest layer that compares
+# coordinates) so that the kernels' plain versions share it
+from repro_torch.kernels.dominance import dominated_mask, flush_subnormal
 
 __all__ = [
     "SENTINEL", "flush_subnormal", "dominates", "dominated_mask",

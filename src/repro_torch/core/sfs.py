@@ -4,7 +4,7 @@ Counterpart of ``repro.core.sfs``.  The local phase is ONE call:
 :func:`local_skyline_batch` sorts a batch of partitions by the strictly
 monotone score (a topological order of dominance), sentinel-fills and
 block-pads them, and hands the whole batch to the fused SFS sweep
-(``repro_torch.kernels.sfs.ops.sfs_sweep``): one kernel launch on the
+(``repro_torch.kernels.sfs.sfs_sweep``): one kernel launch on the
 card.
 
 Blocked SFS is exact by transitivity: if the only in-block dominator of
@@ -22,8 +22,8 @@ from repro_torch.core.dominance import (SENTINEL, apply_sentinel,
                                         dominated_mask, monotone_score,
                                         stable_argsort)
 from repro_torch.kernels.backend import resolve_device, resolve_spec
-from repro_torch.kernels.dominance.ref import dominated_mask_ref
-from repro_torch.kernels.sfs.ops import sfs_sweep
+from repro_torch.kernels.dominance import dominated_mask_ref
+from repro_torch.kernels.sfs import sfs_sweep
 
 __all__ = ["SkyBuffer", "naive_skyline_mask", "skyline_mask", "sweep_inputs",
            "block_sfs", "local_skyline_batch", "compact", "compact_order",

@@ -145,9 +145,13 @@ def _set_sub(state: WindowedSkylineState, sub: inc.SkylineState,
     """``state`` with ``sub`` in ring slot ``idx``: written in place
     under ``donate``, else a copy."""
     at = idx.reshape(1).long()
-    op = "index_copy_" if donate else "index_copy"
+    if donate:
+        for name in _EPOCH_LEAVES:
+            getattr(state, name).index_copy_(
+                axis, at, getattr(sub, name).unsqueeze(axis))
+        return state
     return state._replace(**{
-        name: getattr(getattr(state, name), op)(
+        name: getattr(state, name).index_copy(
             axis, at, getattr(sub, name).unsqueeze(axis))
         for name in _EPOCH_LEAVES})
 

@@ -18,7 +18,10 @@ resolved from the ``SkyConfig.impl`` string:
 The device rule of the public entry points lives here too
 (:func:`resolve_device`): they run on the card unless the caller passes
 ``device="cpu"``, and without a card they raise instead of moving to the
-CPU.
+CPU.  So do the two hooks of the program verifier
+(``repro_torch.analysis.verifier``): :func:`kernel_call`, through which
+each family's entry runs its implementation, and :func:`smem_estimate`,
+the kernels' shared-memory laws for one configuration.
 """
 
 from __future__ import annotations
@@ -26,11 +29,13 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils import _python_dispatch
 
 from repro_torch.kernels.dominance import kernel as _dom_kernel
 from repro_torch.kernels.sfs import kernel as _sfs_kernel
 
-__all__ = ["KernelSpec", "resolve_spec", "resolve_device"]
+__all__ = ["KernelSpec", "resolve_spec", "resolve_device", "kernel_call",
+           "smem_estimate"]
 
 _SWEEP_IMPLS = ("cuda", "torch", "perpair")
 _DOMINANCE_IMPLS = ("cuda", "torch")
@@ -113,3 +118,31 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def kernel_call(family: str, impl: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``: one call of kernel family ``family``
+    (``'sfs_sweep'`` or ``'dominated_mask'``) by implementation ``impl``.
+
+    Each family's entry runs its implementation through here.  Under a
+    dispatch mode that records kernel calls (it has a ``record_kernel``
+    method: the verifier's census), the call is handed to the mode,
+    which counts it as one operation of the program, as the kernel is
+    one launch on the card, and does not count the operations inside.
+    Otherwise this is the call itself."""
+    mode = _python_dispatch._get_current_dispatch_mode()
+    record = getattr(mode, "record_kernel", None)
+    if record is None:
+        return fn(*args, **kwargs)
+    return record(family, impl, fn, args, kwargs)
+
+
+def smem_estimate(d: int, block: int, wcap: int) -> dict[str, int]:
+    """The most shared memory one CTA of each kernel family takes at
+    this configuration, from the kernels' footprint laws
+    (``sfs.kernel.sweep_smem_bytes``, ``dominance.kernel.
+    dominance_smem_bytes``): ``{"sweep": bytes, "dominance": bytes}``.
+    Counterpart of ``repro.kernels.backend.vmem_estimate``."""
+    return {"sweep": max(_sfs_kernel.sweep_smem_bytes(d, block,
+                                                      wcap).values()),
+            "dominance": max(_dom_kernel.dominance_smem_bytes(d).values())}

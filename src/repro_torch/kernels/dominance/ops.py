@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.backend import kernel_call
 from repro_torch.kernels.dominance import kernel as _kernel
 from repro_torch.kernels.dominance.ref import flush_subnormal
 
@@ -156,11 +157,12 @@ def dominated_mask(cands: torch.Tensor, refs: torch.Tensor,
             refs = refs.contiguous()
         if ref_mask.stride(-1) != 1:
             ref_mask = ref_mask.contiguous()
-        out = _kernel.dominated_mask_cuda(cands.contiguous(), refs,
-                                          ref_mask, lower_tri=lower_tri)
+        out = kernel_call("dominated_mask", impl,
+                          _kernel.dominated_mask_cuda, cands.contiguous(),
+                          refs, ref_mask, lower_tri=lower_tri)
     elif impl == "torch":
-        out = dominated_mask_torch(cands, refs, ref_mask,
-                                   lower_tri=lower_tri)
+        out = kernel_call("dominated_mask", impl, dominated_mask_torch,
+                          cands, refs, ref_mask, lower_tri=lower_tri)
     else:
         raise ValueError(f"unknown dominance impl {impl!r}; one of "
                          f"'cuda', 'torch' or 'auto'")

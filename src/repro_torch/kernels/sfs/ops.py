@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.backend import KernelSpec, resolve_spec
+from repro_torch.kernels.backend import KernelSpec, kernel_call, resolve_spec
 from repro_torch.kernels.dominance.ref import flush_subnormal
 from repro_torch.kernels.sfs import kernel as _kernel
 from repro_torch.kernels.sfs import ref as _ref
@@ -138,12 +138,19 @@ def sfs_sweep(pts_s: torch.Tensor, mask_s: torch.Tensor, *, block: int,
         raise ValueError(f"d={d} > {spec.max_d} not supported by the "
                          f"{spec.name!r} backend; use impl='torch'")
     wtile = _normalize_wtile(wtile, wcap, block)
+    kw = dict(block=block, wcap=wcap, sentinel=sentinel)
     if spec.sweep == "cuda":
-        return _kernel.sfs_sweep_cuda(pts_s, mask_s, block=block, wcap=wcap,
-                                      sentinel=sentinel)
-    if spec.sweep == "torch":
-        return sfs_sweep_torch(pts_s, mask_s, block=block, wcap=wcap,
-                               sentinel=sentinel, wtile=wtile)
+        fn = _kernel.sfs_sweep_cuda
+    elif spec.sweep == "torch":
+        fn, kw["wtile"] = sfs_sweep_torch, wtile
+    else:
+        fn = _sweep_perpair
+    return kernel_call("sfs_sweep", spec.sweep, fn, pts_s, mask_s, **kw)
+
+
+def _sweep_perpair(pts_s, mask_s, *, block: int, wcap: int,
+                   sentinel: float):
+    """The per-pair oracle, one partition at a time."""
     outs = [_ref.sfs_sweep_perpair(pts_s[i], mask_s[i], block=block,
                                    wcap=wcap, sentinel=sentinel)
             for i in range(pts_s.shape[0])]

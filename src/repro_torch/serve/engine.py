@@ -166,21 +166,20 @@ def _stage_rows(arrs, shape, dtype, fill, device) -> torch.Tensor:
     ``arrs[j]`` (None for none) in rows [j, :len(arrs[j])].
 
     Level 1 of the pack.  Pieces already on ``device`` are copied there;
-    on the card the host pieces are staged in one pinned buffer and
-    sent by one ``non_blocking`` copy (no host sync per query)."""
+    the host pieces are staged in one host buffer (pinned when
+    ``device`` is the card) and sent by one ``non_blocking`` copy (no
+    host sync per query; on the CPU the buffer is the result)."""
     host = [(j, a) for j, a in enumerate(arrs)
             if a is not None and not _on(a, device)]
-    if host and device.type == "cuda":
-        buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+    if host:
+        buf = torch.empty(shape, dtype=dtype,
+                          pin_memory=device.type == "cuda")
         buf.fill_(fill)
         for j, a in host:
             buf[j, :a.shape[0]] = torch.as_tensor(a).to(dtype)
         out = buf.to(device, non_blocking=True)
     else:
         out = torch.full(shape, fill, dtype=dtype, device=device)
-        for j, a in host:
-            out[j, :a.shape[0]] = torch.as_tensor(a).to(device=device,
-                                                        dtype=dtype)
     for j, a in enumerate(arrs):
         if a is not None and _on(a, device):
             out[j, :a.shape[0]].copy_(a)
@@ -777,10 +776,13 @@ class _WaveRecord:
         if self.event is not None:
             self.event.synchronize()
 
-    def fits(self) -> np.ndarray:
+    def host_fits(self) -> np.ndarray:
+        """The per-slot ``fits`` vector on the host (read once `ready`
+        or `wait` says it arrived)."""
         return self._fits.numpy()
 
-    def counts(self) -> np.ndarray:
+    def host_counts(self) -> np.ndarray:
+        """The per-slot front sizes on the host (as `host_fits`)."""
         return self._counts.numpy()
 
 
@@ -1017,11 +1019,11 @@ class SkylineStream:
         self._pendings.remove(pend)
         if not pend.alive.any():
             return
-        bad = pend.alive & ~pend.record.fits()[pend.pos]
+        bad = pend.alive & ~pend.record.host_fits()[pend.pos]
         if bad.any():
             # some front outgrew its slot: move to a rows bucket holding
             # the largest such front
-            counts = pend.record.counts()[pend.pos]
+            counts = pend.record.host_counts()[pend.pos]
             self._promote(int(counts[bad].max()), pend)
 
     def drain(self) -> "SkylineStream":

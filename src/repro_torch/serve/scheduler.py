@@ -64,10 +64,11 @@ def default_engine() -> SkylineEngine:
 
 
 def _raw_criteria(reqs: Request, device=None) -> torch.Tensor:
-    """(n, 3) f32 criteria rows (slack, -priority, cost)."""
-    return torch.stack([torch.as_tensor(x, device=device).to(torch.float32)
-                        for x in (reqs.slack, reqs.neg_priority, reqs.cost)],
-                       dim=-1)
+    """(n, 3) f32 criteria rows (slack, -priority, cost), stacked where
+    the columns lie and moved to ``device`` in one copy."""
+    cols = [torch.as_tensor(x).to(torch.float32)
+            for x in (reqs.slack, reqs.neg_priority, reqs.cost)]
+    return torch.stack(cols, dim=-1).to(device)
 
 
 def _criteria(reqs: Request, device=None) -> torch.Tensor:
