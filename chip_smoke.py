@@ -146,13 +146,28 @@ It builds the port's CUDA kernels from the sources in the checkout
      (equal kernel nodes) and under the 64 MiB peak-memory budget; one
      line per cell (operations, graph kernel nodes, peak bytes, shared
      memory by family, run time), and both kernels must launch;
+  M. drives the multi-device merge (``repro_torch.launch.mesh``), after
+     step V: in a world of one rank under NCCL, the flat merge, the tree
+     merge, NoSeq under the tree merge and rep_filter='sorted' on the
+     three distributions at N = 10^7, d = 4, capacity 65,536, and ten
+     streaming inserts of 10^6 rows on the mesh, each bit for bit the
+     one-device answer; the verifier's mesh cells (sync debug mode, CUDA
+     graph capture at q and 2q); then worlds of 2 and 4 ranks sharing
+     the card (spawned here; gloo, the ppermute staged through pinned
+     host memory), the anticorrelated query under the flat and tree
+     merges, sequential and NoSeq, bit for bit the one-device answer,
+     with each rank's tree rounds, launches, largest collective against
+     4·C·(d+2), the rows the flat all_gather moves and the query time
+     (one card shared by W ranks: a check of the schedule, not of
+     scaling); on a machine with two or more cards, a NCCL world of one
+     rank per card (else a line says it did not run);
   8. prints the script's run time, one JSON line with both kernels, then
      the device line.
 
 With ``--kernels-only`` it stops after step 3 and prints no result;
-with ``--engine-only`` (``--serve-only``, ``--verify-only``) it runs the
-build and then the engine step 6c (the serve step 6d, step V) alone,
-and prints no result either.
+with ``--engine-only`` (``--serve-only``, ``--verify-only``,
+``--mesh-only``) it runs the build and then the engine step 6c (the
+serve step 6d, step V, step M) alone, and prints no result either.
 Steps 5 and 6 run the default config, so inserts and ring operations
 write their state in place; each timed or traced rerun works on a fresh
 copy of the state it starts from.  Step 6d holds donation on against
@@ -2066,6 +2081,269 @@ def verify_phase(tag, kernels) -> None:
           f"{time.perf_counter() - t0:.3f} s")
 
 
+# -- M. the multi-device merge ------------------------------------------------
+
+MESH_CFGS = {"flat": {}, "tree": dict(merge="tree"),
+             "tree-noseq": dict(merge="tree", noseq=True),
+             "tree-sorted": dict(merge="tree", rep_filter="sorted")}
+SHARED_CFGS = {"flat": {}, "flat-noseq": dict(noseq=True),
+               "tree": dict(merge="tree"),
+               "tree-noseq": dict(merge="tree", noseq=True)}
+MESH_CELLS = ("fused_p512", "tree_merge_p512", "batch_8x64", "stream_8x64",
+              "window_8x64", "window_tick", "slab_feed", "slab_wave")
+SHARED_NOTE = ("one card shared by W ranks: a check of the schedule, not "
+               "of scaling")
+MESH_DEADLINE_S = 200.0
+
+
+def _collective_log():
+    """A dispatch mode that records the mesh's collectives (the hook of
+    ``repro_torch.kernels.backend.collective_call``) and nothing else."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CollectiveLog(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def record_collective(self, kind, group, fn, x, counted):
+            out = fn(x)
+            self.calls.append((kind, group, x.numel(), out.numel(), counted))
+            return out
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            return func(*args, **(kwargs or {}))
+
+    return CollectiveLog()
+
+
+def _data(dist: str, seed: int, dev):
+    from repro_torch.core import datagen
+    gen = torch.Generator(device=dev).manual_seed(1000 + seed)
+    return datagen.generate(dist, gen, N_MAIN, D_MAIN)
+
+
+def mesh_rank(rank: int, size: int, path: str, results) -> None:
+    """One rank of a world spawned by step M: the anticorrelated N = 10^7
+    query under each of `SHARED_CFGS` on the world's mesh, held bit for
+    bit against this rank's one-device answer, with its collectives,
+    launches and time.  Puts ``(rank, report or traceback)``."""
+    import traceback
+    try:
+        from repro_torch.core import parallel
+        from repro_torch.kernels.dominance import kernel as dkernel
+        from repro_torch.kernels.sfs import kernel
+        from repro_torch.launch import mesh as tmesh
+        dev = tmesh.init_world(rank, size,
+                               store=tmesh.file_store(path, size),
+                               timeout=120.0)
+        mesh = tmesh.make_worker_mesh()
+        x = _data("anticorrelated", 2, dev)
+        kernels = (kernel.sfs_sweep_cuda, dkernel.dominated_mask_cuda)
+        out = {"backend": mesh.backend, "device": str(dev),
+               "staged": sorted(mesh.staged), "cfgs": {}}
+        for name, kw in SHARED_CFGS.items():
+            cfg = parallel.SkyConfig(capacity=65536, **kw)
+            log = _collective_log()
+            with Launches(*kernels) as run, log:
+                got, _ = parallel.parallel_skyline(x, cfg=cfg, mesh=mesh)
+            want, _ = parallel.parallel_skyline(x, cfg=cfg)
+            # NoSeq's per-row filter takes seconds on a shared card:
+            # one timed call
+            ms, runs = time_ms(lambda: parallel.parallel_skyline(
+                x, cfg=cfg, mesh=mesh), reps=1 if cfg.noseq else 3)
+            gathers = [c for c in log.calls if c[0] == "all_gather"]
+            out["cfgs"][name] = {
+                "equal": leaves_equal(got, want), "count": int(got.count),
+                "overflow": bool(got.overflow), "launches": run.counts,
+                "rounds": sum(c[0] == "ppermute" for c in log.calls),
+                "collectives": len(log.calls),
+                "largest": max(max(c[2], c[3]) for c in log.calls),
+                "bound": 4 * -(-cfg.capacity // cfg.block) * cfg.block
+                * (D_MAIN + 2),
+                "flat_rows": max((c[3] for c in gathers), default=0)
+                // D_MAIN if not kw.get("merge") else 0,
+                "ms": ms, "runs": runs}
+        out["calibration"] = _calibrate(tmesh.make_engine_mesh())
+        results.put((rank, out))
+        tmesh.close_world()
+    except Exception:
+        results.put((rank, traceback.format_exc()))
+
+
+def _calibrate(mesh) -> dict:
+    """`calibrate_shard_threshold` on an engine over ``mesh`` at one
+    bucket of 2^16 rows (CUDA events; every rank takes the largest time
+    over the mesh): the report's threshold and factorings."""
+    from repro_torch.core.parallel import SkyConfig
+    from repro_torch.serve.engine import (SkylineEngine,
+                                          calibrate_shard_threshold)
+    engine = SkylineEngine(SkyConfig(capacity=4096), mesh=mesh)
+    rep = calibrate_shard_threshold(engine, bucket_sizes=(2 ** 16,),
+                                    repeat=1)
+    (nb, t), = rep["measurements"].items()
+    return {"threshold_n": rep["threshold_n"], "factorings":
+            rep["factorings"], "vmap_s": t["vmap"],
+            "per_factoring_s": t["factorings"], "merge_s": t["merge"]}
+
+
+def _spawn_world(size: int) -> list:
+    """Spawn ``size`` ranks of `mesh_rank` joined through a file store;
+    returns their reports by rank.  A rank that fails or does not report
+    within the deadline fails the run, and every rank is stopped."""
+    import multiprocessing as mp
+    import queue
+    import tempfile
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    procs = [ctx.Process(target=mesh_rank, args=(r, size, f"{tmp}/store",
+                                                 results), daemon=True)
+             for r in range(size)]
+    for proc in procs:
+        proc.start()
+    reports: list = [None] * size
+    end = time.monotonic() + MESH_DEADLINE_S
+    try:
+        for _ in range(size):
+            rank, rep = results.get(timeout=max(end - time.monotonic(), 1))
+            reports[rank] = rep
+    except queue.Empty:
+        fail(f"step M: a rank of the world of {size} did not report within "
+             f"{MESH_DEADLINE_S} s")
+    finally:
+        for proc in procs:
+            proc.join(10)
+            if proc.is_alive():
+                proc.kill()
+    bad = [r for r in reports if not isinstance(r, dict)]
+    check(not bad, f"step M: world of {size} failed:\n" + "\n".join(
+        str(b) for b in bad))
+    return reports
+
+
+def _print_world(tag, size: int, reports, shared: bool) -> None:
+    cal = [rep["calibration"] for rep in reports]
+    check(all(c["factorings"] == cal[0]["factorings"]
+              and c["threshold_n"] == cal[0]["threshold_n"] for c in cal),
+          f"step M: W={size} ranks calibrated different choices: {cal}")
+    print(f"{tag} M W={size} calibrate_shard_threshold (one 2^16-row "
+          f"bucket, seconds, the largest over the ranks): {cal[0]}"
+          + (f" [{SHARED_NOTE}]" if shared else ""))
+    for rank, rep in enumerate(reports):
+        for name, c in rep["cfgs"].items():
+            check(c["equal"], f"step M: W={size} rank {rank} {name}: the "
+                  f"mesh answer differs from the one-device answer")
+            check(c["largest"] <= c["bound"] or not name.startswith("tree"),
+                  f"step M: W={size} rank {rank} {name}: a collective of "
+                  f"{c['largest']} elements above 4*C*(d+2) = {c['bound']}")
+            print(f"{tag} M W={size} rank {rank} ({rep['backend']}, "
+                  f"{rep['device']}, staged {rep['staged'] or 'none'}) "
+                  f"{name}: bitwise the one-device answer (skyline "
+                  f"{c['count']}, overflow {c['overflow']}), tree rounds "
+                  f"{c['rounds']}, launches (sweep, dominance) "
+                  f"{c['launches']}, {c['collectives']} collectives, largest"
+                  f" {c['largest']} elements (4*C*(d+2) = {c['bound']})"
+                  + (f", the flat all_gather moves {c['flat_rows']} rows"
+                     if c["flat_rows"] else "")
+                  + f", query {c['ms']:.3f} ms best of {len(c['runs'])} "
+                  f"({', '.join(f'{t:.3f}' for t in c['runs'])})"
+                  + (f" [{SHARED_NOTE}]" if shared else ""))
+
+
+def mesh_phase(tag, kernels, data=None) -> None:
+    """Step M: the multi-device merge.  A world of one rank under NCCL on
+    the card: the flat merge, the tree merge, NoSeq under the tree merge
+    and rep_filter='sorted' on the three distributions at N = 10^7, ten
+    streaming inserts of 10^6 rows on the mesh, every answer bit for bit
+    the one-device answer, then the verifier's mesh cells (sync debug
+    mode, CUDA graph capture at q and 2q).  Then worlds of 2 and 4 ranks
+    sharing the card (gloo, ppermute staged through pinned host memory),
+    and on a machine with two or more cards a NCCL world of one rank per
+    card."""
+    from repro_torch.analysis.verifier import verify_programs
+    from repro_torch.core import incremental, parallel
+    from repro_torch.launch import mesh as tmesh
+
+    t0 = time.perf_counter()
+    mesh = tmesh.make_worker_mesh()
+    check(mesh.backend == "nccl" and mesh.workers == 1,
+          f"step M: the world of one is {mesh.backend} with "
+          f"{mesh.workers} workers, expected nccl with 1")
+    dev = mesh.device
+    for seed, dist in enumerate(("uniform", "correlated", "anticorrelated")):
+        x = data[dist] if data else _data(dist, seed, dev)
+        for name, kw in MESH_CFGS.items():
+            cfg = parallel.SkyConfig(capacity=65536, **kw)
+            with Launches(*kernels) as run:
+                got, _ = parallel.parallel_skyline(x, cfg=cfg, mesh=mesh)
+            want, _ = parallel.parallel_skyline(x, cfg=cfg)
+            check(leaves_equal(got, want), f"step M: W=1 {dist} {name}: "
+                  f"the mesh answer differs from the one-device answer")
+            check(run.counts[0] >= 1, f"step M: W=1 {dist} {name}: "
+                  f"launches {run.counts}")
+            print(f"{tag} M W=1 nccl {dist} N={N_MAIN} {name}: bitwise the "
+                  f"one-device answer (skyline {int(got.count)}), launches "
+                  f"(sweep, dominance) {run.counts}")
+    x = data["anticorrelated"] if data else _data("anticorrelated", 2, dev)
+    cfg = parallel.SkyConfig(capacity=65536, merge="tree")
+    state = incremental.init_state(cfg, D_MAIN)
+    ref = incremental.init_state(cfg, D_MAIN)
+    with Launches(*kernels) as run:
+        for lo in range(0, N_MAIN, CHUNK):
+            state, _ = incremental.insert_chunk(state, x[lo:lo + CHUNK],
+                                                cfg=cfg, mesh=mesh)
+    for lo in range(0, N_MAIN, CHUNK):
+        ref, _ = incremental.insert_chunk(ref, x[lo:lo + CHUNK], cfg=cfg)
+    one, _ = parallel.parallel_skyline(x, cfg=cfg, mesh=mesh)
+    fin = incremental.finalize(state, cfg=cfg)
+    check(leaves_equal(fin, incremental.finalize(ref, cfg=cfg))
+          and leaves_equal(fin, one), "step M: W=1 ten inserts on the mesh "
+          "differ from the one-device inserts or the one-shot answer")
+    print(f"{tag} M W=1 nccl ten inserts of {CHUNK} anticorrelated rows on "
+          f"the mesh (tree merge): bitwise the one-device inserts and the "
+          f"one-shot answer, launches {run.counts}")
+    report, errors = verify_programs(MESH_CELLS, device="cuda")
+    for name, rec in report["cells"].items():
+        graph = rec.get("graph", {})
+        print(f"{tag} M verifier {name} on mesh {rec.get('mesh')}: "
+              f"collectives {rec.get('collectives')}, tree rounds "
+              f"{rec.get('tree_rounds')}, boundary "
+              f"{rec.get('tree_boundary')}, graph kernel nodes "
+              f"{ {k: v.get('kernel', 0) for k, v in graph.items()} }")
+    for e in errors:
+        print(f"VERIFY {e}")
+    check(not errors, f"step M: {len(errors)} verifier violation(s) on "
+          f"the mesh cells")
+    print(f"{tag} M W=1 calibrate_shard_threshold (one 2^16-row bucket, "
+          f"seconds): {_calibrate(tmesh.make_engine_mesh())}")
+    print(f"{tag} M world of one: {time.perf_counter() - t0:.3f} s")
+
+    for size in (2, 4):
+        t1 = time.perf_counter()
+        reports = _spawn_world(size)
+        for rep in reports:
+            check(rep["backend"] == "gloo" and rep["staged"] == ["ppermute"],
+                  f"step M: ranks sharing the card run {rep['backend']} "
+                  f"staging {rep['staged']}, expected gloo staging ppermute")
+        _print_world(tag, size, reports, shared=True)
+        print(f"{tag} M world of {size} on one card: "
+              f"{time.perf_counter() - t1:.3f} s")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        size = min(4, cards)
+        reports = _spawn_world(size)
+        for rep in reports:
+            check(rep["backend"] == "nccl", f"step M: {size} cards run "
+                  f"{rep['backend']}, expected nccl")
+        _print_world(tag, size, reports, shared=False)
+    else:
+        print(f"{tag} M NCCL world of one rank per card: did not run, the "
+              f"machine has {cards} card")
+    tmesh.close_world()
+    print(f"{tag} M: {time.perf_counter() - t0:.3f} s")
+
+
 def record_dominance_calls(fn) -> list:
     """Run ``fn`` once and return the arguments of every dominance
     kernel launch it makes, for timing the calls on their own inputs.
@@ -2531,7 +2809,8 @@ def main() -> None:
     # a quicker run: the build, then the engine step or the serve step
     for flag, phase in (("--engine-only", engine_phase),
                         ("--serve-only", serve_phase),
-                        ("--verify-only", verify_phase)):
+                        ("--verify-only", verify_phase),
+                        ("--mesh-only", mesh_phase)):
         if flag in sys.argv[1:]:
             phase(tag, (kernel.sfs_sweep_cuda, dkernel.dominated_mask_cuda))
             print(f"{flag}: stopped after that step; chip_smoke.py ran "
@@ -2728,6 +3007,7 @@ def main() -> None:
     print(f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
     serve_phase(tag, kernels)
     verify_phase(tag, kernels)
+    mesh_phase(tag, kernels, data)
 
     # -- 8. the kernel record and the device line ----------------------------
     def entry(name, route, source, replaces, launches_n, err, rec):

@@ -6,7 +6,9 @@ print human-readable to stdout.
 
 The lint layer imports neither torch nor jax.  The verify layer runs
 the program suite on the card unless ``--device cpu`` is given; without
-CUDA it raises, as every entry point of the port does.
+CUDA it raises, as every entry point of the port does.  ``--world W``
+(with ``--device cpu``) runs it in every rank of a gloo world of W
+processes, the cells on their meshes scaled to W ranks.
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ def main(argv=None) -> int:
     ap.add_argument("--smem-cap", type=int, default=None,
                     help="per-CTA shared-memory cap in bytes (default: "
                          "the sm_90 opt-in, 232448)")
+    ap.add_argument("--world", type=int, default=None, metavar="W",
+                    help="run the verify layer in every rank of a gloo "
+                         "world of W CPU processes (needs --device cpu)")
     ap.add_argument("--mem-cap", type=int, default=None,
                     help="per-cell device peak-memory budget in bytes "
                          "(default 64 MiB; measured on the card only)")
@@ -79,12 +84,19 @@ def main(argv=None) -> int:
     if args.layer in ("verify", "all"):
         from repro_torch.analysis.verifier import (DEFAULT_MEM_CAP,
                                                    DEFAULT_SMEM_CAP,
-                                                   verify_programs)
+                                                   verify_programs,
+                                                   verify_world)
+        caps = dict(smem_cap=args.smem_cap or DEFAULT_SMEM_CAP,
+                    mem_cap=args.mem_cap or DEFAULT_MEM_CAP)
+        if args.world is not None and args.device != "cpu":
+            ap.error("--world runs gloo CPU ranks: pass --device cpu")
         try:
-            vreport, errors = verify_programs(
-                args.cells, device=args.device,
-                smem_cap=args.smem_cap or DEFAULT_SMEM_CAP,
-                mem_cap=args.mem_cap or DEFAULT_MEM_CAP)
+            if args.world is not None:
+                vreport, errors = verify_world(args.cells, ranks=args.world,
+                                               **caps)
+            else:
+                vreport, errors = verify_programs(args.cells,
+                                                  device=args.device, **caps)
         except ValueError as e:  # unknown cell names
             ap.error(str(e))
         vreport["errors"] = errors

@@ -180,6 +180,6 @@ R6_SCOPES = ("core", "serve")
 # updates (SlabArena.leaves()).
 STATE_OPERANDS = ("state", "leaves")
 
-# R4: the one module allowed to touch torch.distributed (ROADMAP item 8
-# creates it).
+# R4: the one module allowed to touch torch.distributed: the meshes,
+# the process groups and the collectives the census records.
 COMPAT_MODULE = "repro_torch.launch.mesh"

@@ -10,9 +10,18 @@ input) and asserts the same invariants on what ran:
 * **no host round-trips**: no operation of `HOST_OPS` (a scalar read, a
   nonzero, a data-dependent shape) is dispatched, and on the card no
   device-to-host copy;
-* **collective census**: no ``c10d`` / ``_c10d_functional`` operation
-  (one device: the census is empty, and so the vmap bucket program,
-  ``engine_vmap``, is collective-free);
+* **collective census**: every collective of a cell runs through the
+  mesh's wrappers (`repro_torch.launch.mesh`; a raw ``c10d`` /
+  ``_c10d_functional`` operation outside them fails) and over the
+  workers group only; a cell without a mesh, the vmap bucket program
+  ``engine_vmap`` among them, has none; the count of collectives at
+  ``2q`` equals the count at ``q``.  The assembly of a query-sharded
+  batch (`WorkerMesh.assemble_queries`, the counterpart of reading the
+  reference's ``P(q_axis)`` output) is reported apart and not counted;
+* **tree-merge boundary**: in ``merge='tree'`` cells on a mesh, exactly
+  ⌈log₂ W⌉ ppermute rounds run over the workers group, and no
+  collective operand or result exceeds 4·C·(d+2) elements (C the state
+  capacity): O(capacity), never the flat merge's p x C_loc union;
 * **Q-independence**: for ``batch``, ``stream``, ``window`` and
   ``slab_wave`` the count of dispatched operations at ``2q`` equals the
   count at ``q``: Q queries take the operations of one;
@@ -31,7 +40,11 @@ input) and asserts the same invariants on what ran:
 A kernel-family call is one operation of the census, as the kernel is
 one launch on the card: the family's entry hands it to the census
 (`repro_torch.kernels.backend.kernel_call`), which does not count the
-operations inside.  On the CPU those are the plain version's, which
+operations inside; so is a collective
+(`repro_torch.kernels.backend.collective_call`), counted by kind and
+group with the elements of its operand and result.  In a world of
+several ranks every rank runs every cell it is a member of (a mesh may
+take a prefix of the ranks), and each rank's census is checked.  On the CPU those are the plain version's, which
 bounds its loops from the data on the host by design; they are counted
 apart (``plain_host_ops``) and gate nothing.
 
@@ -51,7 +64,8 @@ import time
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["verify_programs", "graph_ops", "no_sync", "host_op_probe",
+__all__ = ["verify_programs", "verify_world", "graph_ops", "no_sync",
+           "host_op_probe",
            "HOST_OPS", "DEFAULT_SMEM_CAP", "DEFAULT_MEM_CAP"]
 
 # the sm_90 per-CTA shared-memory opt-in (kernels/sfs/kernel.py:48)
@@ -148,6 +162,9 @@ class _Census(TorchDispatchMode):
         self.host_ops: list[str] = []
         self.plain_host_ops: collections.Counter = collections.Counter()
         self.collectives: collections.Counter = collections.Counter()
+        self.raw_collectives: collections.Counter = collections.Counter()
+        self.assembled: collections.Counter = collections.Counter()
+        self.collective_elems = 0
         self.written: set[int] = set()
         self.touch_dims: set[int] = set()
         self._inside = None   # the kernel implementation running
@@ -163,6 +180,25 @@ class _Census(TorchDispatchMode):
         finally:
             self._inside = None
         self._note_watched((args, kwargs), out, ())
+        return out
+
+    def record_collective(self, kind, group, fn, x, counted):
+        """One collective of the mesh (see
+        `repro_torch.kernels.backend.collective_call`): one operation of
+        the program by (kind, group), or, not ``counted``, the assembly
+        of a sharded batch, reported apart."""
+        self._inside = "collective"
+        try:
+            out = fn(x)
+        finally:
+            self._inside = None
+        if counted:
+            self.ops += 1
+            self.collectives[(kind, group)] += 1
+            self.collective_elems = max(self.collective_elems, x.numel(),
+                                        out.numel())
+        else:
+            self.assembled[(kind, group)] += 1
         return out
 
     def _note_watched(self, inputs, outputs, written) -> None:
@@ -184,6 +220,8 @@ class _Census(TorchDispatchMode):
             if host:
                 if self._inside == "cuda":   # the kernel's own wrapper
                     self.host_ops.append(f"{host} (in the CUDA wrapper)")
+                elif self._inside == "collective":
+                    self.host_ops.append(f"{host} (in a collective)")
                 else:
                     self.plain_host_ops[host] += 1
             return out
@@ -193,7 +231,7 @@ class _Census(TorchDispatchMode):
         if host:
             self.host_ops.append(host)
         if name.startswith(_COLLECTIVE_NAMESPACES):
-            self.collectives[name] += 1
+            self.raw_collectives[name] += 1
         written = []
         for arg, val in zip(func._schema.arguments, args):
             if arg.alias_info is not None and arg.alias_info.is_write:
@@ -334,11 +372,18 @@ def _check_cell(name, spec, *, device, smem_cap, mem_cap, errors,
     from repro_torch.core.incremental import state_capacity
     from repro_torch.kernels.backend import smem_estimate
 
+    from repro_torch.core.parallel import merge_rounds
+
     on_card = device.type == "cuda"
     built = _build(name, spec, device=device)
-    record.update(kind=built.kind, mesh=None,
+    record.update(kind=built.kind, mesh=built.info["mesh"],
                   axes={k: built.info[k] for k in ("workers", "queries")
                         if k in built.info})
+    if built.fn is None:
+        record["skipped"] = (f"rank {built.mesh.rank} is outside the "
+                             f"cell's {built.mesh.queries} x "
+                             f"{built.mesh.workers} mesh")
+        return
     # the leaves written in place, watched by storage
     watch = {_storage(t): f"leaf{i}" for i, t in enumerate(built.state)}
     if on_card:
@@ -362,19 +407,49 @@ def _check_cell(name, spec, *, device, smem_cap, mem_cap, errors,
         record["memory"] = {"measured": False,
                             "note": "not measured: device memory is read "
                                     "on the card only"}
+    coll = {f"{k}@{g}": n for (k, g), n in census.collectives.items()}
     record.update(ops=census.ops, kernels=dict(census.kernels),
                   host_ops=census.host_ops,
                   plain_host_ops=dict(census.plain_host_ops),
-                  collectives=dict(census.collectives))
+                  collectives=coll,
+                  assembled={f"{k}@{g}": n
+                             for (k, g), n in census.assembled.items()})
     if census.host_ops:
         errors.append(f"{name}: host round-trips dispatched: "
                       f"{sorted(set(census.host_ops))}")
-    if census.collectives:
-        errors.append(f"{name}: collectives dispatched on one device: "
-                      f"{dict(census.collectives)}")
+    if census.raw_collectives:
+        errors.append(f"{name}: collectives dispatched outside the mesh's "
+                      f"wrappers: {dict(census.raw_collectives)}")
+    groups = {g for _, g in census.collectives}
+    if groups - {"workers"}:
+        errors.append(f"{name}: collectives over non-worker groups "
+                      f"{sorted(groups - {'workers'})}: merges must stay "
+                      f"on the workers group")
     if built.kind == "vmap_batch" and census.collectives:
         errors.append(f"{name}: the vmap bucket program must be "
-                      f"collective-free")
+                      f"collective-free, found {coll}")
+    elif built.mesh is None and census.collectives:
+        errors.append(f"{name}: collectives dispatched without a mesh: "
+                      f"{coll}")
+
+    if built.cfg.merge == "tree" and built.mesh is not None:
+        w = built.mesh.workers
+        rounds = merge_rounds(w)
+        nperm = census.collectives.get(("ppermute", "workers"), 0)
+        record["tree_rounds"] = {"expected": rounds, "ppermute": nperm}
+        if nperm != rounds:
+            errors.append(
+                f"{name}: tree merge must run exactly ceil(log2({w})) = "
+                f"{rounds} ppermute rounds over workers, found {nperm}")
+        bound = 4 * state_capacity(built.cfg) * (built.info["d"] + 2)
+        worst = census.collective_elems
+        record["tree_boundary"] = {"bound": bound, "max_operand": worst}
+        if worst > bound:
+            errors.append(
+                f"{name}: a workers collective carries {worst} elements, "
+                f"above the tree-merge boundary bound {bound} (O(capacity)"
+                f", independent of p): the flat union must never ride a "
+                f"tree-mode program")
 
     if built.kind in ("slab_feed", "slab_wave"):
         c = state_capacity(built.cfg)
@@ -413,6 +488,14 @@ def _check_cell(name, spec, *, device, smem_cap, mem_cap, errors,
                       else _census(built2))
         record["op_count_q"] = census.ops
         record["op_count_2q"] = census2.ops
+        n1 = sum(census.collectives.values())
+        n2 = sum(census2.collectives.values())
+        record["collective_count_q"] = n1
+        record["collective_count_2q"] = n2
+        if n1 != n2:
+            errors.append(f"{name}: collective count changed {n1} -> {n2} "
+                          f"when Q doubled: merge communication must be "
+                          f"Q-independent")
         if census.ops != census2.ops:
             grew = {k: census2.by_op[k] - census.by_op.get(k, 0)
                     for k in census2.by_op
@@ -469,7 +552,8 @@ def verify_programs(names=None, *, device=None,
             raise ValueError(f"unknown cells {sorted(unknown)}; "
                              f"have {sorted(suite)}")
         suite = {k: v for k, v in suite.items() if k in names}
-    report: dict = {"device": str(dev), "devices": 1,
+    from repro_torch.launch.mesh import world_size
+    report: dict = {"device": str(dev), "devices": world_size(),
                     "smem_cap": smem_cap, "mem_cap": mem_cap, "cells": {}}
     if dev.type == "cuda":
         report["card"] = torch.cuda.get_device_name(dev)
@@ -486,3 +570,68 @@ def verify_programs(names=None, *, device=None,
             record["error"] = f"{type(e).__name__}: {e}"
         record["seconds"] = time.perf_counter() - t0
     return report, errors
+
+
+def _verify_rank(rank, size, path, names, caps, results) -> None:
+    """One rank of `verify_world`: join the gloo world, verify, report."""
+    import traceback
+
+    from repro_torch.launch.mesh import close_world, file_store, init_world
+    torch.set_num_threads(1)
+    try:
+        init_world(rank, size, store=file_store(path, size), device="cpu",
+                   timeout=caps["timeout"])
+        report, errors = verify_programs(names, device="cpu",
+                                         smem_cap=caps["smem"],
+                                         mem_cap=caps["mem"])
+        results.put((rank, report, errors))
+    except Exception:  # a rank that cannot run reports why
+        results.put((rank, None, [traceback.format_exc()]))
+    finally:
+        close_world()
+
+
+def verify_world(names=None, *, ranks: int, smem_cap: int = DEFAULT_SMEM_CAP,
+                 mem_cap: int = DEFAULT_MEM_CAP):
+    """`verify_programs` on the CPU in every rank of a gloo world of
+    ``ranks`` processes (spawned here, joined through a file store in a
+    temporary directory).  Returns ``(report, errors)``: the report has
+    each rank's, and every error names its rank.  A rank that does not
+    report within the mesh's group timeout of the last one fails the run
+    and the world is killed."""
+    import multiprocessing as mp
+    import queue
+    import tempfile
+
+    from repro_torch.launch.mesh import TIMEOUT_S as timeout
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    caps = {"smem": smem_cap, "mem": mem_cap, "timeout": timeout}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/store"
+        procs = [ctx.Process(target=_verify_rank,
+                             args=(r, ranks, path, names, caps, results),
+                             daemon=True) for r in range(ranks)]
+        for proc in procs:
+            proc.start()
+        report: dict = {"device": "cpu", "devices": ranks, "ranks": {}}
+        errors: list[str] = []
+        try:
+            for _ in range(ranks):
+                rank, rep, errs = results.get(timeout=timeout)
+                report["ranks"][rank] = rep
+                errors += [f"rank {rank}: {e}" for e in errs]
+        except queue.Empty:
+            errors.append(f"a rank did not report within {timeout} s")
+        finally:
+            for proc in procs:
+                proc.join(5)
+                if proc.is_alive():
+                    proc.kill()
+    report["cells"] = {name: {str(r): rep["cells"][name]
+                              for r, rep in report["ranks"].items() if rep}
+                       for name in (report["ranks"].get(0) or
+                                    {"cells": {}})["cells"]}
+    return report, errors
+

@@ -5,7 +5,10 @@ config and the arrays.  These functions take the reference's config, as
 ``dataclasses.asdict`` gives it, a skyline buffer's four leaves, a
 streaming state's six and a windowed state's eight, as numpy arrays,
 across in either direction, bits unchanged.  A state may carry a leading
-Q axis.
+Q axis.  On a mesh (`repro_torch.launch.mesh`) every rank holds the
+whole state, so a converted reference state or window is made on every
+rank from the same arrays: it is replicated, as the port's mesh entry
+points expect, and needs no conversion of its own.
 """
 
 from __future__ import annotations

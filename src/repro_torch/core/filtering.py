@@ -76,7 +76,7 @@ def grid_filter(pts: torch.Tensor, mask: torch.Tensor,
     return GridFilterResult(keep, strict, dropped)
 
 
-def _uniform(shape, generator) -> torch.Tensor:
+def uniform_draws(shape, generator) -> torch.Tensor:
     """Uniform draws of ``shape``: from one generator, or, given a
     sequence of Q generators, the leading axis cut into Q equal runs,
     each drawn from its own."""
@@ -91,6 +91,7 @@ def _uniform(shape, generator) -> torch.Tensor:
 def select_representatives(pts: torch.Tensor, mask: torch.Tensor, k: int, *,
                            strategy: str = "sorted",
                            generator: torch.Generator | None = None,
+                           draws: torch.Tensor | None = None,
                            impl: str = "auto"):
     """Pick k representative tuples (paper §4.1) and drop the dominated
     ones among them before they are shared.
@@ -98,7 +99,9 @@ def select_representatives(pts: torch.Tensor, mask: torch.Tensor, k: int, *,
     Strategies: 'sorted' (first k in monotone-score order), 'region'
     (largest dominance-region volume prod(1 - t[i]); [0,1] data), 'random'
     (a baseline; draws from ``generator``, which it needs: one
-    ``torch.Generator``, or one per equal run of the leading axis).  The
+    ``torch.Generator``, or one per equal run of the leading axis; or
+    takes ``draws``, uniforms of ``mask``'s shape drawn by the caller, as
+    a mesh rank's share of the whole batch's draws).  The
     pick is ``jax.lax.top_k``'s: descending merit, ``+0.0`` above
     ``-0.0``, the lower index first among equal merits
     (``topk_order``)."""
@@ -107,9 +110,12 @@ def select_representatives(pts: torch.Tensor, mask: torch.Tensor, k: int, *,
     elif strategy == "region":
         merit = region_volume(pts)
     elif strategy == "random":
-        if generator is None:
-            raise ValueError("the random strategy needs a torch.Generator")
-        merit = _uniform(mask.shape, generator).to(pts.device)
+        if draws is None:
+            if generator is None:
+                raise ValueError("the random strategy needs a "
+                                 "torch.Generator")
+            draws = uniform_draws(mask.shape, generator)
+        merit = draws.to(pts.device)
     else:
         raise ValueError(f"unknown representative strategy {strategy!r}")
     merit = torch.where(mask, merit, torch.full_like(merit, -float("inf")))

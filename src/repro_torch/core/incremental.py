@@ -1,7 +1,6 @@
-"""Incremental skyline maintenance (`SkylineState`) on one device.
+"""Incremental skyline maintenance (`SkylineState`).
 
-Counterpart of ``repro.core.incremental`` with ``mesh=None``.  The
-retained buffer of the paper's sequential filtering IS a running
+Counterpart of ``repro.core.incremental``.  The retained buffer of the paper's sequential filtering IS a running
 skyline, so an arriving chunk only has to be (a) filtered against it,
 (b) reduced to its own skyline, and (c) merged back, evicting the
 members the new tuples dominate:
@@ -23,6 +22,11 @@ members the new tuples dominate:
 One-shot ``parallel_skyline`` is "insert everything into an empty
 state": the fresh insert skips the pre-filter and the eviction, so its
 body is exactly partition -> local -> merge.
+
+On a mesh (`repro_torch.launch.mesh`) the chunk's skyline is computed
+by the ranks together (``_chunk_skyline``), and the state stays whole
+and replicated: every rank runs the pre-filter, the eviction and the
+compaction on it, and holds the same new state.
 
 Exactness (by transitivity): a chunk tuple dominated by a live member
 can only lose that dominator to a new tuple that dominates it too, so
@@ -118,23 +122,41 @@ def _fit_rows(points: torch.Tensor, mask: torch.Tensor, rows: int):
     return torch.cat([points, pad_p], -2), torch.cat([mask, pad_m], -1)
 
 
-def _chunk_skyline(pts, mask, *, cfg: SkyConfig, generator=None):
+def _chunk_skyline(pts, mask, *, cfg: SkyConfig, generator=None, mesh=None,
+                   batched: bool = True):
     """SKY of each chunk of a (Q, N, d) batch via partition -> local ->
-    merge."""
+    merge.  On a mesh the partition stage runs whole, this rank's share
+    (its block of partitions, and of a ``batched`` call its query shard)
+    goes through local -> merge over the workers group, and the query
+    shards are assembled into the whole batch."""
     buckets, meta, stats = par.partition_stage(pts, mask, cfg, generator)
-    final, s2 = par._local_merge(buckets.points, buckets.mask, meta,
-                                 cfg=cfg, generator=generator)
+    if mesh is None:
+        final, s2 = par._local_merge(buckets.points, buckets.mask, meta,
+                                     cfg=cfg, generator=generator)
+    else:
+        sh = par.shard_of(mesh, pts.shape[0], meta["p"], batched)
+        final, s2 = par._local_merge(
+            buckets.points[sh.q0:sh.q1, sh.p0:sh.p1],
+            buckets.mask[sh.q0:sh.q1, sh.p0:sh.p1], meta, cfg=cfg,
+            generator=generator, shard=sh)
+        if sh.q1 - sh.q0 < sh.qb:
+            final = SkyBuffer(*map(mesh.assemble_queries, final))
+            s2 = {k: mesh.assemble_queries(v) for k, v in s2.items()}
     stats.update(s2)
     overflow = buckets.overflow | stats["local_overflow"] | final.overflow
     return final._replace(overflow=overflow), stats
 
 
 def _insert_batch(state: SkylineState | None, pts, mask, *, cfg: SkyConfig,
-                  generator=None, donate: bool = False):
+                  generator=None, donate: bool = False, mesh=None,
+                  batched: bool = True):
     """Q live skylines advanced together: (Q, N, d) chunks into a state
     with a leading Q axis.  ``state=None`` is the fresh-state path,
     exactly the one-shot pipeline.  ``donate`` writes the result into
-    ``state``'s own tensors and returns ``state``."""
+    ``state``'s own tensors and returns ``state``.  On a mesh the
+    chunks' skylines are computed as `_chunk_skyline` says (``batched``
+    False: one query, replicated over the queries axis); the state is
+    whole and replicated on every rank, and so is the result."""
     c = state_capacity(cfg) if state is None else state.points.shape[-2]
     dom_impl = resolve_spec(cfg.impl, pts.device).dominance
     stats: dict[str, Any] = {}
@@ -143,7 +165,8 @@ def _insert_batch(state: SkylineState | None, pts, mask, *, cfg: SkyConfig,
         # pre-filter the arriving chunks against the live skylines
         mask = mask & ~dominated_mask(pts, state.points, state.mask,
                                       impl=dom_impl)
-    sky, pstats = _chunk_skyline(pts, mask, cfg=cfg, generator=generator)
+    sky, pstats = _chunk_skyline(pts, mask, cfg=cfg, generator=generator,
+                                 mesh=mesh, batched=batched)
     stats.update(pstats)
     new_pts, new_mask = _fit_rows(sky.points, sky.mask, c)
 
@@ -180,12 +203,13 @@ def _insert_batch(state: SkylineState | None, pts, mask, *, cfg: SkyConfig,
 
 
 def _insert(state: SkylineState | None, pts, mask, *, cfg: SkyConfig,
-            generator=None, donate: bool = False):
+            generator=None, donate: bool = False, mesh=None):
     """One live skyline's insert: the batched insert with Q = 1 (under
     ``donate`` through views of ``state``, which comes back itself)."""
     batch = None if state is None else SkylineState(*(x[None] for x in state))
     nst, stats = _insert_batch(batch, pts[None], mask[None], cfg=cfg,
-                               generator=generator, donate=donate)
+                               generator=generator, donate=donate,
+                               mesh=mesh, batched=False)
     stats = {k: v[0] for k, v in stats.items()}
     if donate:
         return state, stats
@@ -193,7 +217,7 @@ def _insert(state: SkylineState | None, pts, mask, *, cfg: SkyConfig,
 
 
 def insert_chunk(state: SkylineState, pts, mask=None, *, cfg: SkyConfig,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, mesh=None):
     """Insert a chunk into one live skyline, (N, d) points, or into Q of
     them when the state has a leading Q axis, (Q, N, d) points.
 
@@ -203,8 +227,12 @@ def insert_chunk(state: SkylineState, pts, mask=None, *, cfg: SkyConfig,
     ``donate=False`` ``state`` is left as it was.  ``generator`` draws the
     partition ids of ``strategy='random'`` and the representatives of
     ``rep_filter='random'`` (when None, each draws from its own
-    generator seeded with 0)."""
-    par.check_supported(cfg)
+    generator seeded with 0).  With a ``mesh`` (a 1-D workers mesh, or
+    for Q states a 2-D one whose queries size divides Q) every rank
+    passes the same whole state and chunk and gets the same new state;
+    the chunk's partitions are split over the workers (p must be a
+    multiple of their count)."""
+    par.check_supported(cfg, mesh)
     dev = state.points.device
     pts = torch.as_tensor(pts, device=dev).to(state.points.dtype)
     if pts.ndim != state.points.ndim or pts.shape[-1] != state.points.shape[-1]:
@@ -216,7 +244,7 @@ def insert_chunk(state: SkylineState, pts, mask=None, *, cfg: SkyConfig,
         mask = torch.as_tensor(mask, device=dev).bool()
     insert = _insert_batch if state.points.ndim == 3 else _insert
     return insert(state, pts, mask, cfg=cfg, generator=generator,
-                  donate=cfg.donate)
+                  donate=cfg.donate, mesh=mesh)
 
 
 def finalize(state: SkylineState, *, cfg: SkyConfig) -> SkyBuffer:

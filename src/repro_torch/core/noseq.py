@@ -1,8 +1,8 @@
 """NoSeq (paper §4.2): the fully parallel second phase.
 
-Counterpart of ``repro.core.noseq`` (``pd_row_mask`` and
-``relative_skyline_mask``; the per-row ``relative_rows_mask`` comes with
-the tree merge across devices, ROADMAP.md item 8).  After phase 1, with u the union of
+Counterpart of ``repro.core.noseq``: ``pd_row_mask``,
+``relative_skyline_mask`` and the tree merge's per-row
+``relative_rows_mask``.  After phase 1, with u the union of
 the local skylines u_i, worker i removes its globally dominated tuples by
 testing u_i only against its *potential dominators* pd_i, a subset of
 u \\ u_i (Proposition 2):
@@ -13,15 +13,18 @@ u \\ u_i (Proposition 2):
 
 Here every partition is filtered in one dominance launch: the union is
 shared by all of them, and each gets its own potential-dominator mask.
+The tree merge's buffers mix rows of many partitions, so there the
+relation is evaluated per row pair (``relative_rows_mask``): plain
+torch, as the reference's ``lax.map`` is plain XLA, not a kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.dominance import dominated_mask
+from repro_torch.core.dominance import dominated_mask, flush_subnormal
 
-__all__ = ["pd_row_mask", "relative_skyline_mask"]
+__all__ = ["pd_row_mask", "relative_skyline_mask", "relative_rows_mask"]
 
 
 def pd_row_mask(strategy: str, own_part, ref_parts: torch.Tensor,
@@ -55,3 +58,49 @@ def relative_skyline_mask(u_i: torch.Tensor, mask_i: torch.Tensor,
     one launch."""
     dom = dominated_mask(u_i, refs, ref_mask & pd_mask, impl=impl)
     return mask_i & ~dom
+
+
+def relative_rows_mask(pts: torch.Tensor, mask: torch.Tensor,
+                       parts: torch.Tensor, cells: torch.Tensor, *,
+                       strategy: str, block: int = 256) -> torch.Tensor:
+    """Per-ROW relative-skyline mask of a mixed-origin buffer (R, d), or
+    (Q, R, d) for Q buffers, each row with its partition ``parts`` (R,)
+    and grid cell ``cells`` (R, d).
+
+    The potential-dominator relation of `pd_row_mask` is evaluated per
+    (candidate row, reference row) pair, and candidates walk in blocks
+    of ``block`` rows, as the reference's ``lax.map`` does, keeping the
+    pairwise footprint at O(block x R).  Comparisons flush subnormals
+    as XLA does.  The sliced predicate is the reference's
+    ``ref_part < own_part``, ties across a slice boundary included
+    (ROADMAP.md, queue 3)."""
+    if pts.ndim == 2:
+        return relative_rows_mask(pts[None], mask[None], parts[None],
+                                  cells[None], strategy=strategy,
+                                  block=block)[0]
+    if strategy not in ("random", "angular", "sliced", "grid"):
+        raise ValueError(f"unknown strategy {strategy!r}")
+    r, d = pts.shape[1], pts.shape[2]
+    b = min(block, max(r, 1))
+    # one (Q, R) row per coordinate, so that each block's tests are
+    # (Q, b, R) planes, never a (Q, b, R, d) tensor
+    f = flush_subnormal(pts).permute(2, 0, 1)[:, :, None, :]
+    g = cells.permute(2, 0, 1)[:, :, None, :]
+    out = []
+    for lo in range(0, r, b):
+        xp = parts[:, lo:lo + b, None]
+        if strategy == "sliced":
+            cand = parts[:, None, :] < xp                  # (Q, b, R)
+        else:
+            cand = parts[:, None, :] != xp
+            if strategy == "grid":
+                for k in range(d):
+                    cand &= g[k] <= g[k][:, 0, lo:lo + b, None]
+        cand &= mask[:, None, :]
+        lt = torch.zeros_like(cand)
+        for k in range(d):
+            xk = f[k][:, 0, lo:lo + b, None]
+            cand &= f[k] <= xk
+            lt |= f[k] < xk
+        out.append(mask[:, lo:lo + b] & ~(cand & lt).any(dim=-1))
+    return torch.cat(out, dim=1)

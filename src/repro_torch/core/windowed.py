@@ -1,6 +1,6 @@
 """Sliding-window skyline maintenance (`WindowedSkylineState`).
 
-Counterpart of ``repro.core.windowed`` on one device.  The insert-only
+Counterpart of ``repro.core.windowed``.  The insert-only
 ``SkylineState`` cannot expire data: evicting a member can un-dominate
 tuples it suppressed, so exact deletion needs retained candidates.  The
 window keeps them **epoch-partitioned**: a ring of E epoch sub-states,
@@ -40,6 +40,11 @@ buffer donation, both on by default, the operation writes the ring in
 place (the head epoch with ``index_copy_``, the ring scalars with
 ``copy_``) and returns the state it was given; with donation off the
 argument is left as it was.  Both give the same bits.
+
+``insert_chunk`` and ``window_tick`` take a ``mesh``: the head epoch's
+insert then runs on it (``incremental.insert_chunk``), with the whole
+window replicated on every rank; the merge on read stays free of
+collectives.
 """
 
 from __future__ import annotations
@@ -242,14 +247,17 @@ def expire_epoch(state: WindowedSkylineState, *, donate: bool = True):
 # -- insert: the incremental insert, restricted to the head epoch ----------
 
 def insert_chunk(state: WindowedSkylineState, pts, mask=None, *,
-                 cfg: SkyConfig, generator: torch.Generator | None = None):
+                 cfg: SkyConfig, generator: torch.Generator | None = None,
+                 mesh=None):
     """Route an arriving chunk, (N, d), or (Q, N, d) for Q windows, into
     the head epoch: pre-filter and evict run against the head epoch only
     (an older epoch's dominator may expire first).  Runs where the state
     lies.  Returns ``(new_state, stats)``: rebind the state (under
     ``cfg.donate`` it is ``state``, written in place).  ``generator``
-    draws what ``incremental.insert_chunk`` draws."""
-    par.check_supported(cfg)
+    draws what ``incremental.insert_chunk`` draws; with a ``mesh`` the
+    head epoch's insert runs on it as ``incremental.insert_chunk`` says
+    (whole, replicated window on every rank)."""
+    par.check_supported(cfg, mesh)
     batched = state.points.ndim == 4
     axis = 1 if batched else 0
     dev = state.points.device
@@ -267,7 +275,7 @@ def insert_chunk(state: WindowedSkylineState, pts, mask=None, *,
     sub = _sub_state(state, state.head, axis)
     insert = inc._insert_batch if batched else inc._insert
     sub, stats = insert(sub, pts, mask, cfg=cfg, generator=generator,
-                        donate=True)
+                        donate=True, mesh=mesh)
     return _set_sub(state, sub, state.head, axis, cfg.donate), stats
 
 
@@ -306,7 +314,10 @@ def finalize(state: WindowedSkylineState, *, cfg: SkyConfig,
              mesh=None) -> SkyBuffer:
     """Canonical merge-on-read snapshot of one or Q live windows, fitted
     to the state capacity: bit for bit the one-shot skyline of exactly
-    the unexpired tuples.  The state stays live."""
+    the unexpired tuples.  The state stays live.  The snapshot is free
+    of collectives: under a ``mesh`` every rank holds the whole window
+    and merges it on read, as the reference's batched snapshot runs
+    device-local on each query shard."""
     par.check_supported(cfg, mesh)
     final = _merge_epochs(state.points, state.mask, cfg=cfg)
     pts, fmask = inc._fit_rows(final.points, final.mask,
@@ -317,12 +328,12 @@ def finalize(state: WindowedSkylineState, *, cfg: SkyConfig,
 
 def window_tick(state: WindowedSkylineState, pts, mask=None, *,
                 cfg: SkyConfig, advance=False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, mesh=None):
     """One serving tick: optionally rotate the ring, insert the arrivals
     into the head epoch and merge on read.  ``advance`` is a bool or a
     0-d bool tensor (then the claimed slot and the ring scalars are
     selected on the device, with no host read).  Donates as
-    ``cfg.donate`` says.  Returns ``(new_state, front, stats)`` with the
+    ``cfg.donate`` says; the insert runs on ``mesh`` when one is given.  Returns ``(new_state, front, stats)`` with the
     insert's stats; bit for bit the separate calls."""
     if isinstance(advance, torch.Tensor):
         epochs, axis = window_epochs(state), _epoch_axis(state)
@@ -342,7 +353,7 @@ def window_tick(state: WindowedSkylineState, pts, mask=None, *,
     elif advance:
         state, _ = advance_epoch(state, donate=cfg.donate)
     state, stats = insert_chunk(state, pts, mask, cfg=cfg,
-                                generator=generator)
+                                generator=generator, mesh=mesh)
     return state, finalize(state, cfg=cfg), stats
 
 

@@ -18,10 +18,12 @@ resolved from the ``SkyConfig.impl`` string:
 The device rule of the public entry points lives here too
 (:func:`resolve_device`): they run on the card unless the caller passes
 ``device="cpu"``, and without a card they raise instead of moving to the
-CPU.  So do the two hooks of the program verifier
+CPU.  So do the three hooks of the program verifier
 (``repro_torch.analysis.verifier``): :func:`kernel_call`, through which
-each family's entry runs its implementation, and :func:`smem_estimate`,
-the kernels' shared-memory laws for one configuration.
+each family's entry runs its implementation, :func:`collective_call`,
+through which the mesh's collectives run (``repro_torch.launch.mesh``),
+and :func:`smem_estimate`, the kernels' shared-memory laws for one
+configuration.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from repro_torch.kernels.dominance import kernel as _dom_kernel
 from repro_torch.kernels.sfs import kernel as _sfs_kernel
 
 __all__ = ["KernelSpec", "resolve_spec", "resolve_device", "kernel_call",
-           "smem_estimate"]
+           "collective_call", "smem_estimate"]
 
 _SWEEP_IMPLS = ("cuda", "torch", "perpair")
 _DOMINANCE_IMPLS = ("cuda", "torch")
@@ -135,6 +137,25 @@ def kernel_call(family: str, impl: str, fn, *args, **kwargs):
     if record is None:
         return fn(*args, **kwargs)
     return record(family, impl, fn, args, kwargs)
+
+
+def collective_call(kind: str, group: str, fn, x, *, counted: bool = True):
+    """``fn(x)``: one collective of kind ``kind`` (``'all_gather'``,
+    ``'ppermute'``, ``'broadcast'``, ``'psum'``) over the mesh group
+    ``group`` (``'workers'`` or ``'queries'``).
+
+    Under a dispatch mode that records collectives (it has a
+    ``record_collective`` method: the verifier's census) the call is
+    handed to the mode, which counts it as one operation of the program
+    by kind and group, with the elements of its operand and result, and
+    does not count the operations inside.  ``counted=False`` marks the
+    assembly of a sharded batch outside the program, which the census
+    reports apart.  Otherwise this is the call itself."""
+    mode = _python_dispatch._get_current_dispatch_mode()
+    record = getattr(mode, "record_collective", None)
+    if record is None:
+        return fn(x)
+    return record(kind, group, fn, x, counted)
 
 
 def smem_estimate(d: int, block: int, wcap: int) -> dict[str, int]:

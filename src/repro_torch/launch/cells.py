@@ -25,11 +25,14 @@ runs after the engine's level-1 pack:
 
 The stateful cells start from a live state: the build runs one warm-up
 call (the first chunk) and the cell's program takes the second.  The
-mesh axes collapse to none: one device, the flat merge under
-``merge='tree'`` (the port's answer without a workers axis).  The spec's
-``workers`` and ``queries`` are kept and reported.  Every cell runs the
-sliced strategy, so no program holds a generator.  This module does no
-device work at import.
+mesh axes are the reference's, scaled to the ranks of the world as the
+reference scales them to its devices (`_scaled_axes`): ``fused`` cells
+run on a 1-D workers mesh, ``batch``, ``stream``, ``window`` and the
+slab cells on a 2-D (queries x workers) mesh, ``wtick`` on a 1-D mesh,
+and ``sweep`` and ``vmap_batch`` on no mesh.  A mesh takes a prefix of
+the ranks; on a rank outside it the cell is not built (``fn`` is None).
+Every cell runs the sliced strategy, so no program holds a generator.
+This module does no device work at import.
 """
 
 from __future__ import annotations
@@ -93,7 +96,8 @@ _SEED = 19
 class BuiltCell(NamedTuple):
     """One constructed skyline program with its inputs on the device.
 
-    ``fn(*args)`` runs the program once.  ``state`` holds the leaves the
+    ``fn(*args)`` runs the program once (``fn`` is None on a rank
+    outside the cell's ``mesh``).  ``state`` holds the leaves the
     program writes in place (the state operand's, or the slab arena's)
     and ``updated(outputs)`` the leaves that hold the state after a
     call (empty and None for stateless kinds).  ``host`` keeps the numpy
@@ -105,6 +109,7 @@ class BuiltCell(NamedTuple):
     fn: Callable
     args: tuple
     cfg: Any          # repro_torch.core.parallel.SkyConfig
+    mesh: Any         # repro_torch.launch.mesh.WorkerMesh | None
     info: dict
     state: tuple
     updated: Callable | None
@@ -124,6 +129,47 @@ def _config(spec: dict, smoke: bool):
                      donate=spec.get("donate", True))
 
 
+def _pow2_floor(x: int) -> int:
+    b = 1
+    while b * 2 <= x:
+        b *= 2
+    return b
+
+
+def _scaled_axes(spec: dict, ranks: int):
+    """Mesh sizes ``(queries, workers)`` for a world of ``ranks``: the
+    workers axis is the largest power of two that fits the ranks and
+    divides p, leaving room for two query shards where the world allows
+    (the reference's scaling to its live devices)."""
+    want_q = spec.get("queries")
+    want_w = spec.get("workers", 1)
+    ndev = max(int(ranks), 1)
+    p = spec["p"]
+    if want_q is None:
+        w = 1
+        while w * 2 <= min(want_w, ndev) and p % (w * 2) == 0:
+            w *= 2
+        return None, w
+    w_lim = max(1, ndev // 2) if ndev >= 4 else ndev
+    w = 1
+    while w * 2 <= min(want_w, w_lim) and p % (w * 2) == 0:
+        w *= 2
+    q = max(1, min(want_q, _pow2_floor(ndev // w)))
+    return q, w
+
+
+def _mesh(kind: str, spec: dict, ranks: int, dev):
+    """The cell's mesh on a world of ``ranks`` (None: no mesh)."""
+    from repro_torch.launch.mesh import make_engine_mesh, make_worker_mesh
+    if kind in ("sweep", "vmap_batch"):
+        return None
+    if kind in ("fused", "wtick"):
+        _, nw = _scaled_axes(dict(spec, queries=None), ranks)
+        return make_worker_mesh(nw, device=dev)
+    nq, nw = _scaled_axes(spec, ranks)
+    return make_engine_mesh(nq, nw, device=dev)
+
+
 def _chunk(rng, lead: tuple, n: int, d: int):
     """Uniform points in [0, 1) with about one row in ten masked out."""
     pts = rng.random(lead + (n, d), dtype=np.float32)
@@ -132,29 +178,37 @@ def _chunk(rng, lead: tuple, n: int, d: int):
 
 
 def build_skyline_cell(name: str, spec: dict, *, smoke: bool = False,
-                       device=None) -> BuiltCell:
+                       device=None, ranks: int | None = None) -> BuiltCell:
     """Construct one cell's program and its inputs on ``device`` (the
     card unless ``"cpu"`` is given; without CUDA that raises).
 
     ``smoke`` shrinks the dry-run cells' data sizes (n by 64, capacity by
     16, as the reference does).  The data are made from a fixed seed, so
-    two builds of one spec get the same inputs."""
+    two builds of one spec get the same inputs.  The mesh axes scale to
+    ``ranks`` (default: the world's; one outside a world).  Every rank
+    of the world builds every cell (the meshes are made by all ranks
+    together)."""
     from repro_torch.core import incremental, windowed
     from repro_torch.core import parallel as par
     from repro_torch.core.dominance import SENTINEL
     from repro_torch.core.sfs import sweep_inputs
     from repro_torch.kernels.backend import resolve_device
     from repro_torch.kernels.sfs import sfs_sweep
+    from repro_torch.launch.mesh import world_size
 
     dev = resolve_device(device)
     kind = spec["kind"]
+    mesh = _mesh(kind, spec, world_size() if ranks is None else ranks, dev)
+    if mesh is not None:
+        dev = mesh.device
     n = spec["n"] // (64 if smoke else 1)
     d = spec["d"]
     cfg = _config(spec, smoke)
     rng = np.random.default_rng(_SEED)
     info = {"n": n, "d": d, "p": cfg.p, "capacity": cfg.capacity,
             "block": cfg.block, "wcap": -(-cfg.capacity // cfg.block)
-            * cfg.block, "mesh": None}
+            * cfg.block,
+            "mesh": None if mesh is None else dict(mesh.shape)}
     for key in ("q", "epochs", "workers", "queries"):
         if key in spec:
             info[key] = spec[key]
@@ -162,11 +216,14 @@ def build_skyline_cell(name: str, spec: dict, *, smoke: bool = False,
     state: tuple = ()
     updated = None
     host: dict = {}
+    if mesh is not None and not mesh.member:
+        return BuiltCell(name, kind, None, (), cfg, mesh, info, state, None,
+                         host)
 
     if kind in ("fused", "batch", "vmap_batch"):
         pts, mask = _chunk(rng, (q,), n, d)
         host["chunk"] = (pts, mask)
-        fn = par.fused_skyline_batch_fn(cfg)
+        fn = par.fused_skyline_batch_fn(cfg, mesh)
         args = (torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev))
     elif kind == "sweep":
         p = spec["p"]
@@ -187,11 +244,12 @@ def build_skyline_cell(name: str, spec: dict, *, smoke: bool = False,
         st = incremental.init_state(cfg, d, q=q, device=dev)
         st, _ = incremental._insert_batch(
             st, torch.from_numpy(warm[0]).to(dev),
-            torch.from_numpy(warm[1]).to(dev), cfg=cfg, donate=True)
+            torch.from_numpy(warm[1]).to(dev), cfg=cfg, donate=True,
+            mesh=mesh)
 
         def fn(st, pts, mask):
             return incremental._insert_batch(st, pts, mask, cfg=cfg,
-                                             donate=cfg.donate)
+                                             donate=cfg.donate, mesh=mesh)
 
         args = (st, torch.from_numpy(pts).to(dev),
                 torch.from_numpy(mask).to(dev))
@@ -207,27 +265,29 @@ def build_skyline_cell(name: str, spec: dict, *, smoke: bool = False,
             cfg, d, epochs=e, q=q if kind == "window" else None, device=dev)
         st, _ = windowed.insert_chunk(
             st, torch.from_numpy(warm[0]).to(dev),
-            torch.from_numpy(warm[1]).to(dev), cfg=cfg)
+            torch.from_numpy(warm[1]).to(dev), cfg=cfg, mesh=mesh)
         st, _ = windowed.advance_epoch(st, donate=cfg.donate)
         args = (st, torch.from_numpy(pts).to(dev),
                 torch.from_numpy(mask).to(dev))
         if kind == "window":
             def fn(st, pts, mask):
-                return windowed.insert_chunk(st, pts, mask, cfg=cfg)
+                return windowed.insert_chunk(st, pts, mask, cfg=cfg,
+                                             mesh=mesh)
         else:
             def fn(st, pts, mask, advance):
                 return windowed.window_tick(st, pts, mask, cfg=cfg,
-                                            advance=advance)
+                                            advance=advance, mesh=mesh)
 
             args += (torch.ones((), dtype=torch.bool, device=dev),)
         state = tuple(st)
         updated = _first_tree
     elif kind in ("slab_feed", "slab_wave"):
         fn, args, state, updated = _slab_cell(spec, cfg, q, n, d, rng, dev,
-                                              host, info, kind)
+                                              host, info, kind, mesh)
     else:
         raise ValueError(f"unknown skyline cell kind {kind!r}")
-    return BuiltCell(name, kind, fn, args, cfg, info, state, updated, host)
+    return BuiltCell(name, kind, fn, args, cfg, mesh, info, state, updated,
+                     host)
 
 
 def _first_tree(out) -> tuple:
@@ -235,7 +295,7 @@ def _first_tree(out) -> tuple:
     return tuple(out[0])
 
 
-def _slab_cell(spec, cfg, q, n, d, rng, dev, host, info, kind):
+def _slab_cell(spec, cfg, q, n, d, rng, dev, host, info, kind, mesh):
     """A slab arena of ``max(slots, q)`` slots, one warm-up wave into the
     first q, and the cell's wave (chaining the warm-up's inserted states
     as a pending record for ``slab_wave``)."""
@@ -258,7 +318,7 @@ def _slab_cell(spec, cfg, q, n, d, rng, dev, host, info, kind):
     heads = torch.from_numpy(heads_np).to(dev)
     sub, _, _ = _slab_feed(cfg, arena, rows, q, cap, idx, heads,
                            torch.from_numpy(warm[0]).to(dev),
-                           torch.from_numpy(warm[1]).to(dev), None, [])
+                           torch.from_numpy(warm[1]).to(dev), None, [], mesh)
     pend = []
     if kind == "slab_wave":
         pend = [(tuple(sub), idx, torch.ones((q,), dtype=torch.bool,
@@ -266,7 +326,7 @@ def _slab_cell(spec, cfg, q, n, d, rng, dev, host, info, kind):
 
     def fn(idx, heads, pts, mask, pend):
         return _slab_feed(cfg, arena, rows, q, cap, idx, heads, pts, mask,
-                          None, pend)
+                          None, pend, mesh)
 
     def updated(out):
         del out

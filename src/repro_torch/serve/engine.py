@@ -58,11 +58,24 @@ Typical use::
     stream.feed([chunk_a1, None])                     # ragged arrivals
     (buf_a, buf_b) = stream.snapshot()                # canonical fronts
 
+Dispatch is two-path.  Small-query buckets run the one-device batched
+pipeline.  When the engine holds a 2-D ``(queries, workers)`` mesh
+(`repro_torch.launch.mesh.make_engine_mesh`), buckets whose padded
+length reaches ``shard_threshold_n`` run the sharded batch program: the
+query batch is cut over the queries axis and each query's partitions
+over the workers axis, so large queries engage every rank.  Every rank
+of the mesh makes the same calls with the same inputs (the SPMD mapping
+of ``launch/mesh.py``) and gets the whole batch's answers; both paths
+give the same bits.  Stream arenas are whole on every rank.
+`calibrate_shard_threshold` measures the two paths and every
+factoring of the mesh, and sets the threshold and the per-bucket
+factorings from what it measured.
+
 Entry points run on the card unless the engine is made with
-``device="cpu"``; without CUDA that raises ``RuntimeError``.  Where the
-reference takes ``jax.random`` keys the port takes int seeds (ROADMAP.md,
-contract 5).  A mesh raises ``NotImplementedError`` naming item 8 of
-ROADMAP.md; the kernel tuning table is item 11 and not consulted here.
+``device="cpu"`` (or with a mesh, on the mesh's device); without CUDA
+that raises ``RuntimeError``.  Where the reference takes ``jax.random``
+keys the port takes int seeds (ROADMAP.md, contract 5).  The kernel
+tuning table is item 11 and not consulted here.
 The deprecated per-family entry points (``run`` / ``run_scaled`` /
 ``run_subspace``, and ``open_stream``'s loose keywords) remain as thin
 wrappers over the request API, equal to ``submit_many`` bit for bit.
@@ -72,6 +85,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import sys
+import time
 import warnings
 from collections.abc import Mapping
 from typing import Any, Sequence
@@ -94,6 +109,10 @@ from repro_torch.serve.slab import (SlabArena, blank_value, index_tensor,
 __all__ = ["SkylineEngine", "SkylineStream", "SkylineRequest",
            "StreamOptions", "pack_trace_count", "calibrate_shard_threshold",
            "tenant_seed"]
+
+
+def _round_up(size: int, multiple: int) -> int:
+    return -(-size // multiple) * multiple
 
 
 def _next_bucket(size: int, floor: int) -> int:
@@ -216,11 +235,18 @@ class SkylineEngine:
       cfg: pipeline configuration shared by all queries of this engine.
       min_n_bucket / min_q_bucket: floors of the power-of-two size
         buckets for query length and query count.
-      mesh: must be None; the multi-device engine is item 8 of
-        ROADMAP.md and raises ``NotImplementedError``.
+      mesh: optional 2-D `repro_torch.launch.mesh.WorkerMesh` carrying
+        ``q_axis`` and ``w_axis`` (see ``make_engine_mesh``).  Without
+        one, every bucket runs on this rank's device alone.
+      shard_threshold_n: padded query length at which a bucket runs the
+        sharded program instead of the one-device one (below it, the
+        collectives cost more than the dominance work they divide).
+      q_axis / w_axis: the mesh's axis names for the query batch and the
+        per-query partitions.
       min_slab_rows: the smallest slot a stream tenant leases.
       device: where the engine runs: the card unless ``"cpu"`` is given
-        (without CUDA that raises ``RuntimeError``).
+        (without CUDA that raises ``RuntimeError``); with a mesh, the
+        mesh's device.
 
     ``cfg.impl`` is resolved for the engine's device at construction, so
     an unknown backend, or ``'cuda'`` on a CPU engine, fails here.
@@ -228,8 +254,18 @@ class SkylineEngine:
 
     def __init__(self, cfg: SkyConfig = SkyConfig(), *,
                  min_n_bucket: int = 64, min_q_bucket: int = 4,
-                 mesh=None, min_slab_rows: int = 64, device=None):
+                 mesh=None, shard_threshold_n: int = 4096,
+                 q_axis: str = "queries", w_axis: str = "workers",
+                 min_slab_rows: int = 64, device=None):
         par.check_supported(cfg, mesh)
+        if mesh is not None:
+            missing = {q_axis, w_axis} - set(mesh.axis_names)
+            if missing:
+                raise ValueError(f"mesh lacks engine axes {sorted(missing)}"
+                                 f"; has {mesh.axis_names}")
+            mesh.check_member()
+            if device is None:
+                device = mesh.device
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # name the card, so that a tensor on it is recognised as such
@@ -239,6 +275,14 @@ class SkylineEngine:
         self.min_n_bucket = min_n_bucket
         self.min_q_bucket = min_q_bucket
         self.min_slab_rows = min_slab_rows
+        self.mesh = mesh
+        self.shard_threshold_n = shard_threshold_n
+        self.q_axis = q_axis
+        self.w_axis = w_axis
+        # per-bucket (queries x workers) factorings, set by
+        # `calibrate_shard_threshold(..., factorings=True)`: bucket nb ->
+        # (qa, wa, merge mode); other buckets use the constructor mesh
+        self.factorings: dict[int, tuple[int, int, str]] = {}
         self._arenas: dict[tuple, SlabArena] = {}
         # observed per-stream per-epoch front sizes, keyed (d, epochs):
         # consulted by `open_stream` to size `epoch_capacity`
@@ -246,18 +290,55 @@ class SkylineEngine:
                                     collections.Counter] = {}
         self.queries_answered = 0
         self.batches_dispatched = 0
-        # the serve loop's admission model: per-(d, dtype, rows-bucket)
-        # wave times in seconds, which the reference's calibration
-        # writes (`calibrate_shard_threshold` measures nothing here: no
-        # mesh)
+        self.sharded_dispatched = 0
+        # the serve loop's admission model: per-(d, dtype, n-bucket) wave
+        # times in seconds, written by `calibrate_shard_threshold`
         self.wave_time_hints: dict[tuple, float] = {}
 
     # -- planning ----------------------------------------------------------
 
-    def _q_bucket(self, q: int) -> int:
-        """Padded query count: a power-of-two bucket (one device: no
-        queries axis to divide by)."""
+    def _use_sharded(self, nb: int) -> bool:
+        return self.mesh is not None and nb >= self.shard_threshold_n
+
+    def _mesh_for(self, nb: int | None):
+        """The mesh a size-``nb`` bucket runs on: its calibrated
+        factoring when one was measured, else the constructor mesh."""
+        if self.mesh is None:
+            return None
+        fact = None if nb is None else self.factorings.get(nb)
+        if fact is None:
+            return self.mesh
+        from repro_torch.launch.mesh import make_engine_mesh
+        return make_engine_mesh(fact[0], fact[1], device=self.device,
+                                q_axis=self.q_axis, w_axis=self.w_axis,
+                                timeout=self.mesh.timeout)
+
+    def _merge_mode_for(self, nb: int | None) -> str | None:
+        """The calibrated merge topology of a bucket, or None."""
+        fact = None if nb is None else self.factorings.get(nb)
+        return fact[2] if fact is not None else None
+
+    def _q_bucket(self, q: int, sharded: bool = False,
+                  nb: int | None = None) -> int:
+        """Padded query count: a power-of-two bucket, and on the sharded
+        path also a multiple of the queries-axis size."""
+        if sharded:
+            nq = self._mesh_for(nb).queries
+            return _round_up(_next_bucket(q, max(self.min_q_bucket, nq)),
+                             nq)
         return _next_bucket(q, self.min_q_bucket)
+
+    def _pipeline(self, sharded: bool, nb: int | None = None,
+                  cfg: SkyConfig | None = None):
+        """The batched program of a bucket: on the bucket's mesh when
+        ``sharded`` (with its calibrated merge mode under
+        ``merge='auto'``), else on this rank's device."""
+        cfg = self.cfg if cfg is None else cfg
+        if not sharded:
+            return par.fused_skyline_batch_fn(cfg)
+        if cfg.merge == "auto" and self._merge_mode_for(nb) is not None:
+            cfg = dataclasses.replace(cfg, merge=self._merge_mode_for(nb))
+        return par.fused_skyline_batch_fn(cfg, self._mesh_for(nb))
 
     def _cfg_for(self, impl: str | None) -> SkyConfig:
         """The engine config with a per-request kernel-backend override
@@ -270,11 +351,14 @@ class SkylineEngine:
             return dataclasses.replace(cfg, impl=impl)
         return cfg
 
-    def _run(self, pts_b, mask_b, seeds, cfg: SkyConfig):
+    def _run(self, pts_b, mask_b, seeds, cfg: SkyConfig,
+             sharded: bool = False):
         """One run of the batched pipeline on a packed bucket."""
         gens = _generators(cfg, seeds, self.device)
-        out = par.fused_skyline_batch_fn(cfg)(pts_b, mask_b, gens)
+        nb = pts_b.shape[1]
+        out = self._pipeline(sharded, nb, cfg)(pts_b, mask_b, gens)
         self.batches_dispatched += 1
+        self.sharded_dispatched += sharded
         return out
 
     # -- slab arenas -------------------------------------------------------
@@ -381,14 +465,15 @@ class SkylineEngine:
                 mk = id(r.mask) if r.mask is not None else None
                 vgroups.setdefault((id(r.data), r.view_kind, mk, r.impl),
                                    []).append(i)
-        for (_, _, _, impl), idxs in groups.items():
-            qb = self._q_bucket(len(idxs))
+        for (_, _, nb, impl), idxs in groups.items():
+            sharded = self._use_sharded(nb)
+            qb = self._q_bucket(len(idxs), sharded, nb)
             pts_b, mask_b = self._pack([reqs[i].data for i in idxs],
                                        [reqs[i].mask for i in idxs],
                                        range(len(idxs)), qb)
             seeds = [_key_for(i) for i in idxs] + [0] * (qb - len(idxs))
             bufs, stats = self._run(pts_b, mask_b, seeds,
-                                    self._cfg_for(impl))
+                                    self._cfg_for(impl), sharded)
             for j, (i, buf) in enumerate(zip(idxs,
                                              _unpack(bufs, len(idxs)))):
                 out[i] = (buf, _SlicedStats(stats, j))
@@ -422,7 +507,8 @@ class SkylineEngine:
         n, d = pts.shape
         q = len(params)
         nb = _next_bucket(n, self.min_n_bucket)
-        qb = self._q_bucket(q)
+        sharded = self._use_sharded(nb)
+        qb = self._q_bucket(q, sharded, nb)
         dev = self.device
         _PACK_KEYS.add(("view", qb, nb, d, "float32", mask is not None,
                         kind))
@@ -450,7 +536,7 @@ class SkylineEngine:
                             torch.full_like(views, SENTINEL))
         seeds = (list(range(qb)) if keys is None
                  else list(keys) + [0] * (qb - q))
-        bufs, stats = self._run(pts_b, valid, seeds, cfg)
+        bufs, stats = self._run(pts_b, valid, seeds, cfg, sharded)
         return [(buf, _SlicedStats(stats, j))
                 for j, buf in enumerate(_unpack(bufs, q))]
 
@@ -662,14 +748,17 @@ def _splice_pending(fitted, rec_sub, pos, sel, eps):
 
 
 def _slab_feed(cfg: SkyConfig, arena: SlabArena, rows: int, q: int,
-               cap: int, idx, heads, pts, mask, generators, pend):
+               cap: int, idx, heads, pts, mask, generators, pend,
+               mesh=None):
     """One wave: gather the leased slots of one or more streams sharing
     a bucket, overlay the chained pending records onto their head
     epochs, run the batched insert (2 sweep + 2 dominance launches at
     the default config) and write each of the first ``q`` slots back in
     place, only where its front fits its ``rows`` (``torch.where`` on
-    the device; ``fits`` is never read on the host here).  Returns the
-    ``cap``-row inserted states, ``fits`` and the insert's stats."""
+    the device; ``fits`` is never read on the host here).  With a 2-D
+    ``mesh`` the insert is the sharded batch insert; the arena is whole
+    on every rank.  Returns the ``cap``-row inserted states, ``fits``
+    and the insert's stats."""
     leaves = arena.leaves()
     gathered = _gather_slots(leaves, idx)
     sub = _sub_of_epoch(gathered, heads, cap)
@@ -681,7 +770,7 @@ def _slab_feed(cfg: SkyConfig, arena: SlabArena, rows: int, q: int,
     # sub2 becomes the wave's pending record, a shared overlay: it is
     # never written in place
     sub2, stats = incremental._insert_batch(sub, pts, mask, cfg=cfg,
-                                            generator=generators)
+                                            generator=generators, mesh=mesh)
     # a slot at the epoch-capacity ceiling can never outgrow it
     fits = (torch.ones((q,), dtype=torch.bool, device=pts.device)
             if rows >= cap else sub2.count[:q] <= rows)
@@ -866,7 +955,7 @@ def _wave_feed(engine: SkylineEngine, parts) -> Mapping:
     arena, rows, cap = s0.arena, s0.rows, s0.cap
     dev = engine.device
     total = sum(p[0].q for p in parts)
-    wb = engine._q_bucket(total)
+    wb = engine._q_bucket(total, engine.mesh is not None)
     items: list = []
     masks: list = []
     idx: list[int] = []
@@ -880,6 +969,7 @@ def _wave_feed(engine: SkylineEngine, parts) -> Mapping:
         seeds += [tenant_seed(s._seed, s.chunks_fed, t)
                   for t in range(s.q)]
     pts_b, mask_b = engine._pack(items, masks, range(total), wb)
+    sharded = engine._use_sharded(pts_b.shape[1])
     pad = wb - total
     # chain every live record of every member; records shared by several
     # members (an earlier coalesced wave) enter once, entries merged
@@ -895,7 +985,8 @@ def _wave_feed(engine: SkylineEngine, parts) -> Mapping:
         engine.cfg, arena, rows, total, cap,
         index_tensor(idx + [idx[0]] * pad, dev),
         index_tensor(heads + [heads[0]] * pad, dev), pts_b, mask_b,
-        _generators(engine.cfg, seeds + [0] * pad, dev), pend)
+        _generators(engine.cfg, seeds + [0] * pad, dev), pend,
+        engine.mesh if sharded else None)
     record = _WaveRecord(sub2, fits) if rows < cap else None
     off = 0
     for s, _, _ in parts:
@@ -911,6 +1002,7 @@ def _wave_feed(engine: SkylineEngine, parts) -> Mapping:
         s.chunks_fed += 1
         off += s.q
     engine.batches_dispatched += 1
+    engine.sharded_dispatched += sharded
     return stats
 
 
@@ -1166,14 +1258,130 @@ class SkylineStream:
             self.slots = []
 
 
-def calibrate_shard_threshold(engine: SkylineEngine, **kwargs,
-                              ) -> dict[str, Any]:
-    """The reference measures vmap against sharded launches on its mesh.
-    An engine of the port has no mesh (item 8 of ROADMAP.md), so this is
-    the reference's no-mesh report, with the reference's default
-    threshold: nothing measured, nothing applied.  The threshold becomes
-    a knob of the engine with the mesh."""
-    del engine, kwargs
-    return {"applied": False, "threshold_n": 4096,
-            "measurements": {}, "factorings": {},
-            "reason": "no mesh: vmap-only engine"}
+def _candidate_factorings(engine: SkylineEngine,
+                          d: int) -> list[tuple[int, int]]:
+    """Every (queries x workers) factoring of the engine mesh's rank
+    count whose workers size divides cfg's partition count at ``d``."""
+    ndev = engine.mesh.size
+    p, _ = par.effective_parts(engine.cfg, d)
+    return [(ndev // wa, wa) for wa in range(1, ndev + 1)
+            if ndev % wa == 0 and p % wa == 0]
+
+
+def _best_time(fn, repeat: int, device: torch.device) -> float:
+    """Seconds of the fastest of ``repeat`` calls of ``fn`` after one
+    warm-up: CUDA events on the card, the host clock on the CPU."""
+    fn()
+    best = float("inf")
+    for _ in range(repeat):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            t = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            fn()
+            t = time.perf_counter() - t0
+        best = min(best, t)
+    return best
+
+
+def calibrate_shard_threshold(engine: SkylineEngine, *,
+                              bucket_sizes: Sequence[int] = (1024, 4096,
+                                                            16384),
+                              q: int | None = None, d: int = 4,
+                              repeat: int = 3, apply: bool = True,
+                              factorings: bool = True) -> dict[str, Any]:
+    """Measure the one-device batch against the sharded program at a few
+    N buckets and set ``engine.shard_threshold_n`` (and, with
+    ``factorings=True``, each bucket's (queries x workers) factoring and
+    merge mode) from the measurements.  The reference's calibration.
+
+    Each bucket's synthetic batch is packed once and timed through the
+    one-device pipeline and every candidate factoring of the mesh's
+    ranks (best of ``repeat`` after a warm-up); the winning factoring is
+    timed again under ``merge='tree'``, and the faster topology becomes
+    its merge mode.  The threshold is the smallest measured bucket from
+    which the sharded program wins at every larger measured bucket (none:
+    ``sys.maxsize``, the engine stays on one device).  Every rank times
+    its own calls; each time taken is the largest over the mesh, so that
+    every rank makes the same choice.  grid and angular derive p from
+    d, so no factoring is stored for them.  Returns the report
+    (``threshold_n``, per-bucket timings in seconds, the factorings as
+    ``"QxW:mode"``); ``apply=False`` leaves the engine as it was."""
+    if engine.mesh is None:
+        return {"applied": False, "threshold_n": engine.shard_threshold_n,
+                "measurements": {}, "factorings": {},
+                "reason": "no mesh: vmap-only engine"}
+    from repro_torch.launch.mesh import make_engine_mesh
+    mesh0, dev = engine.mesh, engine.device
+    if engine.cfg.strategy not in ("sliced", "random"):
+        factorings = False
+    q = q or max(mesh0.queries, engine.min_q_bucket)
+    own = (mesh0.queries, mesh0.workers)
+    cands = _candidate_factorings(engine, d) if factorings else [own]
+    meshes = {f: mesh0 if f == own else make_engine_mesh(
+        f[0], f[1], device=dev, q_axis=engine.q_axis, w_axis=engine.w_axis,
+        timeout=mesh0.timeout) for f in cands}
+
+    def agree(times):
+        return [float(t) for t in mesh0.max_over_mesh(
+            torch.tensor(times, dtype=torch.float64))]
+
+    def timed(queries, cfg, mesh, qb):
+        pts_b, mask_b = engine._pack(queries, [None] * q, range(q), qb)
+        fn = par.fused_skyline_batch_fn(cfg, mesh)
+        gens = _generators(cfg, range(qb), dev)
+        return _best_time(lambda: fn(pts_b, mask_b, gens), repeat, dev)
+
+    measurements: dict[int, dict[str, Any]] = {}
+    chosen: dict[int, tuple[int, int, str]] = {}
+    for size in sorted(set(bucket_sizes)):
+        nb = _next_bucket(size, engine.min_n_bucket)
+        if nb in measurements:
+            continue
+        rng = np.random.default_rng(nb)
+        queries = [rng.random((nb, d), dtype=np.float32) for _ in range(q)]
+        qb_of = {f: _round_up(_next_bucket(q, max(engine.min_q_bucket,
+                                                  f[0])), f[0])
+                 for f in cands}
+        times = agree([timed(queries, engine.cfg, None,
+                             _next_bucket(q, engine.min_q_bucket))]
+                      + [timed(queries, engine.cfg, meshes[f], qb_of[f])
+                         for f in cands])
+        per_fact = {f"{f[0]}x{f[1]}": t for f, t in zip(cands, times[1:])}
+        best_name = min(per_fact, key=per_fact.get)
+        best = cands[list(per_fact).index(best_name)]
+        tree_t, = agree([timed(queries,
+                               dataclasses.replace(engine.cfg, merge="tree"),
+                               meshes[best], qb_of[best])])
+        mode = "tree" if tree_t < per_fact[best_name] else "flat"
+        chosen[nb] = (best[0], best[1], mode)
+        measurements[nb] = {
+            "vmap": times[0], "sharded": min(per_fact[best_name], tree_t),
+            "factorings": per_fact, "best_factoring": best_name,
+            "merge": {"flat": per_fact[best_name], "tree": tree_t},
+            "best_merge": mode}
+    sizes = sorted(measurements)
+    threshold = sys.maxsize
+    for i, nb in enumerate(sizes):
+        if all(measurements[m]["sharded"] < measurements[m]["vmap"]
+               for m in sizes[i:]):
+            threshold = nb
+            break
+    if apply:
+        engine.shard_threshold_n = threshold
+        if factorings:
+            engine.factorings.update(chosen)
+        for nb, t in measurements.items():
+            engine.wave_time_hints[(d, "float32", nb)] = min(
+                t["vmap"], t["sharded"])
+    return {"applied": apply, "threshold_n": threshold,
+            "measurements": measurements,
+            "factorings": ({nb: f"{f[0]}x{f[1]}:{f[2]}"
+                            for nb, f in chosen.items()}
+                           if factorings else {})}

@@ -32,6 +32,8 @@ import torch
 from repro_torch.core.dominance import (flush_subnormal, monotone_score,
                                         stable_argsort)
 from repro_torch.core.parallel import SkyConfig
+from repro_torch.launch.mesh import (engine_mesh_shape, make_engine_mesh,
+                                     world_size)
 from repro_torch.serve.engine import SkylineEngine, StreamOptions
 
 __all__ = ["Request", "admit", "admit_many", "StreamingAdmitter",
@@ -49,10 +51,15 @@ _DEFAULT_ENGINE: SkylineEngine | None = None
 
 def make_default_engine(cfg: SkyConfig = SkyConfig(),
                         **engine_kwargs) -> SkylineEngine:
-    """The one-device engine (on the card unless ``device="cpu"`` is
-    passed).  The reference gives a multi-device platform a 2-D
-    (queries x workers) mesh; that branch is item 8 of ROADMAP.md, and
-    an engine given a mesh raises."""
+    """The engine of this rank (on the card unless ``device="cpu"`` is
+    passed).  In a world of more than one rank it gets a 2-D (queries x
+    workers) mesh over the whole world, factored so that the workers
+    size divides cfg's partition count, and large batches shard over
+    it; in a world of one it is the one-device engine."""
+    if "mesh" not in engine_kwargs and world_size() > 1:
+        queries, workers = engine_mesh_shape(cfg.p)
+        engine_kwargs["mesh"] = make_engine_mesh(
+            queries, workers, device=engine_kwargs.get("device"))
     return SkylineEngine(cfg, **engine_kwargs)
 
 

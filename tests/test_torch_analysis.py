@@ -567,10 +567,11 @@ def test_slab_wave_cell_matches_the_reference():
 # --------------------------------------------------------------------------
 
 def test_program_verifier_invariants_hold_on_the_cpu():
-    """Layer 2 over every cell: no host round-trips, no collectives,
-    Q-independent operation counts, the slab boundary census, in-place
-    state updates and the shared-memory cap; memory is not measured on
-    the CPU and never reported as passed."""
+    """Layer 2 over every cell: no host round-trips, collectives on the
+    workers group only (none without a mesh), Q-independent operation
+    counts, the slab boundary census, in-place state updates and the
+    shared-memory cap; memory is not measured on the CPU and never
+    reported as passed.  In a world of one every mesh is 1 x 1."""
     report, errors = verify_programs(device="cpu")
     assert errors == [], errors
     cells = report["cells"]
@@ -578,7 +579,11 @@ def test_program_verifier_invariants_hold_on_the_cpu():
     assert report["device"] == "cpu" and report["devices"] == 1
     for name, rec in cells.items():
         assert rec["host_ops"] == [], name
-        assert rec["collectives"] == {}, name
+        assert all(k.endswith("@workers") for k in rec["collectives"]), name
+        if rec["mesh"] is None:
+            assert rec["collectives"] == {}, name
+        else:
+            assert rec["mesh"] == {"queries": 1, "workers": 1}, name
         assert rec["memory"]["measured"] is False, name
         assert "graph" not in rec, name
         assert max(rec["smem"].values()) <= report["smem_cap"], name
@@ -664,3 +669,75 @@ def test_slab_cell_at_full_epoch_capacity_reports_c_at_its_boundary(
     report, errors = verify_programs(["slab_feed"], device="cpu")
     assert errors == [], errors
     assert 512 in report["cells"]["slab_feed"]["boundary_dims"]
+
+
+# --------------------------------------------------------------------------
+# the verifier's collective checks on gloo worlds of four and eight
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def world4(tmp_path_factory):
+    from _torch_world import World
+    w = World(4, tmp_path_factory.mktemp("w4"))
+    yield w
+    w.close()
+
+
+def test_collective_checks_hold_on_a_world_of_four(world4):
+    """Every rank runs every cell it is a member of: collectives over the
+    workers group only, the tree cell's exactly ceil(log2 4) = 2 rounds
+    under its boundary bound, none in ``engine_vmap``, and the same
+    collective count at q and 2q; the 2-D cells' query shards are
+    assembled apart from the program."""
+    out = world4.run("verify_cells", None)
+    for r, (report, errors) in enumerate(out):
+        assert errors == [], (r, errors)
+        cells = report["cells"]
+        assert report["devices"] == 4
+        tree = cells["tree_merge_p512"]
+        assert tree["mesh"] == {"queries": 1, "workers": 4}
+        assert tree["tree_rounds"] == {"expected": 2, "ppermute": 2}
+        assert 0 < tree["tree_boundary"]["max_operand"] <= \
+            tree["tree_boundary"]["bound"]
+        assert cells["engine_vmap"]["collectives"] == {}
+        for name in ("batch_8x64", "stream_8x64", "window_8x64"):
+            rec = cells[name]
+            assert rec["mesh"] == {"queries": 2, "workers": 2}, name
+            assert rec["collective_count_q"] == \
+                rec["collective_count_2q"] > 0, name
+            assert set(rec["assembled"]) == {"assemble@queries"}, name
+        for name, rec in cells.items():
+            assert all(k.endswith("@workers") for k in rec["collectives"])
+
+
+@pytest.mark.parametrize("negative,match", [
+    ("queries", "collectives over non-worker groups ['queries']"),
+    ("round", "exactly ceil(log2(4)) = 2 ppermute rounds over workers, "
+              "found 3"),
+    ("flat", "above the tree-merge boundary bound")])
+def test_collective_negative_cases_fail(world4, negative, match):
+    """A collective on the queries group, a round too many, and the flat
+    union in tree mode each fail the tree cell, on every rank."""
+    out = world4.run("verify_cells", ["tree_merge_p512"], negative)
+    for r, (_, errors) in enumerate(out):
+        assert any(match in e for e in errors), (r, errors)
+
+
+def test_verifier_cli_on_a_world_of_eight(tmp_path):
+    """``--world 8`` spawns the gloo world and runs the census in every
+    rank: the tree cell runs ceil(log2 8) = 3 rounds on each."""
+    out = tmp_path / "v.json"
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--layer", "verify",
+         "--device", "cpu", "--world", "8", "--cells", "tree_merge_p512",
+         "engine_vmap", "batch_8x64", "--json", str(out)],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=SRC))
+    assert r.returncode == 0, r.stdout + r.stderr
+    report = json.loads(out.read_text())["layers"]["verify"]
+    assert sorted(report["ranks"]) == [str(i) for i in range(8)]
+    for rank, rec in report["cells"]["tree_merge_p512"].items():
+        assert rec["tree_rounds"] == {"expected": 3, "ppermute": 3}, rank
+    for rank, rec in report["cells"]["batch_8x64"].items():
+        assert rec["mesh"] == {"queries": 2, "workers": 4}, rank
+

@@ -312,10 +312,25 @@ def test_engine_pack_keys_bounded_by_size_buckets():
 
 
 def test_mesh_raises_naming_item_8():
-    """The reference's mesh test checks its sharded dispatch; the port's
-    engine has no mesh yet and says which roadmap item brings it."""
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """Item 8 is ported: a mesh argument that is not a `WorkerMesh`
+    raises ``TypeError``, a real mesh runs (here a world of one, every
+    bucket sharded, the one-device answers bit for bit), and an engine
+    without a mesh calibrates nothing (the reference's no-mesh
+    report)."""
+    from repro_torch.launch.mesh import make_engine_mesh
+    with pytest.raises(TypeError, match="WorkerMesh"):
         teng.SkylineEngine(tpar.SkyConfig(), mesh=object(), device="cpu")
+    sharded = teng.SkylineEngine(tpar.SkyConfig(p=4),
+                                 mesh=make_engine_mesh(device="cpu"),
+                                 shard_threshold_n=64)
+    plain = teng.SkylineEngine(tpar.SkyConfig(p=4), device="cpu")
+    reqs = [SkylineRequest(data=_data("uniform", n, 3, i))
+            for i, n in enumerate((100, 300))]
+    for (a, _), (b, _) in zip(sharded.submit_many(reqs),
+                              plain.submit_many(reqs)):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert sharded.sharded_dispatched == 2
     report = teng.calibrate_shard_threshold(engines()[1])
     assert report["applied"] is False and report["measurements"] == {}
     assert report["threshold_n"] == 4096    # the reference's default

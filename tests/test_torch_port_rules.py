@@ -205,19 +205,26 @@ def test_sweep_entry_argument_checks():
 
 
 @pytest.mark.parametrize("cfg_kw,what", [
-    (dict(), "multi-device mesh.*item 8"),
-    (dict(merge="tree"), "tree merge across devices.*item 8"),
+    (dict(), "WorkerMesh"),
+    (dict(merge="tree"), "WorkerMesh"),
 ])
 def test_unported_options_raise(cfg_kw, what):
-    """Only the multi-device mesh is left unported (item 8), with it the
-    tree merge across devices; the strategies and the tree merge on one
-    device run (see below)."""
+    """Nothing is left unported: the multi-device mesh runs, the flat and
+    the tree merge alike, and a mesh argument that is not a
+    `WorkerMesh` raises ``TypeError``; a real mesh (here a world of one)
+    gives the one-device answer."""
+    from repro_torch.launch.mesh import make_worker_mesh
     x = np.random.default_rng(1).random((40, 3)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match=what):
-        api.parallel_skyline(x, cfg=parallel.SkyConfig(**cfg_kw),
-                             mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match=what):
-        parallel.check_supported(parallel.SkyConfig(**cfg_kw), mesh=object())
+    cfg = parallel.SkyConfig(**cfg_kw)
+    with pytest.raises(TypeError, match=what):
+        api.parallel_skyline(x, cfg=cfg, mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match=what):
+        parallel.check_supported(cfg, mesh=object())
+    got, _ = api.parallel_skyline(x, cfg=cfg,
+                                  mesh=make_worker_mesh(device="cpu"))
+    want, _ = api.parallel_skyline(x, cfg=cfg, device="cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("cfg_kw", [
@@ -247,11 +254,16 @@ def test_ported_options_no_longer_raise(cfg_kw):
 
 
 def test_mesh_and_live_state_raise():
-    """The mesh still raises; a live state now takes inserts (it raised
-    before the streaming slice)."""
+    """A mesh that is not a `WorkerMesh` raises ``TypeError`` and a real
+    one runs (the mesh raised ``NotImplementedError`` before the
+    multi-device slice); a live state takes inserts (it raised before
+    the streaming slice)."""
+    from repro_torch.launch.mesh import make_worker_mesh
     x = np.random.default_rng(2).random((40, 3)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="mesh.*item 8"):
+    with pytest.raises(TypeError, match="WorkerMesh"):
         api.parallel_skyline(x, mesh=object(), device="cpu")
+    on_mesh, _ = api.parallel_skyline(x, mesh=make_worker_mesh(device="cpu"))
+    assert int(on_mesh.count) > 0
     state, _ = incremental._insert(None, torch.from_numpy(x),
                                    torch.ones(40, dtype=torch.bool),
                                    cfg=parallel.SkyConfig())

@@ -407,8 +407,15 @@ def test_window_state_crosses_packages_and_mesh_raises(monkeypatch):
     for g, w in zip(twin.window_counters(both.t).values(),
                     jwin.window_counters(both.j).values()):
         _eq(g, w, "counters")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="WorkerMesh"):
         twin.finalize(both.t, cfg=both.tcfg, mesh=object())
+    # a real mesh (a world of one) reads the same snapshot, with no
+    # collective
+    from repro_torch.launch.mesh import make_worker_mesh
+    on_mesh = twin.finalize(both.t, cfg=both.tcfg,
+                            mesh=make_worker_mesh(device="cpu"))
+    for g, w in zip(on_mesh, twin.finalize(both.t, cfg=both.tcfg)):
+        assert torch.equal(g, w)
     with pytest.raises(ValueError, match="at least one epoch"):
         twin.init_window_state(both.tcfg, 4, epochs=0, device="cpu")
 
