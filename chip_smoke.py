@@ -2148,8 +2148,8 @@ def mesh_rank(rank: int, size: int, path: str, results) -> None:
             with Launches(*kernels) as run, log:
                 got, _ = parallel.parallel_skyline(x, cfg=cfg, mesh=mesh)
             want, _ = parallel.parallel_skyline(x, cfg=cfg)
-            # NoSeq's per-row filter takes seconds on a shared card:
-            # one timed call
+            # NoSeq queries get one timed call: under the tree merge
+            # its per-row filter takes seconds on a shared card
             ms, runs = time_ms(lambda: parallel.parallel_skyline(
                 x, cfg=cfg, mesh=mesh), reps=1 if cfg.noseq else 3)
             gathers = [c for c in log.calls if c[0] == "all_gather"]
