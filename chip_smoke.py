@@ -139,8 +139,9 @@ It builds the port's CUDA kernels from the sources in the checkout
      the card, after the serve step: first which of the census's host
      operations raise under set_sync_debug_mode("error") on this card,
      then every cell of ``repro_torch.launch.cells`` with the CUDA
-     kernels, under set_sync_debug_mode("error") and the dispatch census
-     (no host round-trip, no collective, Q-independent operation counts,
+     kernels, on no mesh (the one-device programs), under
+     set_sync_debug_mode("error") and the dispatch census (no host
+     round-trip, no collective, Q-independent operation counts,
      slab boundary shapes, in-place state updates, the shared-memory
      laws under the sm_90 cap), captured into a CUDA graph at q and 2q
      (equal kernel nodes) and under the 64 MiB peak-memory budget; one
@@ -151,8 +152,8 @@ It builds the port's CUDA kernels from the sources in the checkout
      merge, NoSeq under the tree merge and rep_filter='sorted' on the
      three distributions at N = 10^7, d = 4, capacity 65,536, and ten
      streaming inserts of 10^6 rows on the mesh, each bit for bit the
-     one-device answer; the verifier's mesh cells (sync debug mode, CUDA
-     graph capture at q and 2q); then worlds of 2 and 4 ranks sharing
+     one-device answer; the verifier's mesh cells on 1 x 1 meshes (sync
+     debug mode, CUDA graph capture at q and 2q); then worlds of 2 and 4 ranks sharing
      the card (spawned here; gloo, the ppermute staged through pinned
      host memory), the anticorrelated query under the flat and tree
      merges, sequential and NoSeq, bit for bit the one-device answer,
@@ -2096,79 +2097,51 @@ SHARED_NOTE = ("one card shared by W ranks: a check of the schedule, not "
 MESH_DEADLINE_S = 200.0
 
 
-def _collective_log():
-    """A dispatch mode that records the mesh's collectives (the hook of
-    ``repro_torch.kernels.backend.collective_call``) and nothing else."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class CollectiveLog(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.calls = []
-
-        def record_collective(self, kind, group, fn, x, counted):
-            out = fn(x)
-            self.calls.append((kind, group, x.numel(), out.numel(), counted))
-            return out
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            return func(*args, **(kwargs or {}))
-
-    return CollectiveLog()
-
-
 def _data(dist: str, seed: int, dev):
     from repro_torch.core import datagen
     gen = torch.Generator(device=dev).manual_seed(1000 + seed)
     return datagen.generate(dist, gen, N_MAIN, D_MAIN)
 
 
-def mesh_rank(rank: int, size: int, path: str, results) -> None:
+def mesh_rank() -> dict:
     """One rank of a world spawned by step M: the anticorrelated N = 10^7
     query under each of `SHARED_CFGS` on the world's mesh, held bit for
-    bit against this rank's one-device answer, with its collectives,
-    launches and time.  Puts ``(rank, report or traceback)``."""
-    import traceback
-    try:
-        from repro_torch.core import parallel
-        from repro_torch.kernels.dominance import kernel as dkernel
-        from repro_torch.kernels.sfs import kernel
-        from repro_torch.launch import mesh as tmesh
-        dev = tmesh.init_world(rank, size,
-                               store=tmesh.file_store(path, size),
-                               timeout=120.0)
-        mesh = tmesh.make_worker_mesh()
-        x = _data("anticorrelated", 2, dev)
-        kernels = (kernel.sfs_sweep_cuda, dkernel.dominated_mask_cuda)
-        out = {"backend": mesh.backend, "device": str(dev),
-               "staged": sorted(mesh.staged), "cfgs": {}}
-        for name, kw in SHARED_CFGS.items():
-            cfg = parallel.SkyConfig(capacity=65536, **kw)
-            log = _collective_log()
-            with Launches(*kernels) as run, log:
-                got, _ = parallel.parallel_skyline(x, cfg=cfg, mesh=mesh)
-            want, _ = parallel.parallel_skyline(x, cfg=cfg)
-            # NoSeq queries get one timed call: under the tree merge
-            # its per-row filter takes seconds on a shared card
-            ms, runs = time_ms(lambda: parallel.parallel_skyline(
-                x, cfg=cfg, mesh=mesh), reps=1 if cfg.noseq else 3)
-            gathers = [c for c in log.calls if c[0] == "all_gather"]
-            out["cfgs"][name] = {
-                "equal": leaves_equal(got, want), "count": int(got.count),
-                "overflow": bool(got.overflow), "launches": run.counts,
-                "rounds": sum(c[0] == "ppermute" for c in log.calls),
-                "collectives": len(log.calls),
-                "largest": max(max(c[2], c[3]) for c in log.calls),
-                "bound": 4 * -(-cfg.capacity // cfg.block) * cfg.block
-                * (D_MAIN + 2),
-                "flat_rows": max((c[3] for c in gathers), default=0)
-                // D_MAIN if not kw.get("merge") else 0,
-                "ms": ms, "runs": runs}
-        out["calibration"] = _calibrate(tmesh.make_engine_mesh())
-        results.put((rank, out))
-        tmesh.close_world()
-    except Exception:
-        results.put((rank, traceback.format_exc()))
+    bit against this rank's one-device answer, with its collectives
+    (the verifier's census), launches and time."""
+    from repro_torch.analysis.verifier import Census
+    from repro_torch.core import parallel
+    from repro_torch.kernels.dominance import kernel as dkernel
+    from repro_torch.kernels.sfs import kernel
+    from repro_torch.launch import mesh as tmesh
+    mesh = tmesh.make_worker_mesh()
+    x = _data("anticorrelated", 2, mesh.device)
+    kernels = (kernel.sfs_sweep_cuda, dkernel.dominated_mask_cuda)
+    out = {"backend": mesh.backend, "device": str(mesh.device),
+           "staged": sorted(mesh.staged), "cfgs": {}}
+    for name, kw in SHARED_CFGS.items():
+        cfg = parallel.SkyConfig(capacity=65536, **kw)
+        with Launches(*kernels) as run, Census() as census:
+            got, _ = parallel.parallel_skyline(x, cfg=cfg, mesh=mesh)
+        want, _ = parallel.parallel_skyline(x, cfg=cfg)
+        # NoSeq queries get one timed call: under the tree merge its
+        # per-row filter takes seconds on a shared card
+        ms, runs = time_ms(lambda: parallel.parallel_skyline(
+            x, cfg=cfg, mesh=mesh), reps=1 if cfg.noseq else 3)
+        out["cfgs"][name] = {
+            "equal": leaves_equal(got, want), "count": int(got.count),
+            "overflow": bool(got.overflow), "launches": run.counts,
+            "rounds": census.collectives[("ppermute", "workers")],
+            "collectives": sum(census.collectives.values()),
+            "largest": census.collective_elems,
+            "bound": 4 * -(-cfg.capacity // cfg.block) * cfg.block
+            * (D_MAIN + 2),
+            # the flat merge's largest collective is its all_gather of
+            # the local skylines' points
+            "flat_rows": census.collective_elems // D_MAIN
+            if not kw.get("merge") else 0,
+            "ms": ms, "runs": runs}
+    out["calibration"] = _calibrate(tmesh.make_engine_mesh())
+    return out
 
 
 def _calibrate(mesh) -> dict:
@@ -2188,38 +2161,16 @@ def _calibrate(mesh) -> dict:
 
 
 def _spawn_world(size: int) -> list:
-    """Spawn ``size`` ranks of `mesh_rank` joined through a file store;
-    returns their reports by rank.  A rank that fails or does not report
-    within the deadline fails the run, and every rank is stopped."""
-    import multiprocessing as mp
-    import queue
-    import tempfile
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    procs = [ctx.Process(target=mesh_rank, args=(r, size, f"{tmp}/store",
-                                                 results), daemon=True)
-             for r in range(size)]
-    for proc in procs:
-        proc.start()
-    reports: list = [None] * size
-    end = time.monotonic() + MESH_DEADLINE_S
+    """`mesh_rank` in every rank of a world of ``size`` spawned on the
+    card(s); returns their reports by rank.  A rank that fails or does
+    not report within the deadline fails the run, and every rank is
+    stopped."""
+    from repro_torch.launch.mesh import run_world
     try:
-        for _ in range(size):
-            rank, rep = results.get(timeout=max(end - time.monotonic(), 1))
-            reports[rank] = rep
-    except queue.Empty:
-        fail(f"step M: a rank of the world of {size} did not report within "
-             f"{MESH_DEADLINE_S} s")
-    finally:
-        for proc in procs:
-            proc.join(10)
-            if proc.is_alive():
-                proc.kill()
-    bad = [r for r in reports if not isinstance(r, dict)]
-    check(not bad, f"step M: world of {size} failed:\n" + "\n".join(
-        str(b) for b in bad))
-    return reports
+        return run_world(mesh_rank, size, device=None,
+                         deadline=MESH_DEADLINE_S, timeout=120.0)
+    except RuntimeError as e:
+        fail(f"step M: world of {size}: {e}")
 
 
 def _print_world(tag, size: int, reports, shared: bool) -> None:
@@ -2256,8 +2207,8 @@ def mesh_phase(tag, kernels, data=None) -> None:
     the card: the flat merge, the tree merge, NoSeq under the tree merge
     and rep_filter='sorted' on the three distributions at N = 10^7, ten
     streaming inserts of 10^6 rows on the mesh, every answer bit for bit
-    the one-device answer, then the verifier's mesh cells (sync debug
-    mode, CUDA graph capture at q and 2q).  Then worlds of 2 and 4 ranks
+    the one-device answer, then the verifier's mesh cells on 1 x 1
+    meshes (sync debug mode, CUDA graph capture at q and 2q).  Then worlds of 2 and 4 ranks
     sharing the card (gloo, ppermute staged through pinned host memory),
     and on a machine with two or more cards a NCCL world of one rank per
     card."""
@@ -2303,7 +2254,7 @@ def mesh_phase(tag, kernels, data=None) -> None:
     print(f"{tag} M W=1 nccl ten inserts of {CHUNK} anticorrelated rows on "
           f"the mesh (tree merge): bitwise the one-device inserts and the "
           f"one-shot answer, launches {run.counts}")
-    report, errors = verify_programs(MESH_CELLS, device="cuda")
+    report, errors = verify_programs(MESH_CELLS, device="cuda", meshed=True)
     for name, rec in report["cells"].items():
         graph = rec.get("graph", {})
         print(f"{tag} M verifier {name} on mesh {rec.get('mesh')}: "

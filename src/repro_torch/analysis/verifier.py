@@ -64,8 +64,8 @@ import time
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["verify_programs", "verify_world", "graph_ops", "no_sync",
-           "host_op_probe",
+__all__ = ["verify_programs", "verify_world", "Census", "graph_ops",
+           "no_sync", "host_op_probe",
            "HOST_OPS", "DEFAULT_SMEM_CAP", "DEFAULT_MEM_CAP"]
 
 # the sm_90 per-CTA shared-memory opt-in (kernels/sfs/kernel.py:48)
@@ -146,7 +146,7 @@ def _host_op(func, args, kwargs) -> str | None:
     return None
 
 
-class _Census(TorchDispatchMode):
+class Census(TorchDispatchMode):
     """Records every dispatched aten operation of one program run.
 
     ``watch`` maps storage pointers to leaf labels: for each watched
@@ -245,9 +245,9 @@ class _Census(TorchDispatchMode):
         return out
 
 
-def _census(built, watch=None) -> tuple[_Census, object]:
+def _census(built, watch=None) -> tuple[Census, object]:
     """Run ``built`` once under a census; returns (census, outputs)."""
-    with _Census(watch) as census:
+    with Census(watch) as census:
         out = built.fn(*built.args)
     return census, out
 
@@ -359,15 +359,15 @@ def _dims(tree) -> set[int]:
     return {int(s) for t in _tensors(tree) for s in t.shape}
 
 
-def _build(name, spec, *, device, q=None):
+def _build(name, spec, *, device, meshed, q=None):
     from repro_torch.launch.cells import SKYLINE_CELLS, build_skyline_cell
     if q is not None:
         spec = dict(spec, q=q)
     return build_skyline_cell(name, spec, smoke=name in SKYLINE_CELLS,
-                              device=device)
+                              device=device, meshed=meshed)
 
 
-def _check_cell(name, spec, *, device, smem_cap, mem_cap, errors,
+def _check_cell(name, spec, *, device, smem_cap, mem_cap, meshed, errors,
                 record) -> None:
     from repro_torch.core.incremental import state_capacity
     from repro_torch.kernels.backend import smem_estimate
@@ -375,7 +375,7 @@ def _check_cell(name, spec, *, device, smem_cap, mem_cap, errors,
     from repro_torch.core.parallel import merge_rounds
 
     on_card = device.type == "cuda"
-    built = _build(name, spec, device=device)
+    built = _build(name, spec, device=device, meshed=meshed)
     record.update(kind=built.kind, mesh=built.info["mesh"],
                   axes={k: built.info[k] for k in ("workers", "queries")
                         if k in built.info})
@@ -483,7 +483,7 @@ def _check_cell(name, spec, *, device, smem_cap, mem_cap, errors,
 
     if built.kind in _Q_KINDS:
         q2 = spec["q"] * 2
-        built2 = _build(name, spec, device=device, q=q2)
+        built2 = _build(name, spec, device=device, meshed=meshed, q=q2)
         census2, _ = (no_sync(lambda: _census(built2)) if on_card
                       else _census(built2))
         record["op_count_q"] = census.ops
@@ -519,7 +519,8 @@ def _check_cell(name, spec, *, device, smem_cap, mem_cap, errors,
     if on_card:
         graph = {"q": graph_ops(lambda: built.fn(*built.args))}
         if "q" in spec:
-            b2 = _build(name, spec, device=device, q=spec["q"] * 2)
+            b2 = _build(name, spec, device=device, meshed=meshed,
+                        q=spec["q"] * 2)
             graph["2q"] = graph_ops(lambda: b2.fn(*b2.args))
             k1 = graph["q"].get("kernel", 0)
             k2 = graph["2q"].get("kernel", 0)
@@ -531,14 +532,16 @@ def _check_cell(name, spec, *, device, smem_cap, mem_cap, errors,
 
 def verify_programs(names=None, *, device=None,
                     smem_cap: int = DEFAULT_SMEM_CAP,
-                    mem_cap: int = DEFAULT_MEM_CAP):
+                    mem_cap: int = DEFAULT_MEM_CAP, meshed: bool = False):
     """Verify the program suite; returns ``(report: dict, errors:
     list[str])``: empty ``errors`` means every invariant holds.
 
     Runs on the card unless ``device="cpu"`` (without CUDA that raises
     ``RuntimeError``).  ``names`` restricts the suite.  Dry-run cells
     build in smoke size, verifier-only cells at their declared sizes.  A
-    cell that fails to build or to run is an error."""
+    cell that fails to build or to run is an error.  In a world of one
+    the cells run without a mesh (the one-device programs); ``meshed``
+    runs them on 1 x 1 meshes instead (`repro_torch.launch.cells`)."""
     from repro_torch.kernels.backend import resolve_device
     from repro_torch.launch.cells import SKYLINE_CELLS, VERIFIER_EXTRA_CELLS
 
@@ -564,7 +567,8 @@ def verify_programs(names=None, *, device=None,
         t0 = time.perf_counter()
         try:
             _check_cell(name, spec, device=dev, smem_cap=smem_cap,
-                        mem_cap=mem_cap, errors=errors, record=record)
+                        mem_cap=mem_cap, meshed=meshed, errors=errors,
+                        record=record)
         except Exception as e:  # a cell failing to build or run IS a finding
             errors.append(f"{name}: {type(e).__name__}: {e}")
             record["error"] = f"{type(e).__name__}: {e}"
@@ -572,66 +576,33 @@ def verify_programs(names=None, *, device=None,
     return report, errors
 
 
-def _verify_rank(rank, size, path, names, caps, results) -> None:
-    """One rank of `verify_world`: join the gloo world, verify, report."""
-    import traceback
-
-    from repro_torch.launch.mesh import close_world, file_store, init_world
-    torch.set_num_threads(1)
-    try:
-        init_world(rank, size, store=file_store(path, size), device="cpu",
-                   timeout=caps["timeout"])
-        report, errors = verify_programs(names, device="cpu",
-                                         smem_cap=caps["smem"],
-                                         mem_cap=caps["mem"])
-        results.put((rank, report, errors))
-    except Exception:  # a rank that cannot run reports why
-        results.put((rank, None, [traceback.format_exc()]))
-    finally:
-        close_world()
+def _verify_rank(names, caps):
+    """One rank of `verify_world`: the suite on this rank's meshes."""
+    return verify_programs(names, device="cpu", **caps)
 
 
 def verify_world(names=None, *, ranks: int, smem_cap: int = DEFAULT_SMEM_CAP,
                  mem_cap: int = DEFAULT_MEM_CAP):
     """`verify_programs` on the CPU in every rank of a gloo world of
-    ``ranks`` processes (spawned here, joined through a file store in a
-    temporary directory).  Returns ``(report, errors)``: the report has
-    each rank's, and every error names its rank.  A rank that does not
-    report within the mesh's group timeout of the last one fails the run
-    and the world is killed."""
-    import multiprocessing as mp
-    import queue
-    import tempfile
+    ``ranks`` processes (`repro_torch.launch.mesh.run_world`).  Returns
+    ``(report, errors)``: the report has each rank's, and every error
+    names its rank.  A rank that fails, or does not report within the
+    mesh's group timeout, fails the run, and the world is killed."""
+    from repro_torch.launch.mesh import TIMEOUT_S, run_world
 
-    from repro_torch.launch.mesh import TIMEOUT_S as timeout
-
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    caps = {"smem": smem_cap, "mem": mem_cap, "timeout": timeout}
-    with tempfile.TemporaryDirectory() as tmp:
-        path = f"{tmp}/store"
-        procs = [ctx.Process(target=_verify_rank,
-                             args=(r, ranks, path, names, caps, results),
-                             daemon=True) for r in range(ranks)]
-        for proc in procs:
-            proc.start()
-        report: dict = {"device": "cpu", "devices": ranks, "ranks": {}}
-        errors: list[str] = []
-        try:
-            for _ in range(ranks):
-                rank, rep, errs = results.get(timeout=timeout)
-                report["ranks"][rank] = rep
-                errors += [f"rank {rank}: {e}" for e in errs]
-        except queue.Empty:
-            errors.append(f"a rank did not report within {timeout} s")
-        finally:
-            for proc in procs:
-                proc.join(5)
-                if proc.is_alive():
-                    proc.kill()
+    report: dict = {"device": "cpu", "devices": ranks, "ranks": {},
+                    "cells": {}}
+    try:
+        out = run_world(_verify_rank, ranks, names,
+                        {"smem_cap": smem_cap, "mem_cap": mem_cap},
+                        device="cpu", deadline=TIMEOUT_S)
+    except RuntimeError as e:  # the run's failure is the report's error
+        return report, [str(e)]
+    errors: list[str] = []
+    for rank, (rep, errs) in enumerate(out):
+        report["ranks"][rank] = rep
+        errors += [f"rank {rank}: {e}" for e in errs]
     report["cells"] = {name: {str(r): rep["cells"][name]
-                              for r, rep in report["ranks"].items() if rep}
-                       for name in (report["ranks"].get(0) or
-                                    {"cells": {}})["cells"]}
+                              for r, rep in report["ranks"].items()}
+                       for name in report["ranks"][0]["cells"]}
     return report, errors
-

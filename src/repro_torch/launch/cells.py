@@ -31,6 +31,9 @@ run on a 1-D workers mesh, ``batch``, ``stream``, ``window`` and the
 slab cells on a 2-D (queries x workers) mesh, ``wtick`` on a 1-D mesh,
 and ``sweep`` and ``vmap_batch`` on no mesh.  A mesh takes a prefix of
 the ranks; on a rank outside it the cell is not built (``fn`` is None).
+In a world of one no cell has a mesh, so the programs are the
+one-device callers' (``mesh=None``), unless the build asks for 1 x 1
+meshes (``meshed=True``).
 Every cell runs the sliced strategy, so no program holds a generator.
 This module does no device work at import.
 """
@@ -158,10 +161,11 @@ def _scaled_axes(spec: dict, ranks: int):
     return q, w
 
 
-def _mesh(kind: str, spec: dict, ranks: int, dev):
-    """The cell's mesh on a world of ``ranks`` (None: no mesh)."""
+def _mesh(kind: str, spec: dict, ranks: int, dev, meshed: bool):
+    """The cell's mesh on a world of ``ranks`` (None: no mesh; in a
+    world of one, unless ``meshed``)."""
     from repro_torch.launch.mesh import make_engine_mesh, make_worker_mesh
-    if kind in ("sweep", "vmap_batch"):
+    if kind in ("sweep", "vmap_batch") or (ranks == 1 and not meshed):
         return None
     if kind in ("fused", "wtick"):
         _, nw = _scaled_axes(dict(spec, queries=None), ranks)
@@ -178,16 +182,18 @@ def _chunk(rng, lead: tuple, n: int, d: int):
 
 
 def build_skyline_cell(name: str, spec: dict, *, smoke: bool = False,
-                       device=None, ranks: int | None = None) -> BuiltCell:
+                       device=None, ranks: int | None = None,
+                       meshed: bool = False) -> BuiltCell:
     """Construct one cell's program and its inputs on ``device`` (the
     card unless ``"cpu"`` is given; without CUDA that raises).
 
     ``smoke`` shrinks the dry-run cells' data sizes (n by 64, capacity by
     16, as the reference does).  The data are made from a fixed seed, so
     two builds of one spec get the same inputs.  The mesh axes scale to
-    ``ranks`` (default: the world's; one outside a world).  Every rank
-    of the world builds every cell (the meshes are made by all ranks
-    together)."""
+    ``ranks`` (default: the world's; one outside a world); at one rank
+    the cells have no mesh unless ``meshed`` asks for 1 x 1 meshes.
+    Every rank of the world builds every cell (the meshes are made by
+    all ranks together)."""
     from repro_torch.core import incremental, windowed
     from repro_torch.core import parallel as par
     from repro_torch.core.dominance import SENTINEL
@@ -198,7 +204,8 @@ def build_skyline_cell(name: str, spec: dict, *, smoke: bool = False,
 
     dev = resolve_device(device)
     kind = spec["kind"]
-    mesh = _mesh(kind, spec, world_size() if ranks is None else ranks, dev)
+    mesh = _mesh(kind, spec, world_size() if ranks is None else ranks, dev,
+                 meshed)
     if mesh is not None:
         dev = mesh.device
     n = spec["n"] // (64 if smoke else 1)

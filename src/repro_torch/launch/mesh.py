@@ -54,6 +54,15 @@ bits: tensors travel as integers of their width, so ``-0.0`` and NaN
 payloads arrive as they left.  Every group is made with a timeout, so a
 rank that never arrives fails the others instead of hanging them.
 
+Spawned worlds.  `World` spawns W processes (the ``spawn`` context),
+joins them through a file store (no port is opened) and keeps them for
+many runs: ``world.run(fn, *args)`` calls ``fn(*args)`` in every rank
+and returns each rank's result.  `run_world` is one such run in a world
+made and closed for it.  Every run has a deadline: a rank that fails
+fails the run, and a rank that does not answer in time gets the world
+killed.  The mesh tests, ``verify_world`` and ``chip_smoke.py``'s
+step M spawn their worlds through it.
+
 ``make_production_mesh`` and ``make_local_mesh`` (the LLM template
 side's meshes) are item 14 of ROADMAP.md.
 """
@@ -62,14 +71,20 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import multiprocessing
+import os
+import queue
+import tempfile
+import time
+import traceback
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.kernels.backend import collective_call, resolve_device
 
-__all__ = ["WorkerMesh", "init_world", "close_world", "world_size",
-           "file_store", "make_worker_mesh", "make_engine_mesh",
+__all__ = ["WorkerMesh", "World", "init_world", "close_world", "world_size",
+           "file_store", "run_world", "make_worker_mesh", "make_engine_mesh",
            "engine_mesh_shape", "TIMEOUT_S", "SHARED_CARD_STAGED"]
 
 # seconds a collective waits for the other ranks before it fails
@@ -136,6 +151,102 @@ def close_world() -> None:
 def world_size() -> int:
     """Ranks in the world (1 outside one)."""
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+class World:
+    """``size`` spawned ranks joined into one world through the file
+    store at ``store`` (on ``device``: see `init_world`; each collective
+    waits ``timeout`` seconds), kept until `close`.  ``run(fn, *args)``
+    calls ``fn(*args)`` in every rank (``fn`` a module-level function,
+    its arguments and result picklable) and returns the results in rank
+    order; it raises ``RuntimeError`` with the tracebacks when a rank
+    fails, and kills the world when a rank does not answer within
+    ``deadline`` seconds."""
+
+    def __init__(self, size: int, store: str, *, device="cpu",
+                 timeout: float = TIMEOUT_S):
+        ctx = multiprocessing.get_context("spawn")
+        self.size = size
+        self.results = ctx.Queue()
+        self.tasks = [ctx.Queue() for _ in range(size)]
+        self.procs = [ctx.Process(target=_serve_rank,
+                                  args=(r, size, str(store), device, timeout,
+                                        self.tasks[r], self.results),
+                                  daemon=True) for r in range(size)]
+        for proc in self.procs:
+            proc.start()
+
+    def run(self, fn, *args, deadline: float) -> list:
+        for tasks in self.tasks:
+            tasks.put((fn, args))
+        out: list = [None] * self.size
+        errors = []
+        end = time.monotonic() + deadline
+        for _ in range(self.size):
+            try:
+                rank, ok, payload = self.results.get(
+                    timeout=max(end - time.monotonic(), 0.01))
+            except queue.Empty:
+                self.kill()
+                raise RuntimeError(
+                    f"{fn.__name__}: a rank of {self.size} did not answer "
+                    f"within {deadline} s; the world was killed") from None
+            if ok:
+                out[rank] = payload
+            else:
+                errors.append(f"rank {rank}:\n{payload}")
+        if errors:
+            raise RuntimeError(f"{fn.__name__} failed:\n" + "\n".join(errors))
+        return out
+
+    def kill(self) -> None:
+        for proc in self.procs:
+            if proc.is_alive():
+                proc.kill()
+        for proc in self.procs:
+            proc.join(5)
+
+    def close(self) -> None:
+        """Let every rank leave the world, then stop what is left."""
+        for tasks in self.tasks:
+            tasks.put(None)
+        end = time.monotonic() + 20
+        for proc in self.procs:
+            proc.join(max(end - time.monotonic(), 0.01))
+        self.kill()
+
+
+def _serve_rank(rank, size, store, device, timeout, tasks, results) -> None:
+    """A rank of `World`: join the world, then run each task sent."""
+    try:
+        dev = init_world(rank, size, store=file_store(store, size),
+                         device=device, timeout=timeout)
+    except Exception:  # the parent's run reports the traceback
+        results.put((rank, False, traceback.format_exc()))
+        return
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    while (item := tasks.get()) is not None:
+        fn, args = item
+        try:
+            results.put((rank, True, fn(*args)))
+        except Exception:  # the parent's run reports the traceback
+            results.put((rank, False, traceback.format_exc()))
+    close_world()
+
+
+def run_world(fn, size: int, *args, device="cpu", deadline: float,
+              timeout: float = TIMEOUT_S) -> list:
+    """``fn(*args)`` in every rank of a `World` of ``size`` made for this
+    one run (its store in a temporary directory, removed after); each
+    rank's result, in rank order."""
+    with tempfile.TemporaryDirectory() as tmp:
+        world = World(size, os.path.join(tmp, "store"), device=device,
+                      timeout=timeout)
+        try:
+            return world.run(fn, *args, deadline=deadline)
+        finally:
+            world.close()
 
 
 def _ensure_world(device) -> torch.device:

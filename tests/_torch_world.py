@@ -1,8 +1,8 @@
 """A gloo world of CPU ranks for the port's mesh tests.
 
-``World(size, tmpdir)`` spawns ``size`` processes (the ``spawn``
-context), joins them into one gloo world through a ``FileStore`` under
-``tmpdir`` (never a TCP port), and keeps them for the tests of a file:
+``World(size, tmpdir)`` spawns ``size`` processes joined into one gloo
+world through a ``FileStore`` under ``tmpdir`` (never a TCP port), and
+keeps them for the tests of a file (`repro_torch.launch.mesh.World`):
 ``world.run(task, *args)`` runs ``task`` (the name of a function of this
 module) in every rank with the same arguments and returns each rank's
 result, in rank order.  Every group has a timeout and every run a
@@ -15,90 +15,29 @@ children never import JAX.  The tasks take and return numpy arrays.
 
 from __future__ import annotations
 
-import multiprocessing as mp
 import os
-import queue
 import time
-import traceback
 
 import numpy as np
+
+from repro_torch.launch.mesh import World as _MeshWorld
 
 GROUP_TIMEOUT_S = 40.0
 DEADLINE_S = 100.0
 
 
-class World:
+class World(_MeshWorld):
+    """`repro_torch.launch.mesh.World` of CPU ranks whose tasks are named
+    by the functions of this module."""
+
     def __init__(self, size: int, tmpdir, *,
                  group_timeout: float = GROUP_TIMEOUT_S):
-        ctx = mp.get_context("spawn")
-        self.size = size
-        self.results = ctx.Queue()
-        self.tasks = [ctx.Queue() for _ in range(size)]
-        store = os.path.join(str(tmpdir), "store")
-        self.procs = [ctx.Process(target=_rank_main,
-                                  args=(r, size, store, group_timeout,
-                                        self.tasks[r], self.results),
-                                  daemon=True) for r in range(size)]
-        for p in self.procs:
-            p.start()
+        super().__init__(size, os.path.join(str(tmpdir), "store"),
+                         device="cpu", timeout=group_timeout)
 
     def run(self, task: str, *args, deadline: float = DEADLINE_S) -> list:
         """``task(*args)`` in every rank; each rank's result by rank."""
-        for q in self.tasks:
-            q.put((task, args))
-        out: list = [None] * self.size
-        errors = []
-        end = time.monotonic() + deadline
-        for _ in range(self.size):
-            try:
-                rank, ok, payload = self.results.get(
-                    timeout=max(end - time.monotonic(), 0.01))
-            except queue.Empty:
-                self.kill()
-                raise AssertionError(f"{task}: a rank did not answer within "
-                                     f"{deadline} s; the world was killed")
-            if ok:
-                out[rank] = payload
-            else:
-                errors.append(f"rank {rank}:\n{payload}")
-        if errors:
-            raise AssertionError(f"{task} failed:\n" + "\n".join(errors))
-        return out
-
-    def kill(self) -> None:
-        for p in self.procs:
-            if p.is_alive():
-                p.kill()
-        for p in self.procs:
-            p.join(5)
-
-    def close(self) -> None:
-        for q in self.tasks:
-            q.put(None)
-        end = time.monotonic() + 20
-        for p in self.procs:
-            p.join(max(end - time.monotonic(), 0.01))
-        self.kill()
-
-
-def _rank_main(rank, size, store_path, group_timeout, tasks, results):
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.launch import mesh as tmesh
-    torch.set_num_threads(1)
-    tmesh.init_world(rank, size, store=dist.FileStore(store_path, size),
-                     device="cpu", timeout=group_timeout)
-    while True:
-        item = tasks.get()
-        if item is None:
-            break
-        name, args = item
-        try:
-            results.put((rank, True, globals()[name](*args)))
-        except Exception:  # the parent fails the test with the traceback
-            results.put((rank, False, traceback.format_exc()))
-    tmesh.close_world()
+        return super().run(globals()[task], *args, deadline=deadline)
 
 
 # --------------------------------------------------------------------------
@@ -196,9 +135,10 @@ def skyline_cases(workers: int, cases: list) -> list | None:
 
 
 def stream_case(workers: int, pts, chunk: int, cfg_kw: dict, batched_q):
-    """Chunked inserts on a mesh of ``workers`` against the one-shot
-    answer on the same mesh; ``batched_q`` > 0 runs Q states on a
-    (batched_q x workers/batched_q) mesh instead."""
+    """Chunked inserts on a mesh of ``workers`` and the one-shot answer
+    on the same mesh, with the one-device one-shot answer beside them;
+    ``batched_q`` > 0 runs Q states on a (batched_q x
+    workers/batched_q) mesh instead."""
     import torch
     from repro_torch.core import incremental as inc
     from repro_torch.core.parallel import fused_skyline_batch_fn
@@ -215,19 +155,22 @@ def stream_case(workers: int, pts, chunk: int, cfg_kw: dict, batched_q):
     d = pts.shape[-1]
     if batched_q:
         q = pts.shape[0]
-        one, _ = fused_skyline_batch_fn(cfg, m)(
-            pts, torch.ones(pts.shape[:2], dtype=torch.bool))
+        valid = torch.ones(pts.shape[:2], dtype=torch.bool)
+        one, _ = fused_skyline_batch_fn(cfg, m)(pts, valid)
+        solo, _ = fused_skyline_batch_fn(cfg)(pts, valid)
         state = inc.init_state(cfg, d, q=q, device="cpu")
         for lo in range(0, pts.shape[1], chunk):
             state, _ = inc.insert_chunk(state, pts[:, lo:lo + chunk],
                                         cfg=cfg, mesh=m)
     else:
         one, _ = parallel_skyline(pts, cfg=cfg, mesh=m)
+        solo, _ = parallel_skyline(pts, cfg=cfg, device="cpu")
         state = inc.init_state(cfg, d, device="cpu")
         for lo in range(0, pts.shape[0], chunk):
             state, _ = inc.insert_chunk(state, pts[lo:lo + chunk], cfg=cfg,
                                         mesh=m)
-    return _leaves(one), _leaves(inc.finalize(state, cfg=cfg))
+    return (_leaves(one), _leaves(inc.finalize(state, cfg=cfg)),
+            _leaves(solo))
 
 
 def window_case(workers: int, chunks: list, epochs: int, cfg_kw: dict,

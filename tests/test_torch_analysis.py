@@ -567,11 +567,11 @@ def test_slab_wave_cell_matches_the_reference():
 # --------------------------------------------------------------------------
 
 def test_program_verifier_invariants_hold_on_the_cpu():
-    """Layer 2 over every cell: no host round-trips, collectives on the
-    workers group only (none without a mesh), Q-independent operation
-    counts, the slab boundary census, in-place state updates and the
-    shared-memory cap; memory is not measured on the CPU and never
-    reported as passed.  In a world of one every mesh is 1 x 1."""
+    """Layer 2 over every cell: no host round-trips, no collectives,
+    Q-independent operation counts, the slab boundary census, in-place
+    state updates and the shared-memory cap; memory is not measured on
+    the CPU and never reported as passed.  In a world of one the cells
+    have no mesh: these are the one-device programs."""
     report, errors = verify_programs(device="cpu")
     assert errors == [], errors
     cells = report["cells"]
@@ -579,11 +579,8 @@ def test_program_verifier_invariants_hold_on_the_cpu():
     assert report["device"] == "cpu" and report["devices"] == 1
     for name, rec in cells.items():
         assert rec["host_ops"] == [], name
-        assert all(k.endswith("@workers") for k in rec["collectives"]), name
-        if rec["mesh"] is None:
-            assert rec["collectives"] == {}, name
-        else:
-            assert rec["mesh"] == {"queries": 1, "workers": 1}, name
+        assert rec["mesh"] is None, name
+        assert rec["collectives"] == {}, name
         assert rec["memory"]["measured"] is False, name
         assert "graph" not in rec, name
         assert max(rec["smem"].values()) <= report["smem_cap"], name
@@ -603,6 +600,33 @@ def test_program_verifier_invariants_hold_on_the_cpu():
         assert spec["rows"] in cells[name]["boundary_dims"]
     assert cells["stream_8x64"]["kernels"] == {"sfs_sweep": 2,
                                               "dominated_mask": 2}
+
+
+@pytest.mark.parametrize("names", [
+    ("tree_merge_p512", "fused_p512"),
+    ("batch_8x64", "stream_8x64", "window_8x64", "window_tick", "slab_wave")])
+def test_program_verifier_on_one_by_one_meshes(names):
+    """``meshed=True`` builds the mesh cells on 1 x 1 meshes in a world of
+    one: the invariants hold, the collectives run on the workers group,
+    the tree cell runs ceil(log2 1) = 0 rounds, and the cells without a
+    mesh stay without one."""
+    report, errors = verify_programs(list(names) + ["engine_vmap"],
+                                     device="cpu", meshed=True)
+    assert errors == [], errors
+    cells = report["cells"]
+    assert cells["engine_vmap"]["mesh"] is None
+    assert cells["engine_vmap"]["collectives"] == {}
+    for name in names:
+        rec = cells[name]
+        assert rec["mesh"] == {"queries": 1, "workers": 1}, name
+        assert rec["host_ops"] == [], name
+        assert all(k.endswith("@workers") for k in rec["collectives"]), name
+    if "tree_merge_p512" in cells:
+        assert cells["tree_merge_p512"]["tree_rounds"] == \
+            {"expected": 0, "ppermute": 0}
+    for name in set(names) & {"batch_8x64", "stream_8x64", "window_8x64",
+                              "slab_wave"}:
+        assert cells[name]["op_count_q"] == cells[name]["op_count_2q"], name
 
 
 def _wrapped_batch_fn(monkeypatch, wrap):

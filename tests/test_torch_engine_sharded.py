@@ -4,12 +4,21 @@ Counterpart of ``tests/test_engine_sharded.py``.  In one world of eight
 ranks (`_torch_world.World`): on 2 x 2 and 2 x 4 meshes, with Q = 4 and
 8 ragged queries (masked ones among them), the sharded engine's answers
 and stream snapshots are the one-device engine's bit for bit, on every
-rank; buckets below ``shard_threshold_n`` run on one device and those
+rank, and for four of the cases the reference's sharded engine's on
+the same mesh (JAX subprocesses with eight forced host devices; the
+random strategy is held against the one-device engine only, since torch
+cannot draw the reference's threefry ids per request); buckets below ``shard_threshold_n`` run on one device and those
 at or above it sharded; ``calibrate_shard_threshold`` times the
 one-device batch, every factoring and both merges and routes each
 bucket through its winner; and the scheduler's default engine takes a
 mesh over the world.  In this process: the mesh checks of the
 constructor and the calibration's grid rule."""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -19,6 +28,7 @@ from repro_torch.core.parallel import SkyConfig
 from repro_torch.launch.mesh import make_engine_mesh
 from repro_torch.serve.engine import SkylineEngine, calibrate_shard_threshold
 
+ROOT = os.path.join(os.path.dirname(__file__), "..")
 WORLD = 8
 
 
@@ -61,16 +71,119 @@ CFGS = {
 }
 
 
-@pytest.mark.parametrize("shape,q", [((2, 2), 4), ((2, 4), 8), ((2, 4), 4),
-                                     ((2, 2), 8)])
+SHAPES = [((2, 2), 4), ((2, 4), 8), ((2, 4), 4), ((2, 2), 8)]
+# each (mesh, Q) once against the reference engine, each configuration
+# that torch draws alike on a 2 x 2 and a 2 x 4 mesh (about 15 s of JAX
+# compiles a case); the random strategy's ids are threefry draws per
+# request, so it is held against the one-device engine only
+REFERENCE_CASES = [("sliced", SHAPES[0]), ("sliced", SHAPES[1]),
+                   ("grid-rep-noseq-tree", SHAPES[2]),
+                   ("grid-rep-noseq-tree", SHAPES[3])]
+
+_REFERENCE = """
+import json, sys
+import numpy as np, jax.numpy as jnp
+from repro.core import SkyConfig
+from repro.launch.mesh import make_engine_mesh
+from repro.serve.api import SkylineRequest, StreamOptions
+from repro.serve.engine import SkylineEngine
+
+spec = json.load(open(sys.argv[1]))
+data = np.load(sys.argv[2])
+out = {}
+for name, qa, wa, q, cfg in spec:
+    items = [data[f"{name}/x{i}"] for i in range(q)]
+    masks = [data[f"{name}/m{i}"] if f"{name}/m{i}" in data else None
+             for i in range(q)]
+    eng = SkylineEngine(SkyConfig(**cfg), min_n_bucket=64,
+                        mesh=make_engine_mesh(qa, wa), shard_threshold_n=64)
+    reqs = [SkylineRequest(data=jnp.asarray(x),
+                           mask=None if m is None else jnp.asarray(m))
+            for x, m in zip(items, masks)]
+    for i, (b, _) in enumerate(eng.submit_many(reqs)):
+        for k, leaf in enumerate(b):
+            out[f"{name}/got/{i}/{k}"] = np.asarray(leaf)
+    assert eng.sharded_dispatched == eng.batches_dispatched >= 3
+    st = eng.open_stream(items[0].shape[1], StreamOptions(q=q))
+    for lo in (0, 64):
+        st.feed([jnp.asarray(x[lo:lo + 64]) for x in items])
+    for i, b in enumerate(st.drain().snapshot()):
+        for k, leaf in enumerate(b):
+            out[f"{name}/stream/{i}/{k}"] = np.asarray(leaf)
+    st.close()
+np.savez(sys.argv[3], **out)
+print("OK")
+"""
+
+
+def _case_name(cfg, shape, q):
+    return f"{cfg}-{shape[0]}x{shape[1]}-q{q}"
+
+
+@pytest.fixture(scope="module")
+def reference(world, tmp_path_factory):
+    """The reference engine's answers on the same meshes for
+    `REFERENCE_CASES`; one JAX subprocess per case, all at once, the
+    world's ranks starting meanwhile."""
+    tmp = tmp_path_factory.mktemp("ref")
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={WORLD}"
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    env["JAX_PLATFORMS"] = "cpu"
+    parts = [(cfg, [sq]) for cfg, sq in REFERENCE_CASES]
+    procs = []
+    for j, (cfg, shapes) in enumerate(parts):
+        spec, arrays = [], {}
+        for shape, q in shapes:
+            name = _case_name(cfg, shape, q)
+            items, masks = _queries(q, seed=q + shape[1])
+            for i, (x, m) in enumerate(zip(items, masks)):
+                arrays[f"{name}/x{i}"] = x
+                if m is not None:
+                    arrays[f"{name}/m{i}"] = m
+            spec.append([name, shape[0], shape[1], q, CFGS[cfg]])
+        (tmp / f"spec{j}.json").write_text(json.dumps(spec))
+        np.savez(tmp / f"in{j}.npz", **arrays)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c",
+             textwrap.dedent(_REFERENCE),
+             str(tmp / f"spec{j}.json"), str(tmp / f"in{j}.npz"),
+             str(tmp / f"out{j}.npz")], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env))
+    out = {}
+    for j, proc in enumerate(procs):
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        assert proc.returncode == 0, f"stdout:\n{stdout}\nstderr:\n{stderr}"
+        out.update(np.load(tmp / f"out{j}.npz"))
+    return out
+
+
+@pytest.mark.parametrize("shape,q", SHAPES)
 @pytest.mark.parametrize("cfg", list(CFGS))
-def test_sharded_engine_matches_one_device_engine(world, shape, q, cfg):
+def test_sharded_engine_matches_one_device_engine(world, reference, shape,
+                                                  q, cfg):
     items, masks = _queries(q, seed=q + shape[1])
     out = world.run("engine_case", shape[0], shape[1], items, CFGS[cfg], 64,
                     masks)
     n = shape[0] * shape[1]
     assert all(o is None for o in out[n:])
+    name = _case_name(cfg, shape, q)
+    held = (cfg, (shape, q)) in REFERENCE_CASES
     for r, o in enumerate(out[:n]):
+        if held:    # the reference's sharded engine, leaf by leaf
+            for i, (g, _) in enumerate(o["got"]):
+                for k, a in enumerate(g):
+                    np.testing.assert_array_equal(
+                        _bits(a), _bits(reference[f"{name}/got/{i}/{k}"]),
+                        err_msg=f"rank {r} query {i} leaf {k}")
+            for i, b in enumerate(o["streams"][0]):
+                for k, a in enumerate(b):
+                    np.testing.assert_array_equal(
+                        _bits(a), _bits(reference[f"{name}/stream/{i}/{k}"]),
+                        err_msg=f"rank {r} stream {i} leaf {k}")
         assert o["sharded"] == o["batches"] >= 3   # every bucket sharded
         for (g, gv), (w, wv) in zip(o["got"], o["want"]):
             for k, (a, b) in enumerate(zip(g, w)):

@@ -13,8 +13,11 @@ random strategy takes the reference's ids, ROADMAP.md contract 5) and
 Outside overflow each mesh answer is also the port's one-device answer;
 the overflow cases, where the tree truncates otherwise than the flat
 merge, are held against the reference's tree bits.  Chunked inserts on
-a mesh equal the one-shot answer, and a window fed on a mesh equals the
-reference's window leaf by leaf."""
+a mesh (one state on six workers; Q = 4 and 8 states on 2 x 2 and
+2 x 4 meshes, the 2-D batch) equal the reference's chunked inserts on
+the same mesh, and their one-shot answer the reference's
+``parallel_skyline`` or ``fused_skyline_batch_fn`` on that mesh; a window
+fed on a mesh equals the reference's window leaf by leaf."""
 
 import json
 import os
@@ -88,7 +91,8 @@ from repro.core import SkyConfig, parallel_skyline
 from repro.core import incremental as inc, windowed as win
 from repro.core.datagen import generate
 from repro.core.partition import random_part_ids
-from repro.core.parallel import effective_parts
+from repro.core.parallel import effective_parts, fused_skyline_batch_fn
+from repro.launch.mesh import make_engine_mesh
 
 spec = json.load(open(sys.argv[1]))
 out = {}
@@ -116,6 +120,34 @@ for i, c in spec["cases"]:
         out[f"{i}/ids"] = np.asarray(random_part_ids(jax.random.PRNGKey(0),
                                                      pts.shape[0], p))
 
+# chunked inserts on a mesh, and the one-shot answer on it: one state on
+# a workers mesh, or Q states on a (queries x workers) mesh
+for j, s in spec["streams"]:
+    base = data(*s["data"])
+    cfg = SkyConfig(**s["cfg"])
+    if s["qa"]:
+        pts = np.stack([base[slice(*sl)] for sl in s["slices"]])
+        m = make_engine_mesh(s["qa"], s["w"] // s["qa"])
+        keys = jax.random.split(jax.random.PRNGKey(0), pts.shape[0])
+        one, _ = fused_skyline_batch_fn(cfg, m)(
+            jnp.asarray(pts), jnp.ones(pts.shape[:2], bool), keys)
+        st = inc.init_state(cfg, pts.shape[-1], q=pts.shape[0])
+        for lo in range(0, pts.shape[1], s["chunk"]):
+            st, _ = inc.insert_chunk(
+                st, jnp.asarray(pts[:, lo:lo + s["chunk"]]), cfg=cfg, mesh=m)
+    else:
+        pts = base[slice(*s["slices"][0])]
+        m = mesh(s["w"])
+        one, _ = parallel_skyline(jnp.asarray(pts), cfg=cfg, mesh=m)
+        st = inc.init_state(cfg, pts.shape[-1])
+        for lo in range(0, pts.shape[0], s["chunk"]):
+            st, _ = inc.insert_chunk(
+                st, jnp.asarray(pts[lo:lo + s["chunk"]]), cfg=cfg, mesh=m)
+    out[f"s{j}/pts"] = pts
+    for k, (a, b) in enumerate(zip(one, inc.finalize(st, cfg=cfg))):
+        out[f"s{j}/one/{k}"] = np.asarray(a)
+        out[f"s{j}/fin/{k}"] = np.asarray(b)
+
 # a window fed on a mesh, leaf by leaf after every insert
 w = spec["window"]
 if w:
@@ -137,6 +169,21 @@ np.savez(sys.argv[2], **out)
 print("OK")
 """
 
+# (id, workers, queries size or 0 for a 1-D mesh, row slices of the
+# data; one per state on a 2-D mesh); 270 or 540 rows, chunks of 90
+_Q8 = [[0, 270, 1], [270, 540, 1], [135, 405, 1], [269, None, -1],
+       [67, 337, 1], [539, 269, -1], [200, 470, 1], [0, 540, 2]]
+STREAMS = [("6-0", 6, 0, [[0, 540, 1]]),
+           ("4-2", 4, 2, _Q8[:4]),
+           ("4-2-q8", 4, 2, _Q8),
+           ("8-2-q4", 8, 2, _Q8[:4]),
+           ("8-2", 8, 2, _Q8)]
+STREAM_SPEC = [[j, {"w": w, "qa": qa, "slices": sl, "chunk": 90,
+                    "data": [3, 600, 3, 12],
+                    "cfg": dict(BASE, strategy="sliced", p=8 if qa else 12,
+                                merge="tree")}]
+               for j, (_, w, qa, sl) in enumerate(STREAMS)]
+
 WINDOW = {"w": 4, "epochs": 3, "rows": 150, "chunks": 5,
           "advance_after": [1, 3], "data": [6, 750, 3, 9],
           "cfg": dict(BASE, strategy="sliced", p=8, merge="tree",
@@ -152,31 +199,33 @@ def world(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def reference(world, tmp_path_factory):
-    """The reference's answers, from two JAX subprocesses (half the cases
-    each, the world's ranks starting meanwhile)."""
+    """The reference's answers, from three JAX subprocesses (half the
+    cases each, and the chunked inserts; the world's ranks starting
+    meanwhile)."""
     tmp = tmp_path_factory.mktemp("ref")
     env = dict(os.environ)
     env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={WORLD}"
     env["PYTHONPATH"] = os.path.join(ROOT, "src")
     env["JAX_PLATFORMS"] = "cpu"
     procs = []
-    for half in range(2):
-        spec = tmp / f"spec{half}.json"
+    for part in range(3):
+        spec = tmp / f"spec{part}.json"
         spec.write_text(json.dumps({
-            "cases": [[i, c] for i, c in enumerate(CASES) if i % 2 == half],
-            "window": WINDOW if half else None}))
+            "cases": [[i, c] for i, c in enumerate(CASES) if i % 2 == part],
+            "streams": STREAM_SPEC if part == 2 else [],
+            "window": WINDOW if part == 1 else None}))
         procs.append(subprocess.Popen(
             [sys.executable, "-c", textwrap.dedent(_REFERENCE), str(spec),
-             str(tmp / f"ref{half}.npz")], stdout=subprocess.PIPE,
+             str(tmp / f"ref{part}.npz")], stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True, env=env))
     out = {}
-    for half, proc in enumerate(procs):
+    for part, proc in enumerate(procs):
         try:
             stdout, stderr = proc.communicate(timeout=300)
         finally:
             proc.kill()
         assert proc.returncode == 0, f"stdout:\n{stdout}\nstderr:\n{stderr}"
-        out.update(np.load(tmp / f"ref{half}.npz"))
+        out.update(np.load(tmp / f"ref{part}.npz"))
     return out
 
 
@@ -245,23 +294,30 @@ def test_overflow_cases_truncate_otherwise_than_flat(mesh_answers,
     assert differ >= 1
 
 
-@pytest.mark.parametrize("w,batched_q", [(6, 0), (4, 2)])
-def test_chunked_inserts_on_mesh_equal_one_shot(world, reference, w,
-                                                batched_q):
-    """Chunked inserts on a mesh finalize to the one-shot answer on the
-    same mesh, bit for bit (one state on six workers under the tree
-    merge; four states on a 2 x 2 mesh)."""
-    pts = reference["0/pts"][:540]
-    cfg = dict(BASE, strategy="sliced", p=12 if not batched_q else 8,
-               merge="tree")
-    if batched_q:
-        pts = np.stack([pts[:270], pts[270:], pts[135:405], pts[:270][::-1]])
-    out = world.run("stream_case", w, pts, 90, cfg, batched_q)
+@pytest.mark.parametrize("j", range(len(STREAMS)),
+                         ids=[s[0] for s in STREAMS])
+def test_chunked_inserts_on_mesh_equal_one_shot(world, reference, j):
+    """Chunked inserts on a mesh finalize to the reference's chunked
+    inserts on the same mesh, and to the one-shot answer there, bit for
+    bit; the one-shot answer is the reference's (``parallel_skyline`` on
+    six workers, ``fused_skyline_batch_fn`` for Q = 4 and 8 states on
+    2 x 2 and 2 x 4 meshes) and the port's one-device answer."""
+    _, w, qa, _ = STREAMS[j]
+    pts = reference[f"s{j}/pts"]
+    want_one = [reference[f"s{j}/one/{k}"] for k in range(4)]
+    want_fin = [reference[f"s{j}/fin/{k}"] for k in range(4)]
+    assert not want_one[3].any()
+    out = world.run("stream_case", w, pts, 90, STREAM_SPEC[j][1]["cfg"], qa)
     for r in range(w):
-        one, fin = out[r]
+        one, fin, solo = out[r]
+        _assert_leaves(one, want_one, f"one-shot, rank {r}")
+        _assert_leaves(fin, want_fin, f"chunked, rank {r}")
+        _assert_leaves(solo, want_one, f"one device, rank {r}")
         np.testing.assert_array_equal(_bits(one[0]), _bits(fin[0]))
         np.testing.assert_array_equal(one[1], fin[1])
         np.testing.assert_array_equal(one[2], fin[2])
+    for r in range(w, WORLD):
+        assert out[r] is None
 
 
 def test_window_on_mesh_matches_reference(world, reference):
