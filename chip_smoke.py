@@ -162,13 +162,32 @@ It builds the port's CUDA kernels from the sources in the checkout
      (one card shared by W ranks: a check of the schedule, not of
      scaling); on a machine with two or more cards, a NCCL world of one
      rank per card (else a line says it did not run);
+  T. runs the kernel autotuner (``repro_torch.kernels.tuning``), after
+     step M: ``calibrate_kernels`` at its defaults (d = 4, f32, n =
+     16,384, p = 8, blocks 128, 256, 512, repeat 3) with every sweep
+     candidate bit for bit ``impl='perpair'`` and the dominance entry the
+     oracle's, each block's time and the winner against block 256; the
+     table saved under build/ and applied to an engine, and each block as
+     a table entry, each engine's N = 10^7 anticorrelated answer bit for
+     bit an untuned engine's, with its time;
+  L. runs the launch entry points as a user would, in subprocesses: the
+     serve entry point under ``python -m repro_torch.launch.env --tuning <table>``
+     (streaming windowed admission, the serve loop with a 200 ms SLO, a
+     sharded batch on a 1 x 1 NCCL mesh; it must report the tuned
+     geometries), then the skyline dry run at full cell sizes on a world
+     of one (every cell ok), with each cell's peak bytes;
+  P. runs ``pareto_mask`` and ``pareto_select`` (``repro_torch.data.
+     selection``) on 131,072 examples x 3 criteria from
+     ``example_criteria``, one dominance launch each, bit for bit the
+     same calls with impl='torch', and their times;
   8. prints the script's run time, one JSON line with both kernels, then
      the device line.
 
 With ``--kernels-only`` it stops after step 3 and prints no result;
 with ``--engine-only`` (``--serve-only``, ``--verify-only``,
-``--mesh-only``) it runs the build and then the engine step 6c (the
-serve step 6d, step V, step M) alone, and prints no result either.
+``--mesh-only``, ``--tuning-only``) it runs the build and then the
+engine step 6c (the serve step 6d, step V, step M, steps T, L and P)
+alone, and prints no result either.
 Steps 5 and 6 run the default config, so inserts and ring operations
 write their state in place; each timed or traced rerun works on a fresh
 copy of the state it starts from.  Step 6d holds donation on against
@@ -182,6 +201,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import platform
 import re
 import subprocess
@@ -2295,6 +2315,193 @@ def mesh_phase(tag, kernels, data=None) -> None:
     print(f"{tag} M: {time.perf_counter() - t0:.3f} s")
 
 
+# -- T, L, P. the autotuner, the launch entry points, curation ---------------
+
+TUNE_BLOCKS = (128, 256, 512)      # calibrate_kernels' default blocks
+ROOT = Path(__file__).resolve().parent
+TUNE_TABLE = str(ROOT / "build" / "kernel_tuning.json")
+DRYRUN_RESULTS = ROOT / "build" / "dryrun_torch"
+SUBPROCESS_S = 600                 # bound on each subprocess of step L
+PARETO_N = 131_072                 # examples of step P
+
+
+def tuning_phase(tag, kernels, data=None) -> str:
+    """Step T: `calibrate_kernels` at the reference's defaults (d = 4,
+    f32, n = 16,384, p = 8, capacity from SkyConfig(), blocks 128, 256,
+    512, repeat 3) on the card: every sweep candidate and the dominance
+    entry bit for bit their references, each block's time, the winner
+    against the default block 256.  The table is saved under build/ and
+    applied to an engine, then each other block as a table entry: each
+    tuned engine answers the anticorrelated N = 10^7 default query bit
+    for bit as an untuned engine, and each is timed.  Returns the
+    table's path."""
+    from repro_torch.core import parallel
+    from repro_torch.kernels.tuning import (TuningTable, calibrate_kernels,
+                                            tuning_key)
+    from repro_torch.serve.engine import SkylineEngine, SkylineRequest
+
+    t0 = time.perf_counter()
+    probe = SkylineEngine(parallel.SkyConfig())
+    with Launches(*kernels) as run:
+        rep = calibrate_kernels(probe, blocks=TUNE_BLOCKS, repeat=3)
+    table = rep["table"]
+    key = tuning_key("sweep", D_MAIN, torch.float32)
+    dkey = tuning_key("dominance", D_MAIN, torch.float32)
+    ok = rep["keys"][key]["bitwise_ok"]
+    check(rep["impl"] == "cuda" and table.topology["platform"] == "cuda",
+          f"step T: calibrated {rep['impl']} on "
+          f"{table.topology['platform']}, expected the CUDA kernels")
+    check(rep["divergent"] == [] and all(ok.values())
+          and all(rep["keys"][dkey]["bitwise_ok"].values()),
+          f"step T: divergent candidates {rep['divergent']}: {ok}")
+    times = rep["keys"][key]["times_us"]
+    check(sorted(times) == sorted(f"b{b}/t0" for b in TUNE_BLOCKS),
+          f"step T: sweep candidates {sorted(times)}")
+    # per candidate a warm-up, 3 timed runs and one checked run
+    want = (5 * len(TUNE_BLOCKS), 5)
+    check(run.counts == want, f"step T: launches {run.counts}, expected "
+          f"{want}")
+    win = table.entries[key]
+    print(f"{tag} T calibrate_kernels d={D_MAIN} f32 n=16384 p=8 capacity "
+          f"{probe.cfg.capacity}: sweep us per block "
+          f"{ {k: times[k] for k in sorted(times)} }, each bitwise equal to "
+          f"impl='perpair'; winner block {win.block} ({win.time_us} us) "
+          f"against the default block 256 ({times['b256/t0']} us, "
+          f"{times['b256/t0'] / win.time_us:.3f}x); dominance 'fixed' "
+          f"{table.entries[dkey].time_us} us, bitwise equal to the oracle; "
+          f"launches (sweep, dominance) {run.counts}")
+    path = table.save(TUNE_TABLE)
+    check(TuningTable.load(path).to_json() == table.to_json(),
+          "step T: the saved table does not load back")
+
+    cfg = parallel.SkyConfig(capacity=65536)
+    x = data["anticorrelated"] if data else _data("anticorrelated", 2,
+                                                  torch.device("cuda"))
+    req = [SkylineRequest(data=x)]
+    # one query a bucket (no padding queries): the default query's work
+    plain = SkylineEngine(cfg, min_q_bucket=1)
+    (base, _), = plain.submit_many(req)
+    t_plain, _ = time_ms(lambda: plain.submit_many(req))
+    tuned_ms = {}
+    for b in TUNE_BLOCKS:
+        # the calibrated table, then each other block as a table entry
+        entry = dataclasses.replace(win, block=b)
+        table_b = TuningTable.load(path) if b == win.block else TuningTable(
+            entries={key: entry})
+        tuned = SkylineEngine(cfg, min_q_bucket=1)
+        tuned.kernel_tuning = table_b
+        check(tuned._cfg_for(None, D_MAIN, "float32").block == b,
+              f"step T: the engine does not apply block {b}")
+        with Launches(*kernels) as run:
+            (got, _), = tuned.submit_many(req)
+        check(leaves_equal(got, base), f"step T: the engine tuned to block "
+              f"{b} answers otherwise than the untuned engine")
+        check(run.counts == (2, 0), f"step T: block {b} query launches "
+              f"{run.counts}, expected (2, 0)")
+        tuned_ms[b], _ = time_ms(lambda: tuned.submit_many(req))
+    print(f"{tag} T engine query anticorrelated N={N_MAIN} capacity 65536 "
+          f"(one query a bucket): untuned (block 256) {t_plain:.3f} ms; "
+          f"tuned to each block {tuned_ms} ms (the table's winner "
+          f"{win.block}), every answer bitwise the untuned one (skyline "
+          f"{int(base.count)}), launches (2, 0) each; table saved to "
+          f"{path}; step T {time.perf_counter() - t0:.3f} s")
+    return path
+
+
+def _launch(args: list[str]) -> list[str]:
+    """Run one launch entry point of the port in a subprocess from the root
+    of the checkout; its standard output's lines (failing the run on a
+    non-zero exit)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                         capture_output=True, text=True,
+                         timeout=SUBPROCESS_S)
+    if out.returncode != 0:
+        print(out.stdout[-4000:])
+        print(out.stderr[-4000:], file=sys.stderr)
+        fail(f"step L: {' '.join(args[:3])} exited {out.returncode}")
+    print(f"  ({' '.join(args[:2])}: {time.perf_counter() - t0:.3f} s)")
+    return out.stdout.splitlines()
+
+
+def launch_phase(tag, table: str) -> None:
+    """Step L: the serve entry point under the launch environment with the
+    tuned table (admission, streaming and windowed fronts, the serve
+    loop, a sharded batch on a 1 x 1 mesh), then the skyline dry run at
+    full cell sizes on a world of one, with each cell's peak bytes."""
+    t0 = time.perf_counter()
+    lines = _launch(["repro_torch.launch.env", "--tuning", table,
+                     sys.executable, "-m", "repro_torch.launch.serve",
+                     "--queues", "2", "--stream-chunks", "4",
+                     "--window-epochs", "2", "--serve-loop", "32",
+                     "--slo-ms", "200", "--engine-workers", "1"])
+    for line in lines:
+        print(f"{tag} L {line}")
+    m = re.search(r"tuned geometries: (\d+)", "\n".join(lines))
+    check(m is not None and int(m.group(1)) >= 1, "step L: the serve "
+          "entry point reports no tuned geometry")
+    check(any(ln.startswith("[serve] sharded skyline batch") for ln in lines)
+          and any(ln.startswith("[serve] serve-loop") for ln in lines),
+          "step L: the serve entry point skipped the serve loop or the sharded "
+          "batch")
+    lines = _launch(["repro_torch.launch.dryrun", "--skyline", "--force",
+                     "--device", "cuda", "--results", str(DRYRUN_RESULTS)])
+    for line in lines:
+        print(f"{tag} L {line}")
+    check(bool(lines) and lines[-1].endswith(" err=0"),
+          f"step L: the dry run ended {lines[-1:]}")
+    for path in sorted(DRYRUN_RESULTS.glob("skyline__*.json")):
+        rec = json.loads(path.read_text())
+        mem = rec["memory"]["0"]
+        print(f"{tag} L dryrun {rec['cell']} on mesh {rec['mesh']}: peak "
+              f"{mem['peak_bytes']} B ({mem['call_bytes']} B beyond the "
+              f"{mem['argument_bytes']} B of inputs), output "
+              f"{mem['output_bytes']} B, collectives "
+              f"{rec['collectives']['0']}, kernels {rec['kernels']['0']}, "
+              f"build and first run {rec['compile_seconds']:.3f} s")
+    print(f"{tag} L: {time.perf_counter() - t0:.3f} s")
+
+
+def pareto_phase(tag, kernels) -> None:
+    """Step P: `pareto_mask` and `pareto_select` on 131,072 examples x 3
+    criteria from `example_criteria`, one dominance launch each, bit for
+    bit the same calls with impl='torch' on the card, and their times."""
+    from repro_torch.data import selection
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    loss = torch.rand(PARETO_N, generator=g, device="cuda")
+    lengths = torch.randint(16, 4096, (PARETO_N,), generator=g,
+                            device="cuda")
+    recency = torch.randint(0, 1000, (PARETO_N,), generator=g,
+                            device="cuda")
+    crit = selection.example_criteria(loss, lengths, recency)
+    check(crit.shape == (PARETO_N, 3) and bool(torch.isfinite(crit).all()),
+          "step P: criteria of the wrong shape or not finite")
+    with Launches(*kernels) as run:
+        front = selection.pareto_mask(crit)
+    check(run.counts == (0, 1), f"step P: pareto_mask launches "
+          f"{run.counts}, expected (0, 1)")
+    with Launches(*kernels) as run_s:
+        order, front_s = selection.pareto_select(crit, 1024)
+    check(run_s.counts == (0, 1), f"step P: pareto_select launches "
+          f"{run_s.counts}, expected (0, 1)")
+    plain = selection.pareto_mask(crit, impl="torch")
+    p_order, p_front = selection.pareto_select(crit, 1024, impl="torch")
+    check(bits_equal(front, plain) and bits_equal(front_s, p_front)
+          and bits_equal(order, p_order) and bits_equal(front, front_s),
+          "step P: the card's answer differs from impl='torch'")
+    t_mask, _ = time_ms(lambda: selection.pareto_mask(crit))
+    t_sel, _ = time_ms(lambda: selection.pareto_select(crit, 1024))
+    t_plain, _ = time_ms(lambda: selection.pareto_mask(crit, impl="torch"))
+    print(f"{tag} P pareto_mask {PARETO_N} x 3: front {int(front.sum())}, "
+          f"{t_mask:.3f} ms (impl='torch' {t_plain:.3f} ms), pareto_select "
+          f"k=1024 {t_sel:.3f} ms, bitwise equal to impl='torch', launches "
+          f"{run.counts} and {run_s.counts}; step P "
+          f"{time.perf_counter() - t0:.3f} s")
+
+
 def record_dominance_calls(fn) -> list:
     """Run ``fn`` once and return the arguments of every dominance
     kernel launch it makes, for timing the calls on their own inputs.
@@ -2758,6 +2965,13 @@ def main() -> None:
     print(f"{tag} {sass_ftz_report(libs)}")
 
     # a quicker run: the build, then the engine step or the serve step
+    if "--tuning-only" in sys.argv[1:]:
+        kernels = (kernel.sfs_sweep_cuda, dkernel.dominated_mask_cuda)
+        launch_phase(tag, tuning_phase(tag, kernels))
+        pareto_phase(tag, kernels)
+        print(f"--tuning-only: stopped after steps T, L and P; "
+              f"chip_smoke.py ran {time.perf_counter() - T_START:.3f} s")
+        return
     for flag, phase in (("--engine-only", engine_phase),
                         ("--serve-only", serve_phase),
                         ("--verify-only", verify_phase),
@@ -2959,6 +3173,10 @@ def main() -> None:
     serve_phase(tag, kernels)
     verify_phase(tag, kernels)
     mesh_phase(tag, kernels, data)
+    t_tlp = time.perf_counter()
+    launch_phase(tag, tuning_phase(tag, kernels, data))
+    pareto_phase(tag, kernels)
+    print(f"{tag} steps T, L and P: {time.perf_counter() - t_tlp:.3f} s")
 
     # -- 8. the kernel record and the device line ----------------------------
     def entry(name, route, source, replaces, launches_n, err, rec):

@@ -9,6 +9,11 @@ Q axis.  On a mesh (`repro_torch.launch.mesh`) every rank holds the
 whole state, so a converted reference state or window is made on every
 rank from the same arrays: it is replicated, as the port's mesh entry
 points expect, and needs no conversion of its own.
+
+Kernel-tuning tables (`repro_torch.kernels.tuning`) and checkpoints
+(`repro_torch.checkpoint.manager`) need nothing here: both are files in
+the reference's format (the same JSON keys; the same file and leaf
+names), which either package reads as they are.
 """
 
 from __future__ import annotations

@@ -33,7 +33,7 @@ from repro_torch.kernels.dominance import dominated_mask, flush_subnormal
 
 __all__ = [
     "SENTINEL", "flush_subnormal", "dominates", "dominated_mask",
-    "region_volume",
+    "region_volume", "reduce_min", "reduce_max",
     "monotone_score", "canonical_order", "apply_sentinel", "sort_key",
     "stable_argsort", "stable_argsort_rows", "topk_order",
 ]
@@ -80,6 +80,24 @@ def monotone_score(pts: torch.Tensor,
     if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, float("inf")))
     return s
+
+
+def reduce_min(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.amin(dim, keepdim=True)`` as XLA's reduce-min gives it on the
+    CPU: ``-0.0`` below ``+0.0`` (a column whose least value is zero
+    gives ``-0.0`` when it holds one).  Flush ``x`` first for XLA's
+    handling of subnormals."""
+    lo = x.amin(dim, keepdim=True)
+    neg0 = ((x == 0) & torch.signbit(x)).any(dim, keepdim=True)
+    return torch.where((lo == 0) & neg0, torch.full_like(lo, -0.0), lo)
+
+
+def reduce_max(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.amax(dim, keepdim=True)`` as XLA's reduce-max gives it on the
+    CPU: ``+0.0`` above ``-0.0``."""
+    hi = x.amax(dim, keepdim=True)
+    pos0 = ((x == 0) & ~torch.signbit(x)).any(dim, keepdim=True)
+    return torch.where((hi == 0) & pos0, torch.zeros_like(hi), hi)
 
 
 def sort_key(v: torch.Tensor) -> torch.Tensor:

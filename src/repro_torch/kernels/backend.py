@@ -36,7 +36,8 @@ from torch.utils import _python_dispatch
 from repro_torch.kernels.dominance import kernel as _dom_kernel
 from repro_torch.kernels.sfs import kernel as _sfs_kernel
 
-__all__ = ["KernelSpec", "resolve_spec", "resolve_device", "kernel_call",
+__all__ = ["KernelSpec", "available_backends", "resolve_spec",
+           "resolve_device", "kernel_call",
            "collective_call", "smem_estimate"]
 
 _SWEEP_IMPLS = ("cuda", "torch", "perpair")
@@ -84,6 +85,11 @@ _REGISTRY: dict[str, KernelSpec] = {
     "torch": _spec("torch", sweep="torch", dominance="torch"),
     "perpair": _spec("perpair", sweep="perpair", dominance="torch"),
 }
+
+
+def available_backends() -> tuple[str, ...]:
+    """Registered backend names (excluding the 'auto' alias)."""
+    return tuple(sorted(_REGISTRY))
 
 
 def resolve_spec(impl: str | KernelSpec, device: torch.device) -> KernelSpec:

@@ -74,8 +74,9 @@ factorings from what it measured.
 Entry points run on the card unless the engine is made with
 ``device="cpu"`` (or with a mesh, on the mesh's device); without CUDA
 that raises ``RuntimeError``.  Where the reference takes ``jax.random``
-keys the port takes int seeds (ROADMAP.md, contract 5).  The kernel
-tuning table is item 11 and not consulted here.
+keys the port takes int seeds (ROADMAP.md, contract 5).  Requests left
+to ``impl='auto'`` run the calibrated kernel geometry of
+`repro_torch.kernels.tuning` (`SkylineEngine._cfg_for`).
 The deprecated per-family entry points (``run`` / ``run_scaled`` /
 ``run_subspace``, and ``open_stream``'s loose keywords) remain as thin
 wrappers over the request API, equal to ``submit_many`` bit for bit.
@@ -294,6 +295,10 @@ class SkylineEngine:
         # the serve loop's admission model: per-(d, dtype, n-bucket) wave
         # times in seconds, written by `calibrate_shard_threshold`
         self.wave_time_hints: dict[tuple, float] = {}
+        # calibrated kernel geometry (`repro_torch.kernels.tuning`): set
+        # by `calibrate_kernels(engine)`; None falls back to the process
+        # default table (env REPRO_KERNEL_TUNING)
+        self.kernel_tuning = None
 
     # -- planning ----------------------------------------------------------
 
@@ -340,15 +345,38 @@ class SkylineEngine:
             cfg = dataclasses.replace(cfg, merge=self._merge_mode_for(nb))
         return par.fused_skyline_batch_fn(cfg, self._mesh_for(nb))
 
-    def _cfg_for(self, impl: str | None) -> SkyConfig:
+    def _cfg_for(self, impl: str | None, d: int | None = None,
+                 dtype=None) -> SkyConfig:
         """The engine config with a per-request kernel-backend override
-        applied.  The reference then consults its kernel tuning table;
-        that table is item 11 of ROADMAP.md and is not ported, so the
-        config is used as given."""
+        applied (requests without one share `self.cfg`), then the
+        calibrated kernel geometry.
+
+        The (block, wtile) table (`repro_torch.kernels.tuning`) is
+        consulted only for what the user left open, as the reference
+        does: ``cfg.impl`` must be 'auto' with no per-request override,
+        and ``cfg.wtile`` unset (a pinned tile always wins); the entry
+        for ``sweep/d/dtype`` must have passed its bitwise check.  One
+        addition: an entry whose block the resolved sweep cannot take
+        (above the CUDA kernel's ``MAX_BLOCK`` when it resolves to
+        ``'cuda'``, as from a table written for another device) is not
+        applied.  SkyConfig is value-equal, so two requests tuned to the
+        same geometry share one config."""
         cfg = self.cfg
         if impl is not None and impl != cfg.impl:
             check_impl_name(impl)
             return dataclasses.replace(cfg, impl=impl)
+        if cfg.impl == "auto" and cfg.wtile == 0 and d is not None:
+            from repro_torch.kernels.tuning import (block_fits,
+                                                    default_table,
+                                                    tuning_key)
+            table = self.kernel_tuning or default_table()
+            if table is not None:
+                entry = table.entries.get(
+                    tuning_key("sweep", d, dtype or "float32"))
+                if entry is not None and entry.bitwise_ok \
+                        and block_fits(self.kernel_spec.sweep, entry.block):
+                    cfg = dataclasses.replace(cfg, block=entry.block,
+                                              wtile=entry.wtile)
         return cfg
 
     def _run(self, pts_b, mask_b, seeds, cfg: SkyConfig,
@@ -465,7 +493,9 @@ class SkylineEngine:
                 mk = id(r.mask) if r.mask is not None else None
                 vgroups.setdefault((id(r.data), r.view_kind, mk, r.impl),
                                    []).append(i)
-        for (_, _, nb, impl), idxs in groups.items():
+        # the pipeline runs float32 whatever the request's dtype, so that
+        # is the dtype of the bucket and of its tuning key
+        for (d, _, nb, impl), idxs in groups.items():
             sharded = self._use_sharded(nb)
             qb = self._q_bucket(len(idxs), sharded, nb)
             pts_b, mask_b = self._pack([reqs[i].data for i in idxs],
@@ -473,7 +503,8 @@ class SkylineEngine:
                                        range(len(idxs)), qb)
             seeds = [_key_for(i) for i in idxs] + [0] * (qb - len(idxs))
             bufs, stats = self._run(pts_b, mask_b, seeds,
-                                    self._cfg_for(impl), sharded)
+                                    self._cfg_for(impl, d, "float32"),
+                                    sharded)
             for j, (i, buf) in enumerate(zip(idxs,
                                              _unpack(bufs, len(idxs)))):
                 out[i] = (buf, _SlicedStats(stats, j))
@@ -486,7 +517,8 @@ class SkylineEngine:
             keys = (None if all(reqs[i].key is None for i in idxs)
                     else [_key_for(i) for i in idxs])
             res = self._run_stacked(r0.data, params, r0.mask, keys, kind,
-                                    cfg=self._cfg_for(impl))
+                                    cfg=self._cfg_for(impl, r0.data.shape[1],
+                                                      "float32"))
             for j, i in enumerate(idxs):
                 out[i] = res[j]
         self.queries_answered += len(reqs)

@@ -195,6 +195,19 @@ class ServeLoop:
         self._ewma = 0.0
         self._ewma_tab: dict[tuple, float] = dict(
             getattr(engine, "wave_time_hints", {}) or {})
+        # kernel-tuning sweep timings ("sweep/d=4/dtype=float32") give a
+        # weak per-(d, dtype) floor for buckets calibration never saw
+        self._tuning_floor: dict[tuple, float] = {}
+        table = getattr(engine, "kernel_tuning", None)
+        for key, entry in (getattr(table, "entries", None) or {}).items():
+            parts = key.split("/")
+            if parts[0] == "sweep" and len(parts) == 3:
+                try:
+                    d = int(parts[1].split("=")[1])
+                    dt = parts[2].split("=")[1]
+                except (IndexError, ValueError):
+                    continue
+                self._tuning_floor[(d, dt)] = entry.time_us * 1e-6
         self.stats = {"completed": 0, "shed": 0, "degraded": 0,
                       "waves": 0, "coalesced_feeds": 0,
                       "stage_overlap_s": 0.0}
@@ -413,11 +426,15 @@ class ServeLoop:
 
     def _wave_time(self, key: tuple) -> float:
         """Modeled wave time for one bucket: its EWMA entry, falling
-        back to the cross-bucket scalar until the bucket has history
-        (the reference's kernel-tuning floor waits for ROADMAP item
-        11)."""
+        back to the cross-bucket scalar when that is non-zero, then to
+        the kernel-tuning floor of its (d, dtype), until the bucket has
+        history."""
         t = self._ewma_tab.get(key)
-        return self._ewma if t is None else t
+        if t is not None:
+            return t
+        if self._ewma:
+            return self._ewma
+        return self._tuning_floor.get(key[:2], 0.0)
 
     def _stage_once(self, batch: list[Ticket]) -> _Wave:
         """Pack and dispatch one wave WITHOUT waiting on the device:

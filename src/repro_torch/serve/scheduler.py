@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dominance import (flush_subnormal, monotone_score,
+                                        reduce_max, reduce_min,
                                         stable_argsort)
 from repro_torch.core.parallel import SkyConfig
 from repro_torch.launch.mesh import (engine_mesh_shape, make_engine_mesh,
@@ -82,8 +83,8 @@ def _criteria(reqs: Request, device=None) -> torch.Tensor:
     """Criteria min-max normalised per column, in f32 with every operand
     and result flushed as XLA does."""
     crit = flush_subnormal(_raw_criteria(reqs, device))
-    lo = crit.min(dim=0, keepdim=True).values
-    hi = crit.max(dim=0, keepdim=True).values
+    lo = reduce_min(crit, 0)
+    hi = reduce_max(crit, 0)
     den = torch.maximum(flush_subnormal(hi - lo),
                         torch.tensor(1e-9, dtype=torch.float32,
                                      device=crit.device))
