@@ -174,20 +174,39 @@ It builds the port's CUDA kernels from the sources in the checkout
      serve entry point under ``python -m repro_torch.launch.env --tuning <table>``
      (streaming windowed admission, the serve loop with a 200 ms SLO, a
      sharded batch on a 1 x 1 NCCL mesh; it must report the tuned
-     geometries), then the skyline dry run at full cell sizes on a world
-     of one (every cell ok), with each cell's peak bytes;
+     geometries; then yi-6b whole, its prefill and greedy decode of 4
+     prompts x 16 tokens: "[serve] generated (4, 16)"), then the skyline
+     dry run at full cell sizes on a world of one (every cell ok), with
+     each cell's peak bytes;
   P. runs ``pareto_mask`` and ``pareto_select`` (``repro_torch.data.
      selection``) on 131,072 examples x 3 criteria from
      ``example_criteria``, one dominance launch each, bit for bit the
      same calls with impl='torch', and their times;
+  G. runs the language models (``repro_torch.models``) on the card,
+     after step P: G1, the ten smoke configs on the card against the port
+     on the CPU from the same numpy parameters (forward, prefill, one
+     decode step), f32 compute at 1e-4 (TF32 off), bf16 with the CPU's
+     routing replayed, |card - CPU| at most |CPU bf16 - CPU f32|; G2,
+     yi-6b at full width with 2 layers, card against CPU in f32 at 1e-3;
+     G3, yi-6b whole (32 layers, 23.19 GB f32): ``generate`` in bf16 at
+     batch 4, prompt 32, 16 new tokens: prefill ms, decode ms a step,
+     tok/s, peak device memory, and the decode bound (the parameters'
+     bytes read once a step), then the reference's prefill/decode
+     consistency check in f32 (3e-2 / 4e-2) with q and k rescaled to
+     the fan-in of their contraction (with the reference's init, whose
+     attention is nearly an argmax at this width, the error is printed
+     and not checked); G4, mixtral-8x7b at
+     full width with 2 layers, the consistency check at drop-free
+     capacity.  No kernel of the port runs here: the models' products
+     and attention are plain torch, as the reference's are plain XLA;
   8. prints the script's run time, one JSON line with both kernels, then
      the device line.
 
 With ``--kernels-only`` it stops after step 3 and prints no result;
 with ``--engine-only`` (``--serve-only``, ``--verify-only``,
-``--mesh-only``, ``--tuning-only``) it runs the build and then the
-engine step 6c (the serve step 6d, step V, step M, steps T, L and P)
-alone, and prints no result either.
+``--mesh-only``, ``--tuning-only``, ``--lm-only``) it runs the build and
+then the engine step 6c (the serve step 6d, step V, step M, steps T, L
+and P, step G) alone, and prints no result either.
 Steps 5 and 6 run the default config, so inserts and ring operations
 write their state in place; each timed or traced rerun works on a fresh
 copy of the state it starts from.  Step 6d holds donation on against
@@ -209,6 +228,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 N_MAIN = 10_000_000
@@ -2428,9 +2448,15 @@ def _launch(args: list[str]) -> list[str]:
 def launch_phase(tag, table: str) -> None:
     """Step L: the serve entry point under the launch environment with the
     tuned table (admission, streaming and windowed fronts, the serve
-    loop, a sharded batch on a 1 x 1 mesh), then the skyline dry run at
+    loop, a sharded batch on a 1 x 1 mesh, then yi-6b whole: prefill
+    and greedy decode of 4 x 16 tokens), then the skyline dry run at
     full cell sizes on a world of one, with each cell's peak bytes."""
     t0 = time.perf_counter()
+    # the serve entry point builds yi-6b whole (23.19 GB) in its own
+    # process: hand back what this process's allocator keeps cached
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
     lines = _launch(["repro_torch.launch.env", "--tuning", table,
                      sys.executable, "-m", "repro_torch.launch.serve",
                      "--queues", "2", "--stream-chunks", "4",
@@ -2445,6 +2471,9 @@ def launch_phase(tag, table: str) -> None:
           and any(ln.startswith("[serve] serve-loop") for ln in lines),
           "step L: the serve entry point skipped the serve loop or the sharded "
           "batch")
+    check(any(re.match(r"\[serve\] generated \(4, 16\) in ", ln)
+              for ln in lines), "step L: the serve entry point did not "
+          "decode (4, 16) tokens")
     lines = _launch(["repro_torch.launch.dryrun", "--skyline", "--force",
                      "--device", "cuda", "--results", str(DRYRUN_RESULTS)])
     for line in lines:
@@ -2500,6 +2529,324 @@ def pareto_phase(tag, kernels) -> None:
           f"k=1024 {t_sel:.3f} ms, bitwise equal to impl='torch', launches "
           f"{run.counts} and {run_s.counts}; step P "
           f"{time.perf_counter() - t0:.3f} s")
+
+
+LM_B, LM_S = 2, 20                 # G1's batch and prompt
+LM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 4e-2)}
+CONSISTENCY_TOL = (3e-2, 4e-2)     # tests/test_models_smoke.py:82-91
+GEN_B, GEN_PROMPT, GEN_NEW = 4, 32, 16   # G3's generate
+
+
+def _lm_inputs(cfg, b, s, seed, dev):
+    """Inputs of ``s`` text positions (after a VLM's image prefix), the
+    next token, and its position, made on the host from ``seed``."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (b, s + 1)).astype(np.int32)
+    host = ({"frames": rng.standard_normal((b, s, cfg.frontend_dim))}
+            if cfg.family == "encoder" else {"tokens": toks[:, :s]})
+    if cfg.family == "vlm":
+        host["image_emb"] = rng.standard_normal(
+            (b, cfg.prefix_len, cfg.frontend_dim))
+    inputs = {k: torch.as_tensor(v.astype(np.int32 if k == "tokens"
+                                          else np.float32), device=dev)
+              for k, v in host.items()}
+    pos = s + (cfg.prefix_len if cfg.family == "vlm" else 0)
+    return inputs, torch.as_tensor(toks[:, s:s + 1], device=dev), pos
+
+
+def _lm_run(params, cfg, inputs, tok, pos, cache_len):
+    """forward, prefill and one decode step: {name: logits}."""
+    from repro_torch.models import transformer as T
+    logits, _, _ = T.forward(params, cfg, inputs)
+    out = {"forward": logits}
+    if cfg.family != "encoder":
+        caches, last = T.prefill(params, cfg, inputs, cache_len)
+        _, dec = T.decode_step(params, cfg, caches, tok,
+                               torch.tensor(pos, dtype=torch.int32,
+                                            device=tok.device))
+        out.update(prefill=last, decode=dec)
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+class _Routing:
+    """Records the top-k choices of the port's MoE layers, or replays
+    recorded ones in their place (``repro_torch.models.moe.topk_order``):
+    in bf16 a token whose top two router probabilities lie within
+    rounding picks its expert by noise, on the card as on the CPU."""
+
+    def __init__(self, replay=None):
+        self.recorded, self.replay = [], replay
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe.topk_order
+        queue = list(self.replay or [])
+
+        def order(merit):
+            if self.replay is not None:
+                return queue.pop(0).to(merit.device)
+            idx = self.orig(merit)
+            self.recorded.append(idx.cpu())
+            return idx
+
+        moe.topk_order = order
+        self.queue = queue
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.topk_order = self.orig
+
+
+def _close(got, want, tol) -> tuple[bool, float]:
+    err = (got - want).abs()
+    return bool((err <= tol + tol * want.abs()).all()), float(err.max())
+
+
+def _norm_ratio(got, want, want32) -> float:
+    """|card - CPU| / |CPU bf16 - CPU f32| over all the outputs given:
+    at most 1 when the card's bf16 is as close to the CPU's as bf16 is
+    to f32."""
+    cat = lambda xs: torch.cat([x.reshape(-1) for x in xs])
+    own = float((cat(want) - cat(want32)).norm())
+    return float((cat(got) - cat(want)).norm()) / own
+
+
+def _consistency(params, cfg, dev, seed, checked=True
+                 ) -> tuple[float, float]:
+    """The reference's prefill/decode consistency check
+    (tests/test_models_smoke.py): prefill of s tokens and one decode step
+    against the full forward over s + 1; the largest errors (checked
+    against the reference's tolerances unless ``checked`` is False)."""
+    from repro_torch.models import transformer as T
+    b, s = 2, 24
+    g = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=g, device=dev,
+                         dtype=torch.int32)
+    full, _, _ = T.forward(params, cfg, {"tokens": toks})
+    caches, last = T.prefill(params, cfg, {"tokens": toks[:, :s]}, 64)
+    _, dec = T.decode_step(params, cfg, caches, toks[:, s:s + 1],
+                           torch.tensor(s, dtype=torch.int32, device=dev))
+    ok1, e1 = _close(last.float().cpu(), full[:, -2].float().cpu(),
+                     CONSISTENCY_TOL[0])
+    ok2, e2 = _close(dec.float().cpu(), full[:, -1].float().cpu(),
+                     CONSISTENCY_TOL[1])
+    check(ok1 and ok2 or not checked, f"step G: {cfg.name} prefill/decode "
+          f"against the full forward: errors {e1}, {e2} above "
+          f"{CONSISTENCY_TOL}")
+    return e1, e2
+
+
+def _condition_attention(params) -> None:
+    """Rescale every q and k projection in place to the fan-in of its
+    contraction, d_model.  The reference's "scaled" init takes the fan-in
+    from the second-to-last axis, the heads, so at yi-6b's width
+    (d = 4,096, 32 heads) q and k come out with a standard deviation near
+    11 and the attention logits near 128: each softmax is nearly an
+    argmax over keys, a rounding difference can flip it, and the
+    difference doubles and more from layer to layer (a perturbation of
+    1e-7 reached 0.371 after 8 layers, in the port on the CPU:
+    ``tests/_lm_bf16_probe.py depth 8``).  Rescaled,
+    the logits are O(1) and f32 rounding stays f32 rounding."""
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        if not isinstance(node, dict):
+            continue
+        for name in ("wq", "wk"):
+            w = node.get(name)
+            if isinstance(w, torch.Tensor):
+                w.mul_((w.shape[-2] / w.shape[-3]) ** 0.5)
+        stack.extend(v for v in node.values() if isinstance(v, dict))
+
+
+def _param_bytes(params) -> int:
+    total = 0
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        else:
+            total += node.numel() * node.element_size()
+    return total
+
+
+def lm_phase(tag, dev=torch.device("cuda"), full_config=None) -> None:
+    """Step G: the language models (`repro_torch.models`) on the card.
+    G1, the ten smoke configs on the card against the port on the CPU
+    from the same numpy parameters (forward, prefill, one decode step):
+    f32 compute elementwise at 1e-4, bf16 with the CPU's routing replayed
+    and norm-wise within bf16's own error (|card - CPU| at most |CPU bf16
+    - CPU f32|). G2, yi-6b at full width with 2 layers, card against CPU
+    in f32 at 1e-3.  G3, yi-6b whole (32 layers): ``generate`` in bf16 at
+    batch 4, prompt 32, 16 new tokens, timed by CUDA events beside the
+    parameters' bytes over the memory rate, one decode step traced by
+    torch.profiler (device busy and idle share), then the reference's
+    prefill/decode consistency check in f32 with q and k rescaled to the
+    fan-in of their contraction (`_condition_attention`; the error with
+    the init unchanged is printed, not checked).  G4, mixtral-8x7b at full
+    width with 2 layers: the consistency check at drop-free capacity.
+    ``full_config`` (for a rehearsal on the CPU) maps an arch to the
+    config that stands for its full size."""
+    from repro_torch import convert
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params
+
+    full_config = full_config or get_config
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "step G: TF32 matmuls are on; f32 compute must be f32")
+
+    # -- G1: the ten smoke configs, card against CPU ------------------------
+    for arch in ARCH_NAMES:
+        base = dataclasses.replace(get_config(arch, smoke=True), remat=False)
+        host = convert.params_to_numpy(
+            init_params(T.lm_plan(base), seed=0, device=cpu))
+        p_cpu = convert.params_from_numpy(host, device=cpu)
+        p_dev = convert.params_from_numpy(host, device=dev)
+        line = []
+        f32_err = 0.0
+        for cd in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, compute_dtype=cd)
+            args = [_lm_inputs(cfg, LM_B, LM_S, 7, d) for d in (cpu, dev)]
+            with _Routing() as route:
+                want = _lm_run(p_cpu, cfg, *args[0], 32)
+            if cd == "float32":
+                got = _lm_run(p_dev, cfg, *args[1], 32)
+                for name in want:
+                    ok, err = _close(got[name], want[name], LM_TOL[cd][0])
+                    check(ok, f"step G1: {arch} f32 {name}: card against "
+                          f"CPU max error {err} above {LM_TOL[cd][0]}")
+                    f32_err = max(f32_err, err)
+                line.append(f"f32 card against CPU max error {f32_err:.3g} "
+                            f"(at most 1e-4)")
+                continue
+            f32 = dataclasses.replace(cfg, compute_dtype="float32")
+            with _Routing(replay=route.recorded):
+                want32 = _lm_run(p_cpu, f32, *args[0], 32)
+            with _Routing(replay=route.recorded) as replayed:
+                got = _lm_run(p_dev, cfg, *args[1], 32)
+            check(not replayed.queue, f"step G1: {arch}: routing left over")
+            names = list(want)
+            ratio = _norm_ratio([got[n] for n in names],
+                                [want[n] for n in names],
+                                [want32[n] for n in names])
+            check(ratio <= 1.0, f"step G1: {arch} bf16: |card - CPU| is "
+                  f"{ratio:.3f} x |CPU bf16 - CPU f32|, above 1")
+            errs = {n: float((got[n] - want[n]).abs().max()) for n in names}
+            within = all(_close(got[n], want[n],
+                                LM_TOL[cd][n == "decode"])[0]
+                         for n in names)
+            line.append(f"bf16 |card - CPU| / |bf16 - f32| {ratio:.3f}, max "
+                        f"errors {errs} ({'within' if within else 'not all within'} "
+                        f"3e-2 / 4e-2)")
+        print(f"{tag} G1 {arch} smoke: {'; '.join(line)}", flush=True)
+        del p_cpu, p_dev, host
+
+    # -- G2: yi-6b at full width, two layers, card against CPU -----------
+    cfg2 = dataclasses.replace(full_config("yi-6b"), n_layers=2,
+                               compute_dtype="float32", remat=False)
+    t2 = time.perf_counter()
+    host = convert.params_to_numpy(init_params(T.lm_plan(cfg2), seed=0,
+                                               device=cpu))
+    p_cpu = convert.params_from_numpy(host, device=cpu)
+    p_dev = convert.params_from_numpy(host, device=dev)
+    args = [_lm_inputs(cfg2, LM_B, 16, 8, d) for d in (cpu, dev)]
+    want = _lm_run(p_cpu, cfg2, *args[0], 32)
+    got = _lm_run(p_dev, cfg2, *args[1], 32)
+    errs = {}
+    for name in want:
+        ok, errs[name] = _close(got[name], want[name], 1e-3)
+        check(ok, f"step G2: {name}: card against CPU max error "
+              f"{errs[name]} above 1e-3")
+    print(f"{tag} G2 {cfg2.name} width d={cfg2.d_model}, d_ff={cfg2.d_ff}, "
+          f"vocab {cfg2.vocab_padded}, 2 layers, {_param_bytes(p_dev)} B of "
+          f"f32 parameters: card against CPU (f32, no TF32) max errors "
+          f"{errs} (rtol = atol = 1e-3); {time.perf_counter() - t2:.3f} s",
+          flush=True)
+    del p_cpu, p_dev, host
+
+    # -- G3: yi-6b whole ----------------------------------------------------
+    t3 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg3 = dataclasses.replace(full_config("yi-6b"), remat=False)
+    params = init_params(T.lm_plan(cfg3), seed=0, device=dev)
+    nbytes = _param_bytes(params)
+    f32_3 = dataclasses.replace(cfg3, compute_dtype="float32")
+    raw = _consistency(params, f32_3, dev, 9, checked=False)
+    assert cfg3.compute_dtype == "bfloat16"
+    rng = np.random.default_rng(10)
+    prompts = torch.as_tensor(rng.integers(0, cfg3.vocab, (
+        GEN_B, GEN_PROMPT)).astype(np.int32), device=dev)
+    cache_len = GEN_PROMPT + GEN_NEW
+    generate(params, cfg3, prompts, GEN_NEW, cache_len)    # warm-up
+    toks, gen_ms = event_ms(lambda: generate(params, cfg3, prompts,
+                                             GEN_NEW, cache_len))
+    # the same loop, each call timed
+    (caches, logits), pre_ms = event_ms(lambda: T.prefill(
+        params, cfg3, {"tokens": prompts}, cache_len))
+    steps, own = [], []
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    for i in range(GEN_NEW):
+        own.append(tok)
+        pos = torch.tensor(GEN_PROMPT + i, dtype=torch.int32, device=dev)
+        (caches, logits), ms = event_ms(lambda: T.decode_step(
+            params, cfg3, caches, tok, pos))
+        steps.append(ms)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    own = torch.cat(own, dim=1)
+    check(tuple(toks.shape) == (GEN_B, GEN_NEW) and toks.dtype == torch.int32
+          and bool(((toks >= 0) & (toks < cfg3.vocab_padded)).all()),
+          f"step G3: generate gave {tuple(toks.shape)} {toks.dtype}")
+    check(torch.equal(toks, own), "step G3: generate's tokens differ from "
+          "its own loop's on the same card")
+    decode_ms = sum(steps) / len(steps)
+    bound_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    print(f"{tag} G3 generate {cfg3.name} bf16 compute, batch {GEN_B}, "
+          f"prompt {GEN_PROMPT}, {GEN_NEW} new tokens: {gen_ms:.3f} ms "
+          f"({GEN_B * GEN_NEW / gen_ms * 1e3:.1f} tok/s); prefill "
+          f"{pre_ms:.3f} ms, decode {decode_ms:.3f} ms a step (min "
+          f"{min(steps):.3f}, max {max(steps):.3f}); decode bound {nbytes} "
+          f"B of parameters read once a step at {MEM_BYTES_PER_S / 1e12} "
+          f"TB/s = {bound_ms:.3f} ms ({decode_ms / bound_ms:.2f}x); peak "
+          f"device memory {torch.cuda.max_memory_allocated()} B", flush=True)
+    trace_call(lambda c: T.decode_step(params, cfg3, c, tok, pos), tag,
+               f"one {cfg3.name} bf16 decode step (batch {GEN_B})",
+               fresh=lambda: caches)
+    del caches, logits
+    _condition_attention(params)
+    e1, e2 = _consistency(params, f32_3, dev, 9)
+    print(f"{tag} G3 {cfg3.name} whole ({cfg3.n_layers} layers, "
+          f"{cfg3.param_count()} parameters, {nbytes} B f32): prefill/decode "
+          f"consistency in f32 compute with q and k at fan-in d_model, max "
+          f"errors {e1:.3g} and {e2:.3g} (at most {CONSISTENCY_TOL}); with "
+          f"the reference's init unchanged {raw[0]:.3g} and {raw[1]:.3g} "
+          f"(not checked: near-argmax attention amplifies rounding from "
+          f"layer to layer); {time.perf_counter() - t3:.3f} s", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+    # -- G4: mixtral-8x7b at full width, two layers ----------------------
+    t4 = time.perf_counter()
+    base4 = full_config("mixtral-8x7b")
+    cfg4 = dataclasses.replace(base4, n_layers=2, compute_dtype="float32",
+                               remat=False,
+                               capacity_factor=float(base4.n_experts))
+    params = init_params(T.lm_plan(cfg4), seed=0, device=dev)
+    e1, e2 = _consistency(params, cfg4, dev, 11)
+    print(f"{tag} G4 {cfg4.name} width d={cfg4.d_model}, {cfg4.n_experts} "
+          f"experts of d_ff={cfg4.d_ff}, top-{cfg4.top_k}, 2 layers, "
+          f"{_param_bytes(params)} B f32, drop-free capacity: prefill/decode "
+          f"consistency max errors {e1:.3g} and {e2:.3g} (at most "
+          f"{CONSISTENCY_TOL}); {time.perf_counter() - t4:.3f} s", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    print(f"{tag} G: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
 def record_dominance_calls(fn) -> list:
@@ -2972,6 +3319,11 @@ def main() -> None:
         print(f"--tuning-only: stopped after steps T, L and P; "
               f"chip_smoke.py ran {time.perf_counter() - T_START:.3f} s")
         return
+    if "--lm-only" in sys.argv[1:]:
+        lm_phase(tag)
+        print(f"--lm-only: stopped after step G; chip_smoke.py ran "
+              f"{time.perf_counter() - T_START:.3f} s")
+        return
     for flag, phase in (("--engine-only", engine_phase),
                         ("--serve-only", serve_phase),
                         ("--verify-only", verify_phase),
@@ -3177,6 +3529,8 @@ def main() -> None:
     launch_phase(tag, tuning_phase(tag, kernels, data))
     pareto_phase(tag, kernels)
     print(f"{tag} steps T, L and P: {time.perf_counter() - t_tlp:.3f} s")
+    del data, oneshot
+    lm_phase(tag)
 
     # -- 8. the kernel record and the device line ----------------------------
     def entry(name, route, source, replaces, launches_n, err, rec):

@@ -1,13 +1,14 @@
-"""Serving entry point: Pareto-front (skyline) request admission.
+"""Serving entry point: Pareto-front (skyline) request admission, then
+batched prefill and greedy decode of a language model.
 
-Counterpart of the skyline half of ``repro.launch.serve``.  Admission
-runs through the batched `SkylineEngine`: with ``--queues Q`` it
-admits from Q independent request queues in one dominance launch
-(`admit_many`).  With ``--stream-chunks K`` the queues instead arrive
-over time: K request waves feed a `StreamingAdmitter` whose fronts live
-on the device and are kept up to date by one feed wave per arrival wave,
-and admission reads the final snapshot; ``--window-epochs W`` lets
-requests age out after W waves (`WindowedAdmitter`).
+Counterpart of ``repro.launch.serve``.  Admission runs through the
+batched `SkylineEngine`: with ``--queues Q`` it admits from Q
+independent request queues in one dominance launch (`admit_many`).
+With ``--stream-chunks K`` the queues instead arrive over time: K
+request waves feed a `StreamingAdmitter` whose fronts live on the device
+and are kept up to date by one feed wave per arrival wave, and admission
+reads the final snapshot; ``--window-epochs W`` lets requests age out
+after W waves (`WindowedAdmitter`).
 
 With ``--serve-loop N`` it also runs N Poisson-arriving skyline
 queries through the continuous-batching front end
@@ -18,21 +19,27 @@ waves in flight), deadline-aware admission with load shedding
 (`repro_torch.launch.mesh.make_engine_mesh`) and it runs one
 batch of threshold-sized queries through the sharded program.
 
+Then it builds ``--arch`` (``--smoke`` for the narrow variant), its
+parameters on the device from seed 0 (`repro_torch.models.common.
+init_params`), draws ``--batch`` prompts of ``--prompt-len`` tokens and
+greedily decodes ``--gen`` tokens each (`generate`: one prefill, then
+one `decode_step` per token, all on the device).
+
 Every draw comes from one ``np.random.default_rng(0)`` stream in the
 reference's order (the queues, the serve loop's arrivals and data, the
-sharded batch), so it admits the reference's requests.  The
-reference then prefills and greedily decodes a language model; that
-half needs the model code, which the port does not have yet, so
-``--arch``, ``--smoke``, ``--prompt-len`` and ``--gen`` are accepted and
-one line says the decode is not run.
+sharded batch, the prompts), so it admits the reference's requests and
+decodes the reference's prompts.  The parameters are the port's own
+draw: the reference's come from its PRNG key and a per-process salted
+hash.
 
 ``--tuning PATH`` applies a kernel-tuning table to the engine
 (`repro_torch.kernels.tuning`); unset, the engine consults the process
 default, ``$REPRO_KERNEL_TUNING``.  ``--device`` (default: the card)
-picks where the engine runs; nothing moves to the CPU unless asked.
+picks where the engine and the model run; nothing moves to the CPU
+unless asked.
 
-  python -m repro_torch.launch.serve --queues 2 --stream-chunks 4 \\
-      --serve-loop 32 --slo-ms 200
+  python -m repro_torch.launch.serve --arch yi-6b --smoke --queues 2 \\
+      --stream-chunks 4 --serve-loop 32 --slo-ms 200
 """
 
 from __future__ import annotations
@@ -43,20 +50,42 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.parallel import SkyConfig
 from repro_torch.kernels.backend import available_backends, resolve_device
 from repro_torch.launch.mesh import make_engine_mesh
+from repro_torch.models import transformer as T
+from repro_torch.models.common import init_params
 from repro_torch.serve.scheduler import (Request, StreamingAdmitter,
                                          WindowedAdmitter, admit_many,
                                          make_default_engine)
 
-__all__ = ["main", "parse_args"]
+__all__ = ["generate", "main", "parse_args"]
+
+
+def generate(params, cfg, tokens, gen: int, cache_len: int):
+    """Greedy decode ``gen`` tokens after prefilling ``tokens`` (B, S):
+    (B, gen) int32, where the parameters lie.  Positions are made on the
+    device, so the host queues every step without waiting for one."""
+    tokens = tokens.to(params["embed"].device)
+    caches, logits = T.prefill(params, cfg, {"tokens": tokens}, cache_len)
+    s = tokens.shape[1]
+    positions = torch.arange(s, s + gen, dtype=torch.int32,
+                             device=tokens.device)
+    out = []
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    for i in range(gen):
+        out.append(tok)
+        caches, logits = T.decode_step(params, cfg, caches, tok,
+                                       positions[i])
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    return torch.cat(out, dim=1)
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="yi-6b",
-                    help="language model of the reference's decode half "
-                         "(accepted; the decode is not run)")
+                    help="language model to prefill and decode "
+                         "(repro_torch.configs.ARCH_NAMES)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
@@ -109,7 +138,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "calibrated geometry; unset, the engine consults "
                          "$REPRO_KERNEL_TUNING")
     ap.add_argument("--device", default=None,
-                    help="where the engine runs (default: the card)")
+                    help="where the engine and the model run (default: "
+                         "the card)")
     return ap.parse_args(argv)
 
 
@@ -206,9 +236,20 @@ def main(argv=None) -> None:
               f"{engine.sharded_dispatched} sharded dispatch(es), "
               f"front sizes {[int(b.count) for b, _ in fronts]}")
 
-    print(f"[serve] LM decode ({args.arch}, batch {args.batch}, prompt "
-          f"{args.prompt_len}, gen {args.gen}) not run: the port has no "
-          f"model code yet (ROADMAP item 14a)")
+    # the model is made after the admission, whose latencies it would
+    # otherwise queue behind; it draws nothing from `rng`
+    cfg = get_config(args.arch, smoke=args.smoke)
+    params = init_params(T.lm_plan(cfg), seed=0, device=dev)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(
+            np.int32), device=dev)
+    t0 = time.time()
+    toks = generate(params, cfg, prompts, args.gen,
+                    args.prompt_len + args.gen).cpu()
+    dt = time.time() - t0
+    print(f"[serve] generated {tuple(toks.shape)} in {dt:.2f}s "
+          f"({args.batch * args.gen / dt:.1f} tok/s)", flush=True)
+    assert toks.shape == (args.batch, args.gen)
 
 
 def serve_loop(engine, rng, args) -> None:

@@ -1,8 +1,9 @@
 """The port's input pipeline against ``repro.data.pipeline``: the same
 batches, bit for bit, for a token family (``dense``, the default
 branch), ``encoder`` and ``vlm``, from one small config object given to
-both packages; cursors advance alike, and shards and steps differ.
-Tolerance: zero."""
+both packages, and from each package's own smoke config of the ten
+architectures (`repro_torch.configs` against `repro.configs`); cursors
+advance alike, and shards and steps differ.  Tolerance: zero."""
 
 import dataclasses
 
@@ -10,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_NAMES
+from repro.configs import get_config as jget
 from repro.data import pipeline as jpipe
+from repro_torch.configs import get_config as tget
 from repro_torch.data import pipeline as tpipe
 
 
@@ -45,6 +49,16 @@ def test_batches_match_jax(family, shard_id):
         want, jstate = jpipe.next_batch(cfg, 4, 12, jstate, shard_id)
         _assert_batch(got, want)
         assert (state.seed, state.step) == (jstate.seed, jstate.step)
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_batches_from_the_ports_configs_match_jax(arch):
+    state = tpipe.DataState(seed=5, step=2)
+    got = tpipe.make_batch(tget(arch, smoke=True), 3, 24, state, 1,
+                           device="cpu")
+    want = jpipe.make_batch(jget(arch, smoke=True), 3, 24,
+                            jpipe.DataState(seed=5, step=2), 1)
+    _assert_batch(got, want)
 
 
 def test_streams_differ_by_shard_and_step():

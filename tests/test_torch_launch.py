@@ -1,13 +1,17 @@
 """The port's launch entry points: the environment (`repro_torch.launch.env`)
-and the serve entry point's skyline half (`repro_torch.launch.serve`).
+and the serve entry point (`repro_torch.launch.serve`).
 
 The environment keeps what the user pinned, passes the tuning table on,
 and refuses ``--devices``.  The serve entry point runs in this process on the
-CPU; its admission lines ("[serve] queue i: admitted ...", the front
-sizes of each wave) must equal those that the reference's
-``admit_many``, ``StreamingAdmitter`` and ``WindowedAdmitter`` give on
-the same ``default_rng(0)`` draws (the reference's ``main`` is not run:
-its language-model half would cost the test budget).
+CPU with yi-6b's smoke config; its admission lines ("[serve] queue i:
+admitted ...", the front sizes of each wave) must equal those that the
+reference's ``admit_many``, ``StreamingAdmitter`` and
+``WindowedAdmitter`` give on the same ``default_rng(0)`` draws, its
+prompts must be the next draws of that stream, as the reference's, and
+it must greedily decode them ("[serve] generated (4, 16)").  The
+reference's ``main`` is not run (its language model would draw its own
+parameters); the decode itself is held against the reference's
+``generate`` in ``tests/test_torch_serve_lm.py``.
 """
 
 import gc
@@ -19,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import parallel as jpar
 from repro.serve import scheduler as jsched
@@ -86,9 +91,11 @@ def _make_queue(rng, n):
         cost=jnp.asarray(rng.integers(8, 64, n), jnp.float32))
 
 
-def _reference_lines(queues=2, requests=16, batch=4, chunks=0, window=0):
+def _reference_lines(queues=2, requests=16, batch=4, chunks=0, window=0,
+                     prompts=None):
     """The admission lines of ``repro.launch.serve`` from the reference's
-    own functions on the same draws."""
+    own functions on the same draws; with ``prompts=(vocab, length)``,
+    also the prompts it draws next."""
     rng = np.random.default_rng(0)
     engine = jsched.make_default_engine(jpar.SkyConfig())
     lines = []
@@ -123,12 +130,16 @@ def _reference_lines(queues=2, requests=16, batch=4, chunks=0, window=0):
             lines.append(f"[serve] queue {qi}: admitted "
                          f"{list(np.asarray(picked))} (Pareto front size "
                          f"{int(np.asarray(front).sum())})")
+    if prompts is not None:
+        vocab, length = prompts
+        return lines, np.asarray(jnp.asarray(
+            rng.integers(0, vocab, (batch, length)), jnp.int32))
     return lines
 
 
 def _serve_lines(capsys, *flags):
-    tserve.main(["--device", "cpu", "--queues", "2", "--requests", "16",
-                 "--batch", "4", *flags])
+    tserve.main(["--device", "cpu", "--arch", "yi-6b", "--smoke",
+                 "--queues", "2", "--requests", "16", "--batch", "4", *flags])
     return capsys.readouterr().out.splitlines()
 
 
@@ -137,14 +148,27 @@ def _serve_lines(capsys, *flags):
     (("--stream-chunks", "4"), {"chunks": 4}),
     (("--stream-chunks", "4", "--window-epochs", "2"),
      {"chunks": 4, "window": 2})], ids=["static", "stream", "window"])
-def test_serve_admission_lines_match_the_reference(capsys, flags, ref):
+def test_serve_admission_lines_match_the_reference(capsys, flags, ref,
+                                                  monkeypatch):
+    prompts = []
+    generate = tserve.generate
+
+    def spy(params, cfg, tokens, gen, cache_len):
+        prompts.append(tokens.clone())
+        return generate(params, cfg, tokens, gen, cache_len)
+
+    monkeypatch.setattr(tserve, "generate", spy)
     out = _serve_lines(capsys, *flags)
     got = [ln for ln in out if ln.startswith(("[serve] queue",
                                               "[serve] wave"))]
-    assert got == _reference_lines(**ref)
+    lines, want_prompts = _reference_lines(**ref, prompts=(256, 32))
+    assert got == lines
     assert out[0].startswith("[serve] skyline engine mesh: none")
     assert "tuned geometries" not in out[0]
-    assert "not run" in out[-1]
+    assert out[-1].startswith("[serve] generated (4, 16) in ")
+    assert out[-1].endswith(" tok/s)")
+    assert len(prompts) == 1 and prompts[0].dtype == torch.int32
+    np.testing.assert_array_equal(prompts[0].numpy(), want_prompts)
 
 
 def test_serve_tuning_and_serve_loop(capsys, tmp_path, monkeypatch):

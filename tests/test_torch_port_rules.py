@@ -336,3 +336,89 @@ def test_cuda_impl_on_a_cpu_engine_raises():
     x = np.random.default_rng(0).random((20, 3)).astype(np.float32)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         engine.submit(teng.SkylineRequest(data=x, impl="cuda"))
+
+
+def test_model_modules_are_scanned_for_jax():
+    """The import scan above covers the language models and configs."""
+    names = {(p.parent.name, p.name) for p in PORT_FILES}
+    assert {("models", n) for n in ("config.py", "common.py",
+                                    "attention.py", "moe.py", "ssm.py",
+                                    "transformer.py")} <= names
+    assert {("configs", n) for n in ("base.py", "__init__.py", "yi_6b.py",
+                                     "zamba2_1p2b.py")} <= names
+    assert len([n for d, n in names if d == "configs"]) == 12
+
+
+def test_model_entry_points_raise_without_cuda(monkeypatch):
+    """``init_params``, ``init_caches`` and ``generate`` (through the
+    parameters it is given) run on the card unless asked for the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.common import init_params
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("yi-6b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(TT.lm_plan(cfg))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TT.init_caches(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tserve.main(["--arch", "yi-6b", "--smoke"])
+    params = init_params(TT.lm_plan(cfg), device="cpu")
+    toks = tserve.generate(params, cfg, torch.zeros((1, 4), dtype=torch.int32),
+                           2, 6)
+    assert toks.device.type == "cpu"
+    assert TT.init_caches(cfg, 2, 8, device="cpu")["kv"].k.device.type \
+        == "cpu"
+
+
+def test_sharding_the_models_raises():
+    """An enabled ``Sharder`` and the distributed MoE dispatch are the
+    sharding layer (ROADMAP item 14c): both raise."""
+    from types import SimpleNamespace
+
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.common import Sharder, init_params
+    with pytest.raises(NotImplementedError, match="14c"):
+        Sharder(enabled=True)
+    enabled = SimpleNamespace(enabled=True, rules={})
+    params = init_params(tmoe.moe_plan(8, 16, 4), device="cpu")
+    with pytest.raises(NotImplementedError, match="14c"):
+        tmoe.moe_apply(params, torch.zeros((1, 3, 8)), n_experts=4, top_k=2,
+                       sharder=enabled)
+    from repro_torch.configs import get_config
+    cfg = get_config("yi-6b", smoke=True)
+    with pytest.raises(NotImplementedError, match="14c"):
+        TT.forward(init_params(TT.lm_plan(cfg), device="cpu"), cfg,
+                   {"tokens": torch.zeros((1, 3), dtype=torch.int32)},
+                   sharder=enabled)
+
+
+def test_model_state_crosses_with_every_bit():
+    """Parameters (f32 and bf16 leaves, -0.0 kept) and caches across
+    ``repro_torch.convert``, both ways, tolerance zero."""
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.ssm import SSMState
+    rng = np.random.default_rng(4)
+    w = rng.standard_normal((3, 4)).astype(np.float32)
+    w[0, 0] = -0.0
+    params = {"a": {"w": torch.from_numpy(w)},
+              "h": torch.from_numpy(w).to(torch.bfloat16)}
+    host = convert.params_to_numpy(params)
+    back = convert.params_from_numpy(host, device="cpu")
+    assert torch.equal(back["a"]["w"].view(torch.int32),
+                       params["a"]["w"].view(torch.int32))
+    assert back["h"].dtype == torch.bfloat16 and torch.equal(
+        back["h"].view(torch.int16), params["h"].view(torch.int16))
+    caches = {"kv": KVCache(torch.from_numpy(w), torch.from_numpy(-w),
+                            torch.tensor([3, -1], dtype=torch.int32), True),
+              "ssm": SSMState(*(torch.from_numpy(w + i) for i in range(4)))}
+    again = convert.caches_from_numpy(convert.caches_to_numpy(caches),
+                                      device="cpu")
+    assert again["kv"].rolling is True
+    assert torch.equal(again["kv"].kpos, caches["kv"].kpos)
+    for a, b in zip(again["ssm"], caches["ssm"]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    with pytest.raises(TypeError, match="not a cache tree node"):
+        convert.caches_from_numpy({"x": 3}, device="cpu")
