@@ -199,14 +199,43 @@ It builds the port's CUDA kernels from the sources in the checkout
      full width with 2 layers, the consistency check at drop-free
      capacity.  No kernel of the port runs here: the models' products
      and attention are plain torch, as the reference's are plain XLA;
+  R. trains (``repro_torch.train``, ``repro_torch.launch.train``), after
+     step G, with TF32 off: R1, the ten smoke configs, one gradient and
+     one ``make_train_step`` with two microbatches each, on the card
+     against the port on the CPU from the same numpy parameters and
+     batch: f32 gradients and parameters after the step within 2e-3 of
+     each leaf's norm (the elements whose update differs by more than
+     1e-6 counted: Adam's first update is sign-like where a gradient is
+     near zero), bf16 gradients and updates
+     per leaf within the CPU's own bf16 error (|card - CPU| at most
+     max(|CPU bf16 - CPU f32|, 1e-3 |f32|)), MoE routing replayed; R2,
+     yi-6b at its published widths with 2 layers, f32 gradients card
+     against CPU within 1e-2 of each leaf's norm (near-argmax attention
+     at this width, see G3); R3, ``train_loop`` at
+     yi-6b's published widths cut to 8 of 32 layers (bf16 compute, f32
+     parameters and moments, remat, 8 microbatches, batch 8 x 4,096), 4
+     steps (cut from 6 to keep step R near two minutes): ms a step by
+     CUDA events, tokens/s, the model's FLOPs a step over 989.4 TFLOP/s
+     dense bf16, peak device memory, losses finite and parameters moved,
+     no kernel launched, the last step traced (device idle share); then
+     a run to step 2 that writes its checkpoint (19.8 GB) and a restart
+     from it to step 4 whose state is the straight run's bit for bit;
+     R4, ``python
+     -m repro_torch.launch.train --arch yi-6b --smoke --steps 20
+     --ckpt-every 5 --fail-at 7`` in a subprocess (the restore line, a
+     finite last loss); R5, ``gpipe_forward`` against the sequential
+     layers on a NCCL world of one and on worlds of 2 and 4 ranks sharing
+     the card through gloo.  No kernel of the port runs in a training
+     step;
   8. prints the script's run time, one JSON line with both kernels, then
      the device line.
 
 With ``--kernels-only`` it stops after step 3 and prints no result;
 with ``--engine-only`` (``--serve-only``, ``--verify-only``,
-``--mesh-only``, ``--tuning-only``, ``--lm-only``) it runs the build and
-then the engine step 6c (the serve step 6d, step V, step M, steps T, L
-and P, step G) alone, and prints no result either.
+``--mesh-only``, ``--tuning-only``, ``--lm-only``, ``--train-only``) it
+runs the build and then the engine step 6c (the serve step 6d, step V,
+step M, steps T, L and P, step G, step R) alone, and prints no result
+either.
 Steps 5 and 6 run the default config, so inserts and ring operations
 write their state in place; each timed or traced rerun works on a fresh
 copy of the state it starts from.  Step 6d holds donation on against
@@ -2849,6 +2878,615 @@ def lm_phase(tag, dev=torch.device("cuda"), full_config=None) -> None:
     print(f"{tag} G: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
+# -- step R: training ------------------------------------------------------
+
+R_B, R_S = 4, 32                   # R1's batch (tests/test_models_smoke.py)
+R_F32_TOL = 2e-3                   # f32 gradients, norm-wise per leaf
+R_UPDATE_TOL = 1e-6                # f32 update differences counted
+R2_TOL = 1e-2                      # R2's gradients, norm-wise per leaf
+R3_LAYERS, R3_BATCH, R3_SEQ, R3_STEPS = 8, 8, 4096, 4
+R3_CKPT_AT = 2
+BF16_FLOPS_PER_S = 989.4e12        # H100 SXM dense bf16 (data sheet)
+R5_SHAPE = (8, 6, 2, 16)           # L, M, B, D: tests/test_pipeline.py
+TRAIN_DEADLINE_S = 200.0
+
+
+def _flat(tree) -> list:
+    """``[(path, leaf)]`` of a nest of dicts, keys sorted."""
+    if isinstance(tree, dict):
+        return [(f"{k}/{p}" if p else k, x) for k in sorted(tree)
+                for p, x in _flat(tree[k])]
+    return [("", tree)]
+
+
+def _cpu_leaves(tree) -> list:
+    """A parameter or gradient tree's leaves on the host in f32 (a
+    missing gradient as zeros of its parameter's shape elsewhere)."""
+    return [(p, None if x is None else x.detach().float().cpu())
+            for p, x in _flat(tree)]
+
+
+def _dist(a, b) -> float:
+    return float((a - b).norm())
+
+
+def _train_run(base, cd, host, dev, opt, routing=None):
+    """One config's gradients (``loss_and_grads``) and one
+    ``make_train_step`` on ``dev`` from the host parameters ``host``, in
+    compute dtype ``cd``; MoE routing recorded, or replayed from
+    ``routing``.  Returns (loss, grads, params after the step, metrics,
+    the routing recorded)."""
+    from repro_torch import convert
+    from repro_torch.data.pipeline import DataState, make_batch
+    from repro_torch.train import step as S
+    cfg = dataclasses.replace(base, compute_dtype=cd)
+    batch = make_batch(cfg, R_B, R_S, DataState(0, 0), device=dev)
+    with _Routing(replay=routing) as route:
+        params = convert.params_from_numpy(host, device=dev)
+        loss, _, grads = S.loss_and_grads(params, cfg, batch)
+        state, metrics = S.make_train_step(cfg, opt)(
+            S.init_state(params, opt), batch)
+    if routing is not None:
+        check(not route.queue, f"step R1: {base.name}: routing left over")
+    grads = [(p, torch.zeros(x.shape) if g is None else g) for (p, g), (_, x)
+             in zip(_cpu_leaves(grads), _cpu_leaves(params))]
+    return (float(loss), grads, _cpu_leaves(state["params"]),
+            {k: float(v) for k, v in metrics.items()}, route.recorded)
+
+
+def _f32_updates(arch, got, want) -> tuple[float, float, int]:
+    """The f32 parameters after one step, card (``got``) against CPU
+    (``want``), norm-wise per leaf within ``R_F32_TOL``; returns the
+    worst leaf's ratio, the largest elementwise difference and the count
+    of elements beyond ``R_UPDATE_TOL``.  Adam's first update is
+    ``lr·g/(|g| + eps)``: where a gradient lies within the card's
+    rounding of zero it can take another size or sign there (up to
+    2 lr), so the elements are counted, not held."""
+    worst = biggest = 0.0
+    off = 0
+    for i, (path, a) in enumerate(got[2]):
+        b = want[2][i][1]
+        err = _dist(a, b) / max(float(b.norm()), 1e-30)
+        check(err <= R_F32_TOL, f"step R1: {arch} f32 parameters {path} "
+              f"after the step: card against CPU {err:.3g} of the leaf "
+              f"norm, above {R_F32_TOL}")
+        worst = max(worst, err)
+        biggest = max(biggest, float((a - b).abs().max()))
+        off += int(((a - b).abs() > R_UPDATE_TOL).sum())
+    return worst, biggest, off
+
+
+def _train_r1(tag, dev, cpu) -> None:
+    """R1: the ten smoke configs, card against CPU."""
+    from repro_torch.train.optim import OptConfig
+    opt = OptConfig(total_steps=10, warmup_steps=1)
+    t0 = time.perf_counter()
+    # the smoke models' CPU operations are tiny: one thread is quicker
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _train_r1_configs(tag, dev, cpu, opt)
+    finally:
+        torch.set_num_threads(threads)
+    print(f"{tag} R1: {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def _train_r1_configs(tag, dev, cpu, opt) -> None:
+    from repro_torch import convert
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params
+    for arch in ARCH_NAMES:
+        base = dataclasses.replace(get_config(arch, smoke=True),
+                                   microbatches=2)
+        init = init_params(T.lm_plan(base), seed=0, device=cpu)
+        host = convert.params_to_numpy(init)
+        p0 = _cpu_leaves(init)
+        cpu32 = _train_run(base, "float32", host, cpu, opt)
+        dev32 = _train_run(base, "float32", host, dev, opt,
+                           cpu32[4] if base.n_experts else None)
+        check(abs(dev32[0] - cpu32[0]) <= 1e-5 * abs(cpu32[0]),
+              f"step R1: {arch} f32 loss {dev32[0]} on the card, "
+              f"{cpu32[0]} on the CPU")
+        g_err = 0.0
+        for (path, g), (_, w) in zip(dev32[1], cpu32[1]):
+            err = _dist(g, w) / max(float(w.norm()), 1e-30)
+            check(err <= R_F32_TOL or float(w.norm()) == 0 == float(
+                g.norm()), f"step R1: {arch} f32 gradient {path}: "
+                f"card against CPU {err:.3g} of its norm, above "
+                f"{R_F32_TOL}")
+            g_err = max(g_err, err)
+        p_ratio, p_err, flips = _f32_updates(arch, dev32, cpu32)
+        # bf16: the CPU's routing, replayed on the card and in f32
+        cpu16 = _train_run(base, "bfloat16", host, cpu, opt)
+        routing = cpu16[4] if base.n_experts else None
+        dev16 = _train_run(base, "bfloat16", host, dev, opt, routing)
+        ref32 = (_train_run(base, "float32", host, cpu, opt, routing)
+                 if routing else cpu32)
+        worst_g = worst_p = 0.0
+        for i, (path, g) in enumerate(dev16[1]):
+            w, w32 = cpu16[1][i][1], ref32[1][i][1]
+            bound = max(_dist(w, w32), 1e-3 * float(w32.norm()))
+            ratio = _dist(g, w) / bound if bound else _dist(g, w)
+            check(ratio <= 1.0, f"step R1: {arch} bf16 gradient {path}: "
+                  f"|card - CPU| {_dist(g, w):.4g} above max(|CPU bf16 - "
+                  f"CPU f32|, 1e-3 |f32|) = {bound:.4g}")
+            worst_g = max(worst_g, ratio)
+            # the step's update of this leaf, held the same way
+            p_init = p0[i][1]
+            d_dev, d_cpu, d_32 = (x[2][i][1] - p_init
+                                  for x in (dev16, cpu16, ref32))
+            bound = max(_dist(d_cpu, d_32), 1e-3 * float(d_32.norm()))
+            ratio = _dist(d_dev, d_cpu) / bound if bound else 0.0
+            check(ratio <= 1.0, f"step R1: {arch} bf16 update of {path}: "
+                  f"|card - CPU| {_dist(d_dev, d_cpu):.4g} above {bound:.4g}")
+            worst_p = max(worst_p, ratio)
+        check(abs(dev16[0] - cpu16[0]) <= 3e-2 * abs(cpu16[0]),
+              f"step R1: {arch} bf16 loss {dev16[0]} on the card, "
+              f"{cpu16[0]} on the CPU")
+        print(f"{tag} R1 {arch} smoke, microbatches 2, batch {R_B}x{R_S}: "
+              f"f32 loss card {dev32[0]:.7g} / CPU {cpu32[0]:.7g}, "
+              f"gradients worst {g_err:.3g} of the leaf norm (at most "
+              f"{R_F32_TOL}), parameters after the step worst "
+              f"{p_ratio:.3g} of the leaf norm (at most {R_F32_TOL}), max "
+              f"|card - CPU| {p_err:.3g}, {flips} element(s) whose update "
+              f"differs by more than {R_UPDATE_TOL}; bf16 loss card "
+              f"{dev16[0]:.6g} / CPU {cpu16[0]:.6g}, worst leaf |card - "
+              f"CPU| / max(|CPU bf16 - f32|, 1e-3 |f32|): gradients "
+              f"{worst_g:.3f}, updates {worst_p:.3f} (at most 1)"
+              + (", routing replayed" if routing else ""), flush=True)
+
+
+def _train_r2(tag, dev, cpu, full_config) -> None:
+    """R2: yi-6b at its published widths with 2 layers, f32: one
+    gradient, card against CPU, norm-wise per leaf within ``R2_TOL``.
+    At this width the reference's init makes attention nearly an argmax
+    (`_condition_attention`), which amplifies f32 rounding (on an H100:
+    4.23e-3 at ``blocks/attn/wq``; 1.79e-6 with q and k rescaled to the
+    fan-in d_model)."""
+    from repro_torch import convert
+    from repro_torch.data.pipeline import DataState, make_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params
+    from repro_torch.train import step as S
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(full_config("yi-6b"), n_layers=2,
+                              compute_dtype="float32", remat=False,
+                              microbatches=1)
+    host = convert.params_to_numpy(init_params(T.lm_plan(cfg), seed=0,
+                                               device=cpu))
+    out = []
+    for d in (cpu, dev):
+        params = convert.params_from_numpy(host, device=d)
+        batch = make_batch(cfg, 2, 16, DataState(0, 0), device=d)
+        loss, _, grads = S.loss_and_grads(params, cfg, batch)
+        out.append((float(loss), _cpu_leaves(grads)))
+        del params, grads
+    (lc, gc_), (ld, gd) = out
+    worst, at = 0.0, ""
+    for (path, g), (_, w) in zip(gd, gc_):
+        err = _dist(g, w) / max(float(w.norm()), 1e-30)
+        if err > worst:
+            worst, at = err, path
+    check(worst <= R2_TOL and abs(ld - lc) <= 1e-5 * abs(lc),
+          f"step R2: gradients card against CPU {worst} of the leaf norm at "
+          f"{at} (at most {R2_TOL}), loss {ld} against {lc}")
+    print(f"{tag} R2 {cfg.name} width d={cfg.d_model}, {cfg.n_heads} heads "
+          f"over {cfg.n_kv_heads} KV heads, d_ff={cfg.d_ff}, vocab "
+          f"{cfg.vocab_padded}, 2 layers, f32 (no TF32), batch 2x16: loss "
+          f"card {ld:.7g} / CPU {lc:.7g}; gradients card against CPU, "
+          f"norm-wise per leaf, worst {worst:.3g} at {at} (tolerance "
+          f"{R2_TOL}: near-argmax attention at this width); "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+
+class _StepTimes:
+    """Wraps ``repro_torch.launch.train.make_train_step`` so that every
+    step of a ``train_loop`` is timed by CUDA events, and step
+    ``trace_step`` (1-based) runs under torch.profiler."""
+
+    def __init__(self, trace_step: int | None = None):
+        self.trace_step, self.prof = trace_step, None
+
+    def __enter__(self):
+        from repro_torch.launch import train as L
+        self.mod, self.orig, self.events = L, L.make_train_step, []
+
+        def make(cfg, opt_cfg, **kw):
+            step = self.orig(cfg, opt_cfg, **kw)
+
+            def timed(state, batch):
+                from torch.profiler import ProfilerActivity, profile
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                if len(self.events) + 1 != self.trace_step:
+                    start.record()
+                    out = step(state, batch)
+                    end.record()
+                else:
+                    # the device's activity only: a step is about 19,000
+                    # kernels, and the host's events besides would take
+                    # the profiler many seconds to gather
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CUDA]) as p:
+                        start.record()
+                        out = step(state, batch)
+                        end.record()
+                        torch.cuda.synchronize()
+                    self.prof = p
+                self.events.append((start, end))
+                return out
+
+            return timed
+
+        L.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_train_step = self.orig
+
+    def ms(self) -> list:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+class _CkptTimes:
+    """Times `CheckpointManager`'s host copy (``save`` until it hands the
+    write to its thread), the write it waits for, and ``restore``."""
+
+    def __enter__(self):
+        from repro_torch.checkpoint import manager as M
+        self.cls, self.t = M.CheckpointManager, {}
+        self.orig = {k: getattr(self.cls, k)
+                     for k in ("save", "wait", "restore")}
+
+        def timed(name):
+            def call(mgr, *a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return self.orig[name](mgr, *a, **k)
+                finally:
+                    self.t[name] = self.t.get(name, 0.0) + (
+                        time.perf_counter() - t0)
+            return call
+
+        for k in self.orig:
+            setattr(self.cls, k, timed(k))
+        return self
+
+    def __exit__(self, *exc):
+        for k, f in self.orig.items():
+            setattr(self.cls, k, f)
+
+    def report(self) -> str:
+        return ", ".join(f"{k} {v:.3f}" for k, v in sorted(self.t.items()))
+
+
+def _moved(cfg, final, dev) -> list:
+    """Leaves (embed, the first attention block's wq) whose values after
+    training differ from their initial draw (made again from the same
+    per-leaf seeds)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params
+    plan = T.lm_plan(cfg)
+    sub = {"embed": plan["embed"],
+           "blocks": {"attn": {"wq": plan["blocks"]["attn"]["wq"]}}}
+    init = init_params(sub, seed=0, device=dev)
+    return [p for (p, a), (_, b) in zip(_flat(init), _flat(
+        {"embed": final["embed"],
+         "blocks": {"attn": {"wq": final["blocks"]["attn"]["wq"]}}}))
+        if not torch.equal(a, b)]
+
+
+def _train_r3(tag, dev, full_config, kernels):
+    """R3: ``train_loop`` at yi-6b's published widths, cut to
+    ``R3_LAYERS`` layers, bf16 compute, the config's remat and
+    microbatches; then a checkpoint, a restart and the same state.
+    Returns the thread that deletes the checkpoints."""
+    import gc
+    import shutil
+    import tempfile
+    import threading
+    from repro_torch.train.optim import OptConfig
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(full_config("yi-6b"), n_layers=R3_LAYERS)
+    check(cfg.remat and cfg.compute_dtype == "bfloat16",
+          f"step R3: {cfg.name} does not remat in bf16 compute")
+    opt = OptConfig(total_steps=R3_STEPS,
+                    warmup_steps=max(R3_STEPS // 20, 1))
+    kw = dict(steps=R3_STEPS, batch=R3_BATCH, seq=R3_SEQ, opt_cfg=opt,
+              log_every=1, device=dev)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import plan_leaves
+    n = cfg.param_count()              # the products' parameters
+    held = sum(int(np.prod(spec.shape))
+               for _, spec in plan_leaves(T.lm_plan(cfg)))
+    tokens = R3_BATCH * R3_SEQ
+    attn = 12 * R3_SEQ ** 2 * cfg.n_heads * cfg.head_dim_eff \
+        * cfg.n_layers * R3_BATCH
+    flops = 6 * n * tokens + attn
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt = tempfile.mkdtemp(prefix="r3_ckpt_")
+    marks = [("set-up", time.perf_counter())]
+    try:
+        _train_r3_runs(tag, dev, cfg, kw, kernels, ckpt,
+                       (n, held, tokens, attn, flops, bound_ms), marks)
+    except BaseException:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        raise
+    # the checkpoints' 40 GB take seconds to delete: beside R5
+    removal = threading.Thread(target=shutil.rmtree, args=(ckpt,),
+                               kwargs={"ignore_errors": True})
+    removal.start()
+    phases = [(marks[i][0], marks[i][1] - (marks[i - 1][1] if i else t0))
+              for i in range(len(marks))]
+    print(f"{tag} R3: {time.perf_counter() - t0:.3f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in phases) + ")", flush=True)
+    return removal
+
+
+def _train_r3_runs(tag, dev, cfg, kw, kernels, ckpt, counts,
+                   marks) -> None:
+    """R3's runs: the straight one (timed, its last step traced), then a
+    run to step ``R3_CKPT_AT`` that writes its checkpoint into ``ckpt``
+    and the restart from it to the end, held against the straight
+    run."""
+    import gc
+    from repro_torch.launch.train import train_loop
+    n, held, tokens, attn, flops, bound_ms = counts
+    traced = R3_STEPS if dev.type == "cuda" else None
+    with _StepTimes(trace_step=traced) as times, \
+            Launches(*kernels) as run:
+        state, hist = train_loop(cfg, **kw)
+    ms = times.ms()
+    marks.append(("the straight run", time.perf_counter()))
+    peak = torch.cuda.max_memory_allocated()
+    check(run.counts == (0, 0), f"step R3: a training step launched "
+          f"{run.counts} sweep and dominance kernels, expected (0, 0)")
+    losses = [v for _, v in hist]
+    check(len(losses) == R3_STEPS and all(np.isfinite(losses)),
+          f"step R3: losses {losses}")
+    moved = _moved(cfg, state["params"], dev)
+    check(len(moved) == 2, f"step R3: parameters that did not move: "
+          f"{moved}")
+    steady = ms[1:]
+    step_ms = sum(steady) / len(steady)
+    print(f"{tag} R3 train_loop {cfg.name} at its published widths cut to "
+          f"{cfg.n_layers} of 32 layers ({held} parameters, "
+          f"{held * 4} B each of f32 parameters, gradients, m and v), bf16 "
+          f"compute, remat {cfg.remat}, microbatches {cfg.microbatches}, "
+          f"batch {R3_BATCH} x seq {R3_SEQ} ({tokens} tokens a step), "
+          f"{R3_STEPS} steps: losses {[round(v, 4) for v in losses]}; "
+          f"ms a step (CUDA events; the last step traced) "
+          f"{[round(t, 3) for t in ms]}, steps 2-{R3_STEPS} mean "
+          f"{step_ms:.3f} ms = {tokens / step_ms * 1e3:.1f} tokens/s; "
+          f"bound: {flops:.4g} FLOPs a step (6 N T = {6 * n * tokens:.4g} "
+          f"with N = {n}, the parameters of the products, + full S x S "
+          f"attention products {attn:.4g}, remat's recompute not counted) "
+          f"at {BF16_FLOPS_PER_S / 1e12} TFLOP/s dense bf16 = "
+          f"{bound_ms:.3f} ms ({step_ms / bound_ms:.2f}x the bound, model "
+          f"FLOPs utilisation {bound_ms / step_ms:.3f}); peak device memory "
+          f"{peak} B; launches (sweep, dominance) {run.counts}; parameters "
+          f"moved: {', '.join(moved)}", flush=True)
+    marks.append(("its checks", time.perf_counter()))
+    if times.prof is not None:
+        print_trace(times.prof, tag, f"step {R3_STEPS} of that run "
+                    f"(device activity only)")
+    marks.append(("the trace's report", time.perf_counter()))
+    straight = state      # kept on the card (19.8 GB at yi-6b's widths)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a checkpoint at step R3_CKPT_AT, a restart, and on to the end
+    marks.append(("freeing", time.perf_counter()))
+    t1 = time.perf_counter()
+    with _CkptTimes() as io:
+        first, _ = train_loop(cfg, **dict(kw, steps=R3_CKPT_AT),
+                              ckpt_dir=ckpt, ckpt_every=R3_CKPT_AT)
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("the run to the checkpoint", time.perf_counter()))
+    t2 = time.perf_counter()
+    with _CkptTimes() as io2:
+        resumed, _ = train_loop(cfg, **kw, ckpt_dir=ckpt,
+                                ckpt_every=R3_CKPT_AT)
+    t3 = time.perf_counter()
+    marks.append(("the restart", time.perf_counter()))
+    diffs = [(float((a.double() - b.double()).abs().max()), path)
+             for (path, a), (_, b) in zip(_flat(resumed), _flat(straight))
+             if not torch.equal(a, b)]
+    del straight, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    verdict = ("bit for bit the straight run" if not diffs else
+               f"{len(diffs)} leaves differ from the straight run, largest "
+               f"{max(diffs)}")
+    print(f"{tag} R3 checkpoint at step {R3_CKPT_AT}, restart, run to "
+          f"{R3_STEPS}: {verdict} (steps 1-{R3_CKPT_AT} and the checkpoint "
+          f"{t2 - t1:.3f} s; the restart: its restore, steps "
+          f"{R3_CKPT_AT + 1}-{R3_STEPS} and the last checkpoint "
+          f"{t3 - t2:.3f} s; checkpoint seconds {io.report()} then "
+          f"{io2.report()})", flush=True)
+    check(not diffs, f"step R3: the restarted run differs from the "
+          f"straight run: {sorted(diffs)[-5:]}")
+    marks.append(("the comparison", time.perf_counter()))
+
+
+def _r4_args(ckpt: str) -> list:
+    """R4's command line: the training entry point as users run it."""
+    return ["repro_torch.launch.train", "--arch", "yi-6b", "--smoke",
+            "--steps", "20", "--ckpt-dir", ckpt, "--ckpt-every", "5",
+            "--fail-at", "7"]
+
+
+def _train_r4_start():
+    """Start R4 in a subprocess (it runs beside R1 and R2, which check
+    numbers, not times); `_train_r4_finish` reads it."""
+    import tempfile
+    ckpt = tempfile.mkdtemp(prefix="r4_ckpt_")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.Popen([sys.executable, "-m", *_r4_args(ckpt)],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, ckpt, time.perf_counter()
+
+
+def _train_r4_finish(tag, started) -> None:
+    """R4: the subprocess's exit code, its restore line and a finite
+    last loss."""
+    import shutil
+    proc, ckpt, t0 = started
+    try:
+        out, err = proc.communicate(timeout=SUBPROCESS_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    lines = out.splitlines()
+    if proc.returncode != 0:
+        print(out[-4000:])
+        print(err[-4000:], file=sys.stderr)
+        fail(f"step R4: the training entry point exited {proc.returncode}")
+    for line in lines:
+        print(f"{tag} R4 {line}")
+    check(any(ln.startswith("[train] step 7 failed (injected failure") and
+              ln.endswith("restoring last checkpoint and replaying")
+              for ln in lines), "step R4: no restore after the injected "
+          "failure")
+    m = re.search(r"\[train\] done 20 steps in .*; loss (\S+) -> (\S+)$",
+                  lines[-1] if lines else "")
+    check(m is not None and np.isfinite(float(m.group(2))),
+          f"step R4: last line {lines[-1:]}")
+    print(f"{tag} R4: {' '.join(_r4_args('<tmp>'))}: exit 0, "
+          f"{time.perf_counter() - t0:.3f} s of subprocess beside R1 and R2",
+          flush=True)
+
+
+def _gpipe_inputs():
+    l, m, b, d = R5_SHAPE
+    rng = np.random.default_rng(0)
+    w = (rng.standard_normal((l, d, d)) * d ** -0.5).astype(np.float32)
+    xs = rng.standard_normal((m, b, d)).astype(np.float32)
+    return w, xs
+
+
+def _gpipe_stage(ws, x):
+    for wi in ws:
+        x = torch.tanh(x @ wi)
+    return x
+
+
+def gpipe_rank(device) -> dict:
+    """One rank of the world of four spawned by step R5: `gpipe_forward`
+    over the first 2 and then all 4 ranks as stages, on ``device``
+    (None: the card); ``{stages: outputs}`` where this rank is a
+    stage."""
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.train.pipeline import gpipe_forward, pipeline_stages
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w, xs = _gpipe_inputs()
+    out = {}
+    for stages in (2, 4):
+        mesh = make_worker_mesh(stages, device=device)
+        if mesh.member:
+            y = gpipe_forward(_gpipe_stage, pipeline_stages(
+                torch.from_numpy(w).to(mesh.device), stages),
+                torch.from_numpy(xs).to(mesh.device), mesh=mesh)
+            out[stages] = y.cpu().numpy()
+        out["backend"], out["staged"] = mesh.backend, sorted(mesh.staged)
+    return out
+
+
+def _train_r5(tag, dev) -> None:
+    """R5: GPipe against the sequential layers, on a NCCL world of one
+    and on worlds of 2 and 4 ranks sharing the card (gloo)."""
+    from repro_torch.launch.mesh import make_worker_mesh, run_world
+    from repro_torch.train.pipeline import gpipe_forward, pipeline_stages
+    t0 = time.perf_counter()
+    _, m, b, d = R5_SHAPE
+    w, xs = _gpipe_inputs()
+    x = torch.from_numpy(xs).to(dev).reshape(m * b, d)
+    want = _gpipe_stage(torch.from_numpy(w).to(dev), x).reshape(m, b, d)
+    mesh = make_worker_mesh(1, device=dev)
+    one = gpipe_forward(_gpipe_stage, pipeline_stages(
+        torch.from_numpy(w).to(dev), 1), torch.from_numpy(xs).to(dev),
+        mesh=mesh)
+    ok, err = _close(one.cpu(), want.cpu(), 2e-5)
+    check(ok, f"step R5: one stage ({mesh.backend}): error {err}")
+    line = [f"W=1 ({mesh.backend}) max error {err:.3g}"]
+    where = None if dev.type == "cuda" else "cpu"
+    try:
+        reps = run_world(gpipe_rank, 4, where, device=where,
+                         deadline=TRAIN_DEADLINE_S, timeout=120.0)
+    except RuntimeError as e:
+        fail(f"step R5: world of 4: {e}")
+    for size in (2, 4):
+        outs = [r[size] for r in reps if size in r]
+        check(len(outs) == size, f"step R5: W={size}: {len(outs)} stages "
+              f"answered")
+        check(all(np.array_equal(o.view(np.int32), outs[0].view(np.int32))
+                  for o in outs), f"step R5: W={size}: the ranks differ")
+        ok, err = _close(torch.from_numpy(outs[0]), want.cpu(), 2e-5)
+        check(ok, f"step R5: W={size}: error {err} against the sequential "
+              f"layers")
+        line.append(f"W={size} (the first {size} ranks of a world of 4, "
+                    f"{reps[0]['backend']}, staged "
+                    f"{reps[0]['staged'] or 'none'}) max error {err:.3g}, "
+                    f"every stage the same bits")
+    print(f"{tag} R5 gpipe_forward (L, M, B, D) = {R5_SHAPE}, one stage "
+          f"per rank of the world, against the sequential layers, rtol = "
+          f"atol = 2e-5: "
+          f"{'; '.join(line)} [one card shared by the ranks: a check of "
+          f"the schedule, not of scaling]; {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+
+def train_phase(tag, kernels, dev=torch.device("cuda"),
+                full_config=None) -> None:
+    """Step R: training (`repro_torch.train`, `repro_torch.launch.train`)
+    on the card.  R1, the ten smoke configs, one gradient and one
+    ``make_train_step`` (two microbatches) each, card against the port
+    on the CPU from the same numpy parameters and batch: f32 gradients
+    and parameters after the step within 2e-3 of each leaf's norm
+    (`_f32_updates`), bf16 per leaf within the CPU's own
+    bf16 error (|card - CPU| at most max(|CPU bf16 - CPU f32|, 1e-3
+    |f32|)), MoE routing replayed.  R2, yi-6b at its published widths
+    with 2 layers, f32: gradients card against CPU.  R3, ``train_loop``
+    at yi-6b's widths cut to 8 of 32 layers, bf16 compute, remat, 8
+    microbatches, batch 8 x 4,096, ``R3_STEPS`` steps: ms a step,
+    tokens/s, the FLOP bound, peak memory, the idle share of the traced
+    last step, then a checkpoint at step ``R3_CKPT_AT``, a restart and
+    the straight run's state.  R4,
+    ``python -m repro_torch.launch.train --arch yi-6b --smoke --steps 20
+    --fail-at 7`` in a subprocess.  R5, ``gpipe_forward`` against the
+    sequential layers on worlds of 1 (NCCL), 2 and 4 ranks (gloo,
+    sharing the card).  No kernel of the port runs here."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = torch.device("cpu")
+    from repro_torch.configs import get_config
+    full_config = full_config or get_config
+    r4 = _train_r4_start()
+    try:
+        _train_r1(tag, dev, cpu)
+        _train_r2(tag, dev, cpu, full_config)
+    finally:
+        _train_r4_finish(tag, r4)
+    removal = _train_r3(tag, dev, full_config, kernels)
+    try:
+        _train_r5(tag, dev)
+    finally:
+        removal.join()
+    print(f"{tag} R: {time.perf_counter() - t0:.3f} s", flush=True)
+
+
 def record_dominance_calls(fn) -> list:
     """Run ``fn`` once and return the arguments of every dominance
     kernel launch it makes, for timing the calls on their own inputs.
@@ -3172,7 +3810,6 @@ def trace_call(fn, tag: str, label: str, fresh):
     the traced window (from the first event to the last, host or
     device) and over the device span alone (from the first device
     operation to the end of the last)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(fresh())
     arg = fresh()
@@ -3181,6 +3818,13 @@ def trace_call(fn, tag: str, label: str, fresh):
                              ProfilerActivity.CUDA]) as prof:
         fn(arg)
         torch.cuda.synchronize()
+    print_trace(prof, tag, label)
+
+
+def print_trace(prof, tag: str, label: str) -> None:
+    """The device's idle share and top eight operations of a finished
+    torch.profiler session (see `trace_call`)."""
+    from torch.autograd import DeviceType
     events = list(prof.events())
     dev = sorted((e.time_range.start, e.time_range.end, e.name)
                  for e in events if e.device_type == DeviceType.CUDA)
@@ -3322,6 +3966,11 @@ def main() -> None:
     if "--lm-only" in sys.argv[1:]:
         lm_phase(tag)
         print(f"--lm-only: stopped after step G; chip_smoke.py ran "
+              f"{time.perf_counter() - T_START:.3f} s")
+        return
+    if "--train-only" in sys.argv[1:]:
+        train_phase(tag, (kernel.sfs_sweep_cuda, dkernel.dominated_mask_cuda))
+        print(f"--train-only: stopped after step R; chip_smoke.py ran "
               f"{time.perf_counter() - T_START:.3f} s")
         return
     for flag, phase in (("--engine-only", engine_phase),
@@ -3531,6 +4180,7 @@ def main() -> None:
     print(f"{tag} steps T, L and P: {time.perf_counter() - t_tlp:.3f} s")
     del data, oneshot
     lm_phase(tag)
+    train_phase(tag, kernels)
 
     # -- 8. the kernel record and the device line ----------------------------
     def entry(name, route, source, replaces, launches_n, err, rec):

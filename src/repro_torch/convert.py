@@ -19,6 +19,15 @@ the reference's own with numpy leaves).  bfloat16 leaves keep their two
 bytes: they come back as ml_dtypes' ``bfloat16`` where that package is
 installed, else as numpy's two-byte ``V2``.
 
+A train state (`repro_torch.train.step`: ``{"params", "opt": {"m",
+"v", "step"[, "err"]}, "step"}``) crosses as the same tree of arrays.
+The port's train step writes its state in place, so
+`train_state_to_numpy` copies every leaf: an array that shared a
+tensor's memory would change under a reader that still holds it (JAX
+may alias a host array it is given, and dispatches asynchronously).
+`params_to_numpy` does not copy; copy its arrays before handing them
+to another package when the tensors will be written afterwards.
+
 Kernel-tuning tables (`repro_torch.kernels.tuning`) and checkpoints
 (`repro_torch.checkpoint.manager`) need nothing here: both are files in
 the reference's format (the same JSON keys; the same file and leaf
@@ -45,7 +54,8 @@ __all__ = ["config_from_reference", "buffer_from_numpy", "buffer_to_numpy",
            "state_from_numpy", "state_to_numpy", "window_state_from_numpy",
            "window_state_to_numpy", "model_config_from_reference",
            "params_from_numpy", "params_to_numpy", "caches_from_numpy",
-           "caches_to_numpy"]
+           "caches_to_numpy", "train_state_from_numpy",
+           "train_state_to_numpy"]
 
 # dtype of each leaf of a buffer, of a state and of a windowed state
 _BUFFER_DTYPES = (np.float32, bool, np.int32, bool)
@@ -172,3 +182,16 @@ def caches_to_numpy(tree):
     """A decode-cache tree with numpy leaves, in the port's node types
     (`KVCache`, `SSMState`), bits unchanged."""
     return tree_map(_leaf_to_numpy, tree)
+
+
+def train_state_from_numpy(tree, *, device) -> dict:
+    """A train state (nested dicts of arrays: parameters, moments, error
+    buffers, 0-d steps) as tensors on ``device``, bits unchanged."""
+    return params_from_numpy(tree, device=device)
+
+
+def train_state_to_numpy(state) -> dict:
+    """A train state's tensors as numpy arrays, bits unchanged, each a
+    copy of its tensor (the port's train step writes its state in
+    place)."""
+    return tree_map(lambda t: np.array(_leaf_to_numpy(t), copy=True), state)

@@ -378,13 +378,40 @@ class WorkerMesh:
         return collective_call("ppermute", "workers",
                                self._on_bits("ppermute", permute), x)
 
-    def broadcast_from_root(self, x: torch.Tensor) -> torch.Tensor:
-        """Worker 0's ``x`` on every worker, bit for bit: the reference's
-        integer psum of ``where(root, bits, 0)``
+    def shift(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.ppermute`` over the workers group with the pairs
+        ``(i, i + 1)``: worker i + 1 receives worker i's ``x``, worker 0
+        gets zeros.  A middle worker both sends and receives; an even
+        worker sends first and an odd one receives first, so each send
+        meets a receive already waiting or about to wait, down the
+        chain."""
+        me, ranks, group = self.w_index, self.w_ranks, self.w_group
+        last = len(ranks) - 1
+
+        def permute(bits):
+            out = torch.zeros_like(bits)
+            calls = []
+            if me < last:
+                calls.append(lambda: dist.send(bits, ranks[me + 1],
+                                               group=group))
+            if me > 0:
+                calls.append(lambda: dist.recv(out, ranks[me - 1],
+                                               group=group))
+            for call in (calls if me % 2 == 0 else calls[::-1]):
+                call()
+            return out
+
+        return collective_call("ppermute", "workers",
+                               self._on_bits("ppermute", permute), x)
+
+    def broadcast_from_root(self, x: torch.Tensor,
+                            root: int = 0) -> torch.Tensor:
+        """Worker ``root``'s ``x`` on every worker, bit for bit: the
+        reference's integer psum of ``where(root, bits, 0)``
         (``repro.core.parallel._root_broadcast``)."""
         def bcast(bits):
             out = bits.clone()
-            dist.broadcast(out, self.w_ranks[0], group=self.w_group)
+            dist.broadcast(out, self.w_ranks[root], group=self.w_group)
             return out
 
         return collective_call("broadcast", "workers",

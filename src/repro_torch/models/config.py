@@ -8,9 +8,10 @@ with ``dataclasses.asdict`` (`repro_torch.convert.model_config_from_reference`).
 
 The execution fields were written for XLA; in eager torch they mean:
 
-* ``remat`` matters only under autograd (rematerialising a block in the
-  backward pass), which is training, ROADMAP item 14b; the forward and
-  decode paths here ignore it.
+* ``remat`` matters only under autograd: a forward that builds a graph
+  (training) runs each block under ``torch.utils.checkpoint``, so its
+  activations are recomputed in the backward pass; prefill, decode and
+  ``torch.no_grad`` calls ignore it.
 * ``scan_layers`` and ``scan_unroll`` select how XLA compiles the loop
   over the stacked layer axis.  Here that loop is a Python loop over the
   leading layer axis of the parameters; the math is the same either way.

@@ -7,6 +7,16 @@ Decode is the constant-memory recurrent form.
 
 Multi-head layout: x is (B, S, H, P) with a scalar decay A per head and
 one B/C group shared across heads (n_groups = 1, as in Mamba-2).
+
+SiLU in bf16 (`silu`) is rounded as the reference rounds it: its
+``jax.nn.silu`` is ``x * logistic(x)`` with the logistic lowered to
+``1 / (1 + exp(-x))``, each step a bf16 result, and the logistic's
+derivative ``s * (1 - s)``.  ``F.silu`` rounds once from f32, which is
+closer per element but another value: the block's gradients in bf16
+are ill-conditioned (a gated RMSNorm over rows where the scan nearly
+cancels the skip term, ``y ≈ -D·x``), and that difference alone put the
+port's bf16 gradients up to 15x further from the reference than the
+reference's own distance from f32.
 """
 
 from __future__ import annotations
@@ -19,9 +29,34 @@ import torch.nn.functional as F
 from repro_torch.models.common import PSpec, rmsnorm
 
 __all__ = ["mamba2_plan", "mamba2_apply", "mamba2_decode", "SSMState",
-           "init_ssm_state"]
+           "init_ssm_state", "silu"]
 
 _CONV_W = 4  # causal conv width, as in Mamba-2
+
+
+class _SiluBF16(torch.autograd.Function):
+    """``x * s`` with ``s = 1 / (1 + exp(-x))``, every step rounded to
+    bf16; backward ``g * s + (g * x) * (s * (1 - s))``, as JAX
+    differentiates ``x * logistic(x)``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
+def silu(x):
+    """SiLU; in bf16 rounded step by step as the reference's program
+    rounds it (see the module docstring)."""
+    if x.dtype == torch.bfloat16:
+        return _SiluBF16.apply(x)
+    return F.silu(x)
 
 
 def mamba2_plan(d_model: int, n_heads: int, head_dim: int, state: int):
@@ -76,7 +111,7 @@ def _causal_conv(x, kernel):
         zeros = x.new_zeros((x.shape[0], min(i, s)) + x.shape[2:])
         shifted = torch.cat([zeros, x[:, :max(s - i, 0)]], dim=1)
         acc = acc + shifted * kernel[w - 1 - i]
-    return F.silu(acc)
+    return silu(acc)
 
 
 def _segsum(x):
@@ -173,7 +208,7 @@ def mamba2_apply(params, x, *, n_heads, head_dim, state, chunk=128,
                           padz(ci.float()), chunk)
     y = y[:, :s]
     y = y + xi.float() * params["D"].float()[None, None, :, None]
-    y = y.to(dt_) * F.silu(z)
+    y = y.to(dt_) * silu(z)
     y = rmsnorm(y, params["norm"])
     out = torch.einsum("bshp,hpd->bsd", y.to(dt_), params["wo"].to(dt_))
 
@@ -187,7 +222,7 @@ def _conv_step(tail, cur, kern):
     tail."""
     hist = torch.cat([tail, cur[:, None]], dim=1)            # (B, W, ...)
     out = torch.einsum("bw...,w...->b...", hist, kern)
-    return F.silu(out), hist[:, 1:]
+    return silu(out), hist[:, 1:]
 
 
 def mamba2_decode(params, x, st: SSMState, *, n_heads, head_dim, state,
@@ -217,7 +252,7 @@ def mamba2_decode(params, x, st: SSMState, *, n_heads, head_dim, state,
              + torch.einsum("bhp,bn->bhpn", xf * dt[..., None], bf))
     y = torch.einsum("bhpn,bn->bhp", h_new, ci.float())
     y = y + xf * params["D"].float()[None, :, None]
-    y = y.to(dt_) * F.silu(z)
+    y = y.to(dt_) * silu(z)
     y = rmsnorm(y, params["norm"])
     out = torch.einsum("bhp,hpd->bd", y.to(dt_), params["wo"].to(dt_))
     return out[:, None], SSMState(h_new, ncx, ncb, ncc)

@@ -23,10 +23,12 @@ Public surface:
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as att
@@ -70,6 +72,18 @@ def tree_map(fn, tree, *rest):
 
 def _layer(tree, i):
     return tree_map(lambda a: a[i], tree)
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked parameter tree: one
+    ``unbind`` per leaf, whose backward writes the layers' gradients
+    into the stacked gradient at once (a ``select`` per layer would
+    each write a zero-filled gradient of the whole stack)."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    assert tree.shape[0] == n, (tree.shape, n)
+    return list(tree.unbind(0))
 
 
 def _stack(trees):
@@ -166,7 +180,7 @@ def _mlp_apply(params, x, cfg, dt):
     return torch.matmul(h, params["wo"].to(dt))
 
 
-def _attn_block(params, x, cfg, *, kind, use_rope, rope_freqs,
+def _attn_block(params, x, *, cfg, kind, use_rope, rope_freqs,
                 prefix_len=None, is_moe=False):
     """Full-sequence attention block -> (x, (k, v), aux)."""
     dt = _dt(cfg)
@@ -190,7 +204,7 @@ def _attn_block(params, x, cfg, *, kind, use_rope, rope_freqs,
     return x + f.to(x.dtype), kv, aux
 
 
-def _ssm_block(params, x, cfg):
+def _ssm_block(params, x, *, cfg):
     h = rmsnorm(x, params["ln"])
     y, state = ssm_mod.mamba2_apply(
         params["mamba"], h, n_heads=cfg.ssm_heads,
@@ -241,10 +255,38 @@ def _rope(cfg, device):
 # Forward (train / encoder / prefill collection)
 # ==========================================================================
 
+def _builds_graph(params) -> bool:
+    """Whether a forward over ``params`` records an autograd graph."""
+    if not torch.is_grad_enabled():
+        return False
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, torch.Tensor) and node.requires_grad:
+            return True
+    return False
+
+
+def _maybe_remat(fn, cfg: ModelConfig, graph: bool):
+    """``fn``, or ``fn`` under activation checkpointing when ``cfg.remat``
+    and the forward builds a graph: where the reference wraps a block in
+    ``jax.checkpoint``, its activations are recomputed in the backward
+    pass instead of kept.  A forward with no graph (prefill, decode,
+    ``torch.no_grad``) runs ``fn`` as it is."""
+    if not (cfg.remat and graph):
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 def forward(params, cfg: ModelConfig, inputs, *, sharder=None,
             collect_kv: bool = False, last_only: bool = False):
     """Returns (logits, collected, aux). collected is family-specific:
-    stacked (k, v) or SSM states when collect_kv (prefill), else None."""
+    stacked (k, v) or SSM states when collect_kv (prefill), else None.
+    With ``cfg.remat``, a forward that builds an autograd graph
+    recomputes each block in the backward pass, where the reference
+    remats."""
     _check_sharder(sharder)
     x = _embed_inputs(params, cfg, inputs)
     rope_freqs = _rope(cfg, x.device)
@@ -255,16 +297,18 @@ def forward(params, cfg: ModelConfig, inputs, *, sharder=None,
     collected = None
     aux_sum = {}
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    graph = _builds_graph(params)
 
     if fam in ("dense", "encoder", "vlm") or (fam == "moe"
                                               and not cfg.global_every):
         is_moe = fam == "moe"
+        blk = _maybe_remat(functools.partial(
+            _attn_block, cfg=cfg, kind=kind, use_rope=True,
+            rope_freqs=rope_freqs, prefix_len=prefix_len, is_moe=is_moe),
+            cfg, graph)
         kvs, auxs = [], []
-        for i in range(cfg.n_layers):
-            x, kv, aux = _attn_block(
-                _layer(params["blocks"], i), x, cfg, kind=kind,
-                use_rope=True, rope_freqs=rope_freqs,
-                prefix_len=prefix_len, is_moe=is_moe)
+        for p in _unstack(params["blocks"], cfg.n_layers):
+            x, kv, aux = blk(p, x)
             if collect_kv:
                 kvs.append(kv)
             auxs.append(aux.get("moe_aux_loss", zero))
@@ -273,27 +317,39 @@ def forward(params, cfg: ModelConfig, inputs, *, sharder=None,
 
     elif fam == "moe":  # iRoPE super-layers (llama4)
         pattern = cfg.sub_pattern()
-        kvs = [[] for _ in pattern]
-        auxs = []
-        for j in range(cfg.n_layers // cfg.global_every):
+
+        def superlayer(p, x):
+            kvs = []
             a_sum = zero
             for i, (is_global, is_moe) in enumerate(pattern):
                 x, kv, aux = _attn_block(
-                    _layer(params["blocks"][f"sub{i}"], j), x, cfg,
+                    p[f"sub{i}"], x, cfg=cfg,
                     kind="causal" if is_global else "chunk",
                     use_rope=not is_global, rope_freqs=rope_freqs,
                     is_moe=is_moe)
-                if collect_kv:
-                    kvs[i].append(kv)
+                kvs.append(kv)
                 a_sum = a_sum + aux.get("moe_aux_loss", zero)
+            return x, kvs, a_sum
+
+        blk = _maybe_remat(superlayer, cfg, graph)
+        kvs = [[] for _ in pattern]
+        auxs = []
+        nsup = cfg.n_layers // cfg.global_every
+        for p in _unstack(params["blocks"], nsup):
+            x, kv, a_sum = blk(p, x)
+            if collect_kv:
+                for i, one in enumerate(kv):
+                    kvs[i].append(one)
             auxs.append(a_sum)
         collected = [_stack(k) for k in kvs] if collect_kv else None
         aux_sum["moe_aux_loss"] = torch.stack(auxs).sum()
 
     elif fam == "ssm":
+        blk = _maybe_remat(functools.partial(_ssm_block, cfg=cfg), cfg,
+                           graph)
         states = []
-        for i in range(cfg.n_layers):
-            x, st = _ssm_block(_layer(params["blocks"], i), x, cfg)
+        for p in _unstack(params["blocks"], cfg.n_layers):
+            x, st = blk(p, x)
             if collect_kv:
                 states.append(st)
         collected = _stack(states) if collect_kv else None
@@ -302,15 +358,19 @@ def forward(params, cfg: ModelConfig, inputs, *, sharder=None,
         # the shared attention block once per `attn_every` mamba layers
         period = cfg.attn_every
         shared = params["shared_attn"]
+        attn_once = _maybe_remat(functools.partial(
+            _attn_block, cfg=cfg, kind="causal", use_rope=True,
+            rope_freqs=rope_freqs), cfg, graph)
+        blk = _maybe_remat(functools.partial(_ssm_block, cfg=cfg), cfg,
+                           graph)
+        layers = _unstack(params["blocks"], cfg.n_layers)
         states, kvs = [], []
         for app in range(cfg.n_attn_apps):
-            x, kv, _ = _attn_block(shared, x, cfg, kind="causal",
-                                   use_rope=True, rope_freqs=rope_freqs)
+            x, kv, _ = attn_once(shared, x)
             if collect_kv:
                 kvs.append(kv)
-            for i in range(app * period,
-                           min(app * period + period, cfg.n_layers)):
-                x, st = _ssm_block(_layer(params["blocks"], i), x, cfg)
+            for p in layers[app * period:app * period + period]:
+                x, st = blk(p, x)
                 if collect_kv:
                     states.append(st)
         collected = (_stack(states), _stack(kvs)) if collect_kv else None

@@ -321,3 +321,27 @@ def default_engine_case():
     from repro_torch.serve.scheduler import make_default_engine
     eng = make_default_engine(SkyConfig(p=4), device="cpu")
     return eng.mesh.queries, eng.mesh.workers
+
+
+def gpipe_case(workers: int, w, xs, kind: str):
+    """`repro_torch.train.pipeline.gpipe_forward` on a prefix mesh of
+    ``workers`` stages over the (L, D, D) weights ``w`` and the (M, B, D)
+    microbatches ``xs``: each layer ``tanh(x @ w_i)`` (``kind="tanh"``)
+    or ``-|x @ w_i| * 0`` (``"negzero"``, every output -0.0)."""
+    import torch
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.train.pipeline import gpipe_forward, pipeline_stages
+    m = make_worker_mesh(workers, device="cpu")
+    if not m.member:
+        return None
+
+    def stage_fn(ws, x):
+        for wi in ws:
+            y = x @ wi
+            x = torch.tanh(y) if kind == "tanh" else -torch.abs(y) * 0.0
+        return x
+
+    out = gpipe_forward(stage_fn, pipeline_stages(torch.from_numpy(w),
+                                                  workers),
+                        torch.from_numpy(xs), mesh=m)
+    return out.numpy().copy()
