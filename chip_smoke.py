@@ -227,15 +227,38 @@ It builds the port's CUDA kernels from the sources in the checkout
      layers on a NCCL world of one and on worlds of 2 and 4 ranks sharing
      the card through gloo.  No kernel of the port runs in a training
      step;
+  S. shards the language model over DTensor (``repro_torch.sharding``,
+     the sharded ``train.step``, ``launch.mesh.make_local_mesh``), after
+     step R: S1, one sharded train step of yi-6b's published widths cut
+     to 2 layers, bf16, on worlds of 2 (1 x 2) and 4 (2 x 2) ranks
+     sharing the card (gloo with the ``cardgloo`` backend for the card's
+     tensors, the all-gather into a tensor staged through pinned host
+     memory), held against the one-rank step from the same parameters
+     and batch to the reference's tolerances (loss 2e-3; parameters rtol
+     2e-2, atol 2e-3), then in f32, where a wrong gradient shows, with q
+     and k at the fan-in of their contraction (with the reference's
+     init the attention is nearly an argmax at these widths and a
+     relative perturbation of 1e-7 of the parameters moves the f32
+     gradients past any f32 bound: S1 measures and prints both first):
+     the loss within 1e-4, each gradient leaf and each first-moment leaf
+     after the step within 1e-4 of its largest element, the parameters
+     within rtol = atol = 1e-4; with rank 0's collectives and the
+     second bf16 step's time; S2, a world of one under NCCL whose (1, 1)
+     mesh gives the unsharded step's state and loss bit for bit; S3, the
+     dry run's yi-6b train_4k and decode_32k cells at full width and
+     depth on a fake world of 256 ranks (one subprocess each, started
+     before step G, on the host): per rank the argument and peak bytes, FLOPs, collectives
+     and the roofline terms against the H100's peaks.  No kernel of the
+     port runs in step S;
   8. prints the script's run time, one JSON line with both kernels, then
      the device line.
 
 With ``--kernels-only`` it stops after step 3 and prints no result;
 with ``--engine-only`` (``--serve-only``, ``--verify-only``,
-``--mesh-only``, ``--tuning-only``, ``--lm-only``, ``--train-only``) it
-runs the build and then the engine step 6c (the serve step 6d, step V,
-step M, steps T, L and P, step G, step R) alone, and prints no result
-either.
+``--mesh-only``, ``--tuning-only``, ``--lm-only``, ``--train-only``,
+``--shard-only``) it runs the build and then the engine step 6c (the
+serve step 6d, step V, step M, steps T, L and P, step G, step R, step
+S) alone, and prints no result either.
 Steps 5 and 6 run the default config, so inserts and ring operations
 write their state in place; each timed or traced rerun works on a fresh
 copy of the state it starts from.  Step 6d holds donation on against
@@ -248,6 +271,7 @@ repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import math
 import json
 import os
 import platform
@@ -3487,6 +3511,446 @@ def train_phase(tag, kernels, dev=torch.device("cuda"),
     print(f"{tag} R: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
+# --------------------------------------------------------------------------
+# Step S: the sharding layer (DTensor) on the card
+# --------------------------------------------------------------------------
+
+S_LAYERS = 2                        # yi-6b's widths, 2 of 32 layers
+S_BATCH, S_SEQ = 8, 256             # one microbatch of 8 x 256 tokens
+S_TOL = (2e-3, 2e-2, 2e-3)          # loss; params rtol, atol (the
+#                                     reference's, test_distributed.py)
+S_TOL32 = 1e-4                      # f32: loss; params rtol = atol; each
+#                                     gradient and moment leaf within
+#                                     this share of its largest element
+S32_SEQ = 64                        # the f32 check's batch: 8 x 64 tokens
+#                                     (f32 activations: a quarter of S1's)
+S_NOISE = 1e-7                      # the conditioning probe's relative
+#                                     perturbation of the parameters
+S_DEADLINE_S = 300.0
+S3_CELLS = ("train_4k", "decode_32k")
+S3_RESULTS = ROOT / "build" / "dryrun_models"
+S3_DEVICE = "cuda"                  # the fake mesh's device type
+
+
+def _s_config(full_config):
+    return dataclasses.replace(full_config("yi-6b"), n_layers=S_LAYERS,
+                               microbatches=1)
+
+
+def _s32_setup(full_config, dev):
+    """The f32 check's configuration, optimizer, parameters and batch:
+    S1's, in f32, on ``S32_SEQ`` tokens a row, with q and k at the fan-in
+    of their contraction (`_condition_attention`: with the reference's
+    init the attention is nearly an argmax at these widths, and f32
+    rounding moves the gradients past any f32 bound; `_s_conditioning`
+    measures both)."""
+    cfg = dataclasses.replace(_s_config(full_config), compute_dtype="float32")
+    opt, params, batch = _s_setup(cfg, dev, S32_SEQ)
+    _condition_attention(params)
+    return cfg, opt, params, batch
+
+
+def _s_setup(cfg, dev, seq: int = S_SEQ):
+    from repro_torch.data.pipeline import DataState, make_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params
+    from repro_torch.train.optim import OptConfig
+    opt = OptConfig(total_steps=10, warmup_steps=1)
+    params = init_params(T.lm_plan(cfg), seed=0, device=dev)
+    batch = make_batch(cfg, S_BATCH, seq, DataState(0, 0), device=dev)
+    return opt, params, batch
+
+
+def _s_leaves(tree, path=""):
+    """``{path: leaf}`` of a nest of dicts, None leaves left out."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_s_leaves(tree[k], f"{path}/{k}"))
+        return out
+    return {} if tree is None else {path: tree}
+
+
+def _s_worst(got: dict, want: dict | None, bound) -> float:
+    """The largest ``|got - want| / bound(want)`` over the leaves (each
+    DTensor made whole: every rank calls this, in the same order); 0.0
+    where ``want`` is None (every rank but 0), inf where the leaves
+    differ."""
+    from repro_torch.launch.mesh import DTensor
+    worst = 0.0 if want is None or got.keys() == want.keys() else math.inf
+    for k, v in got.items():
+        whole = v.full_tensor() if isinstance(v, DTensor) else v
+        if want is not None and k in want:
+            w = want[k].to(whole.device)
+            worst = max(worst, float(((whole.float() - w).abs()
+                                      / bound(w)).max()))
+    return worst
+
+
+def _s_host(tree) -> dict:
+    """``{path: leaf}`` of ``tree`` in f32 on the host."""
+    return {k: v.detach().float().cpu() for k, v in _s_leaves(tree).items()}
+
+
+def _s_rel(w):
+    """f32's bound of a gradient or moment leaf: ``S_TOL32`` of its
+    largest element."""
+    return S_TOL32 * w.abs().max().clamp_min(torch.finfo(w.dtype).tiny)
+
+
+def shard_rank(data: int, model: int, full_config=None,
+               device=None) -> dict:
+    """S1 in one rank of a world of ``data * model`` ranks sharing the
+    card: one sharded train step of yi-6b's widths (``S_LAYERS``
+    layers, bf16) on a (data, model) mesh, its collectives counted;
+    rank 0 also runs the one-rank step from the same parameters and
+    batch and holds the sharded step against it; then a second
+    sharded step, timed; then the f32 checks of `_s1_f32`
+    (``device`` None: the card)."""
+    from repro_torch.configs import arch_rules, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (SHARED_CARD_DTENSOR, DTensor,
+                                         make_local_mesh, set_mesh)
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import init_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device is None else torch.device(device))
+    cfg = _s_config(full_config or get_config)
+    opt, params, batch = _s_setup(cfg, dev)
+    mesh = make_local_mesh(data, model, device=device)
+    rank = torch.distributed.get_rank()
+    out = {"backend": torch.distributed.get_backend(),
+           "staged": sorted(SHARED_CARD_DTENSOR), "rank": rank}
+    if rank == 0:
+        s1, m1 = make_train_step(cfg, opt)(
+            init_state(T.tree_map(torch.clone, params), opt), batch)
+        want = {k: v.float() for k, v in _s_leaves(s1["params"]).items()}
+        loss1 = float(m1["loss"])
+        del s1
+    rules = arch_rules(cfg, "train_4k", model_axis=model, data_axis=data)
+    with set_mesh(mesh):
+        step = make_train_step(cfg, opt, rules=rules, shard_activations=True)
+        census = dryrun.RankCensus(mesh)
+        with census:
+            state, m2 = step(init_state(params, opt), batch)
+        _sync(dev)
+        got = _s_leaves(state["params"])
+        worst = _s_worst(got, want if rank == 0 else None,
+                         lambda w: S_TOL[2] + S_TOL[1] * w.abs())
+        sharded = sum(isinstance(v, DTensor) and any(
+            p.is_shard() for p in v.placements) for v in got.values())
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m3 = step(state, batch)
+        _sync(dev)
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["collectives"] = {k: dict(v) for k, v in
+                          sorted(census.collectives.items())}
+    out["sharded_leaves"], out["leaves"] = sharded, len(got)
+    del state, got
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["f32"] = _s1_f32(data, model, rank, dev, device, full_config)
+    out["f32_s"] = time.perf_counter() - t0
+    if rank == 0:
+        out.update(loss1=loss1, loss2=float(m2["loss"]), worst=worst,
+                   loss3=float(m3["loss"]))
+    return out
+
+
+def _s1_f32(data: int, model: int, rank: int, dev, device,
+            full_config) -> dict:
+    """S1 in f32 (`_s32_setup`), where a gradient's size shows, on a
+    (data, model) mesh of this world on ``device``: the sharded loss
+    and gradients, then one sharded train step's first moments (after
+    one step from zero, m = 0.1·g as clipped: the gradients that reached
+    each ZeRO-1 shard; the second moments, 0.05·g², tell nothing more)
+    and parameters, each held against the one-rank ones (rank 0 holds
+    those, on the host; every rank takes part in the collectives).  Each
+    gradient and moment leaf within ``S_TOL32`` of its largest element,
+    the losses and the parameters within ``S_TOL32``."""
+    from repro_torch.configs import arch_rules, get_config
+    from repro_torch.launch.mesh import (implicit_replication,
+                                         make_local_mesh, set_mesh)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import Sharder
+    from repro_torch.train.step import (init_state, loss_and_grads,
+                                        make_train_step, shard_params)
+    cfg, opt, params, batch = _s32_setup(full_config or get_config, dev)
+    mesh = make_local_mesh(data, model, device=device)
+    rules = arch_rules(cfg, "train_4k", model_axis=model, data_axis=data)
+    want, out = {}, {}
+    if rank == 0:
+        loss, _, grads = loss_and_grads(params, cfg, batch)
+        out["loss1"], want["grads"] = float(loss), _s_host(grads)
+        del grads
+        s1, m1 = make_train_step(cfg, opt)(
+            init_state(T.tree_map(torch.clone, params), opt), batch)
+        out["step_loss1"] = float(m1["loss"])
+        want["m"] = _s_host(s1["opt"]["m"])
+        want["params"] = _s_host(s1["params"])
+        del s1
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    with set_mesh(mesh):
+        sh = Sharder(rules, enabled=True, mesh=mesh)
+        with implicit_replication():
+            placed = {k: sh.place(v, "batch", None) for k, v in batch.items()}
+            loss, _, grads = loss_and_grads(
+                shard_params(params, cfg, rules, mesh), cfg, placed,
+                sharder=sh)
+        out["loss"] = float(loss.full_tensor())
+        out["grads"] = _s_worst(_s_leaves(grads), want.get("grads"),
+                                _s_rel)
+        del grads
+        state, m2 = make_train_step(cfg, opt, rules=rules,
+                                    shard_activations=True)(
+            init_state(params, opt), batch)
+        out["step_loss"] = float(m2["loss"])
+        out["m"] = _s_worst(_s_leaves(state["opt"]["m"]), want.get("m"),
+                            _s_rel)
+        out["params"] = _s_worst(_s_leaves(state["params"]),
+                                 want.get("params"),
+                                 lambda w: S_TOL32 + S_TOL32 * w.abs())
+    del state
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _s_conditioning(full_config, dev, condition: bool) -> dict:
+    """Each gradient leaf's largest change, over its largest element,
+    when the parameters are multiplied by ``1 + S_NOISE·N(0, 1)``: the
+    one-rank gradients of `_s32_setup`'s model at its parameters (with
+    the reference's init where not ``condition``) and at the perturbed
+    ones."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import loss_and_grads
+    cfg = dataclasses.replace(_s_config(full_config), compute_dtype="float32")
+    _, params, batch = _s_setup(cfg, dev, S32_SEQ)
+    if condition:
+        _condition_attention(params)
+    grads = _s_leaves(loss_and_grads(params, cfg, batch)[2])
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = T.tree_map(lambda x: x * (1 + S_NOISE * torch.randn(
+        x.shape, generator=gen, device=dev)), params)
+    moved = _s_leaves(loss_and_grads(params, cfg, batch)[2])
+    out = {k: float((moved[k] - g).abs().max() / g.abs().max())
+           for k, g in grads.items()}
+    del params, grads, moved
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _s1(tag, full_config, dev) -> None:
+    """S1: worlds of 2 (1 x 2) and 4 (2 x 2) ranks sharing the card,
+    after the conditioning probe of the f32 gradients with the
+    reference's init and with q and k at fan-in."""
+    from repro_torch.launch.mesh import run_world
+    where = None if dev.type == "cuda" else "cpu"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cond = {}
+    for name, condition in (("the reference's init", False),
+                            ("q and k at fan-in d_model", True)):
+        c = _s_conditioning(full_config, dev, condition)
+        k = max(c, key=c.get)
+        cond[name] = (min(c.values()), c[k], k)
+    print(f"{tag} S1 conditioning of the one-rank f32 gradients (yi-6b's "
+          f"widths, {S_LAYERS} layers, batch {S_BATCH} x {S32_SEQ}): a "
+          f"relative perturbation of {S_NOISE} of the parameters moves "
+          f"each gradient leaf by "
+          + "; ".join(f"{a:.3g}-{b:.3g} of its largest element with {n} "
+                      f"(most: {k})" for n, (a, b, k) in cond.items())
+          + f"; the f32 check (bound {S_TOL32}) runs with q and k at "
+          f"fan-in; {time.perf_counter() - t0:.3f} s", flush=True)
+    for data, model in ((1, 2), (2, 2)):
+        t0 = time.perf_counter()
+        size = data * model
+        try:
+            reps = run_world(shard_rank, size, data, model, full_config,
+                             where, device=where, deadline=S_DEADLINE_S,
+                             timeout=120.0)
+        except RuntimeError as e:
+            fail(f"step S1: world of {size}: {e}")
+        r0 = reps[0]
+        check(all(r["backend"] == reps[0]["backend"] for r in reps)
+              and ("cardgloo" in r0["backend"] or where == "cpu"),
+              f"step S1: W={size} runs {r0['backend']}, expected cardgloo "
+              f"for the card's tensors")
+        dl = abs(r0["loss1"] - r0["loss2"])
+        check(dl < S_TOL[0], f"step S1: W={size}: |loss one rank - loss "
+              f"sharded| = {dl} >= {S_TOL[0]}")
+        check(r0["worst"] <= 1.0, f"step S1: W={size}: a parameter after "
+              f"the step is {r0['worst']:.3f}x outside rtol {S_TOL[1]}, "
+              f"atol {S_TOL[2]} of the one-rank step")
+        check(np.isfinite(r0["loss3"]), "step S1: second step not finite")
+        check(r0["sharded_leaves"] > 0, f"step S1: W={size}: no leaf sharded")
+        f = r0["f32"]
+        dl32 = max(abs(f["loss1"] - f["loss"]),
+                   abs(f["step_loss1"] - f["step_loss"]))
+        check(dl32 < S_TOL32, f"step S1: W={size}: f32 |loss one rank - "
+              f"loss sharded| = {dl32} >= {S_TOL32}")
+        for key, what in (("grads", "a gradient"), ("m", "a first moment"),
+                          ("params", "a parameter after the step")):
+            check(f[key] <= 1.0, f"step S1: W={size}: f32: {what} is "
+                  f"{f[key]:.3f}x outside its bound against the one-rank "
+                  f"step")
+        coll = ", ".join(f"{k} x{v['count']} ({v['bytes']} B)"
+                         for k, v in r0["collectives"].items())
+        print(f"{tag} S1 yi-6b widths, {S_LAYERS} layers, bf16, batch "
+              f"{S_BATCH} x {S_SEQ}, {data} x {model} (data, model) mesh of "
+              f"{size} ranks sharing the card ({r0['backend']}; staged "
+              f"{r0['staged']}): loss one rank {r0['loss1']:.6f}, sharded "
+              f"{r0['loss2']:.6f} (|diff| {dl:.3g} < {S_TOL[0]}); parameters "
+              f"after the step within rtol {S_TOL[1]}, atol {S_TOL[2]} "
+              f"(worst {r0['worst']:.3f} of the bound); in f32 (batch "
+              f"{S_BATCH} x {S32_SEQ}, q and k at fan-in), loss "
+              f"{f['loss1']:.6f} against {f['loss']:.6f} (|diff| "
+              f"{dl32:.3g} < {S_TOL32}), each gradient leaf, and each "
+              f"first-moment leaf after the step, within {S_TOL32} of its "
+              f"largest element (worst {f['grads']:.3f}, m {f['m']:.3f} of "
+              f"the bound), parameters after the step within rtol = atol = "
+              f"{S_TOL32} (worst {f['params']:.3f}), the f32 checks "
+              f"{r0['f32_s']:.3f} s; "
+              f"{r0['sharded_leaves']} of {r0['leaves']} leaves sharded; "
+              f"rank 0's collectives in the first step: {coll}; second "
+              f"step {r0['step_ms']:.3f} ms (rank 0, host clock after a "
+              f"synchronize) [one card shared by the ranks: a check of the "
+              f"schedule, not of scaling]; {time.perf_counter() - t0:.3f} s",
+              flush=True)
+
+
+def _s2(tag, full_config, dev) -> None:
+    """S2: a world of one (NCCL), mesh (1, 1): the sharded step equals
+    the unsharded one bit for bit."""
+    from repro_torch.configs import arch_rules
+    from repro_torch.launch.mesh import make_local_mesh, set_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import init_state, make_train_step
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _s_config(full_config)
+    opt, params, batch = _s_setup(cfg, dev)
+    s1, m1 = make_train_step(cfg, opt)(
+        init_state(T.tree_map(torch.clone, params), opt), batch)
+    mesh = make_local_mesh(1, 1, device=dev)
+    backend = torch.distributed.get_backend()
+    check(backend == ("nccl" if dev.type == "cuda" else "gloo"),
+          f"step S2: the world of one runs {backend}")
+    rules = arch_rules(cfg, "train_4k", model_axis=1, data_axis=1)
+    with set_mesh(mesh):
+        s2, m2 = make_train_step(cfg, opt, rules=rules,
+                                 shard_activations=True)(
+            init_state(params, opt), batch)
+    a, b = _s_leaves(s1), _s_leaves(s2)
+    same = [k for k in a if bits_equal(
+        a[k], b[k].to_local() if hasattr(b[k], "to_local") else b[k])]
+    check(len(same) == len(a), f"step S2: {len(a) - len(same)} of "
+          f"{len(a)} state leaves differ from the unsharded step: "
+          f"{sorted(set(a) - set(same))[:4]}")
+    check(bits_equal(m1["loss"], m2["loss"]), f"step S2: loss "
+          f"{float(m1['loss'])} != {float(m2['loss'])}")
+    print(f"{tag} S2 yi-6b widths, {S_LAYERS} layers, bf16, world of one "
+          f"({backend}), mesh (1, 1): the sharded step's {len(a)} state "
+          f"leaves and loss {float(m2['loss']):.6f} equal the unsharded "
+          f"step's bit for bit; {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+
+def _s3_start():
+    """S3 in subprocesses (they run on the host beside the card's steps):
+    the dry run of yi-6b's ``S3_CELLS`` at full width and depth on a
+    fake world of 256 ranks, one process per cell."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = []
+    for shape in S3_CELLS:
+        args = ["-c", "import runpy, torch; torch.set_num_threads(1); "
+                "runpy.run_module('repro_torch.launch.dryrun', "
+                "run_name='__main__', alter_sys=True)", "--arch", "yi-6b",
+                "--shape", shape, "--force", "--device", S3_DEVICE,
+                "--results", str(S3_RESULTS)]
+        procs.append((shape, subprocess.Popen(
+            [sys.executable, *args], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    return procs, time.perf_counter()
+
+
+def _s3_finish(tag, card, started) -> None:
+    """S3: each cell's record per rank: argument and peak bytes, FLOPs,
+    collectives and the roofline terms against the H100's peaks."""
+    procs, t0 = started
+    for shape, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=SUBPROCESS_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        if proc.returncode != 0:
+            print(out[-4000:])
+            print(err[-4000:], file=sys.stderr)
+            fail(f"step S3: the dry run of yi-6b {shape} exited "
+                 f"{proc.returncode}")
+        rec = json.loads((S3_RESULTS / f"yi-6b__{shape}__pod.json")
+                         .read_text())
+        check(rec["status"] == "ok", f"step S3: {shape}: {rec.get('error')}")
+        m, c, r = rec["memory_analysis"], rec["cost_analysis"], \
+            rec["roofline"]
+        coll = ", ".join(f"{k} x{v['count']} ({v['bytes']} B)" for k, v in
+                         rec["collectives"]["per_chip"].items())
+        print(f"{tag} S3 dry run yi-6b {shape} (published widths, 32 "
+              f"layers) on a fake world of {rec['chips']} ranks, (16, 16) "
+              f"(data, model), per rank: arguments {m['argument_bytes']} B, "
+              f"peak {m['peak_bytes_per_chip']} B (live local storages), "
+              f"{c['flops_per_chip']} FLOPs, {c['op_bytes_per_chip']} B "
+              f"of operands and results; collectives {coll}; wire "
+              f"{rec['collectives']['per_chip_wire_bytes']} B; roofline "
+              f"terms (estimates from the eager, unfused count, not times; "
+              f"the memory term an upper bound) against "
+              f"{rec['card']['name']} at "
+              f"{rec['card']['power_limit_w']} W peaks (this card: {card}): "
+              f"compute {r['compute_s']:.6f} s, memory {r['memory_s']:.6f} "
+              f"s, collective {r['collective_s']:.6f} s, dominant "
+              f"{r['dominant']}, model FLOPs / counted "
+              f"{r['useful_flops_ratio']:.4f}; the cell ran "
+              f"{rec['compile_seconds']:.3f} s", flush=True)
+    print(f"{tag} S3: {time.perf_counter() - t0:.3f} s of subprocesses",
+          flush=True)
+
+
+def shard_phase(tag, card, s3=None, full_config=None,
+                dev=torch.device("cuda")) -> None:
+    """Step S: the sharding layer on the card.  S1, one sharded train
+    step of yi-6b's widths (``S_LAYERS`` layers, bf16) on worlds of 2
+    (1 x 2) and 4 (2 x 2) ranks sharing the card, held against the
+    one-rank step to the reference's tolerances, collectives counted,
+    then in f32 with q and k at fan-in its gradients, first moments and
+    parameters to 1e-4 (after measuring why not with the reference's
+    init);
+    S2, a world of one under NCCL whose (1, 1) mesh gives the
+    unsharded step bit for bit; S3, the dry run's yi-6b train_4k and
+    decode_32k cells at full width and depth on a fake world of 256
+    ranks (started by the caller beside earlier steps, or here).  No
+    kernel of the port runs here."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    s3 = s3 or _s3_start()
+    full_config = full_config or get_config
+    _s1(tag, full_config, dev)
+    _s2(tag, full_config, dev)
+    _s3_finish(tag, card, s3)
+    print(f"{tag} S: {time.perf_counter() - t0:.3f} s", flush=True)
+
+
 def record_dominance_calls(fn) -> list:
     """Run ``fn`` once and return the arguments of every dominance
     kernel launch it makes, for timing the calls on their own inputs.
@@ -3737,9 +4201,11 @@ def time_dominance_calls(paths, tag):
                   f"kernel differs from the plain version")
             t_k, _ = time_ms(
                 lambda: dkernel.dominated_mask_cuda(c, r, m, lower_tri=lt))
+            # the plain version takes seconds: one timed call after the
+            # warm-up
             t_p, _ = time_ms(
                 lambda: dops.dominated_mask_torch(c, r, m, lower_tri=lt),
-                reps=2)
+                reps=1)
             grids = time_dom_grids(c, r, m, lt, want)
             b, n, d = c.shape
             nr = r.shape[1]
@@ -3973,6 +4439,11 @@ def main() -> None:
         print(f"--train-only: stopped after step R; chip_smoke.py ran "
               f"{time.perf_counter() - T_START:.3f} s")
         return
+    if "--shard-only" in sys.argv[1:]:
+        shard_phase(tag, card)
+        print(f"--shard-only: stopped after step S; chip_smoke.py ran "
+              f"{time.perf_counter() - T_START:.3f} s")
+        return
     for flag, phase in (("--engine-only", engine_phase),
                         ("--serve-only", serve_phase),
                         ("--verify-only", verify_phase),
@@ -4135,8 +4606,11 @@ def main() -> None:
             kw = dict(block=blk, wcap=wcap, sentinel=SENTINEL)
             t_k, _ = time_ms(lambda: ops.sfs_sweep(pts_p, mask_p,
                                                    spec="cuda", **kw))
+            # the plain version takes seconds: one timed call after the
+            # warm-up
             t_p, _ = time_ms(lambda: ops.sfs_sweep(pts_p, mask_p,
-                                                   spec="torch", **kw))
+                                                   spec="torch", **kw),
+                             reps=1)
             got = ops.sfs_sweep(pts_p, mask_p, spec="cuda", **kw)
             prefixes = [kernel.PREFIX_ROWS]
             if call == "local" and dist == "anticorrelated":
@@ -4179,8 +4653,10 @@ def main() -> None:
     pareto_phase(tag, kernels)
     print(f"{tag} steps T, L and P: {time.perf_counter() - t_tlp:.3f} s")
     del data, oneshot
+    s3 = _s3_start()        # on the host, beside steps G and R
     lm_phase(tag)
     train_phase(tag, kernels)
+    shard_phase(tag, card, s3)
 
     # -- 8. the kernel record and the device line ----------------------------
     def entry(name, route, source, replaces, launches_n, err, rec):

@@ -23,10 +23,12 @@ bit.
 The state is a nest of dicts, lists, tuples and named tuples whose
 leaves are tensors, numpy arrays or scalars.  ``restore`` returns
 tensors in the target's structure: on each target tensor's device, or
-where ``shardings`` says (a device for every leaf, or a nest of devices
-shaped like the target).  The reference's elastic restore onto a mesh
-(``NamedSharding`` leaves) is not ported: that needs the sharding
-layer, ROADMAP item 14c.
+where ``shardings`` says (a device for every leaf, or a nest shaped like
+the target of devices or of ``(mesh, placements)`` pairs).  A pair is
+the reference's elastic restore onto a mesh (``NamedSharding`` leaves):
+the leaf comes back as a DTensor on the mesh, each rank holding its own
+shard of the saved array, bit for bit (every rank reads the file; no
+collective runs).  A DTensor leaf is saved whole.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.launch.mesh import DeviceMesh, DTensor, distribute_tensor
 
 __all__ = ["save", "restore", "latest_step", "CheckpointManager"]
 
@@ -66,15 +69,21 @@ def _children(tree):
     return None
 
 
+def _is_sharding(x) -> bool:
+    """A ``(mesh, placements)`` pair of ``sharding.named_shardings``."""
+    return (isinstance(x, tuple) and len(x) == 2
+            and isinstance(x[0], DeviceMesh))
+
+
 def _flatten(state) -> dict:
     """``{key: leaf}`` in JAX's flatten order, keyed as the reference
-    keys its files."""
+    keys its files.  A ``(mesh, placements)`` pair is a leaf."""
     keyed = {}
 
     def walk(tree, path):
         if tree is None:
             return
-        kids = _children(tree)
+        kids = None if _is_sharding(tree) else _children(tree)
         if kids is None:
             keyed["/".join(_UNSAFE.sub("_", p) for p in path)] = tree
             return
@@ -127,6 +136,8 @@ def _to_host(leaf) -> np.ndarray:
     """A leaf as the numpy array the reference would save."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         if t.is_cuda:
             host = torch.empty(t.shape, dtype=t.dtype)
             _staged(t.contiguous(), host)
@@ -225,9 +236,10 @@ def restore(ckpt_dir: str, target_state, step: int | None = None,
     """Restore into the structure of ``target_state``; returns
     ``(state, step, extra)``.  Each leaf takes its target's dtype and
     lands on the target tensor's device, or on ``shardings``: one device
-    for every leaf, or a nest of devices shaped like the target (a
-    target leaf that is not a tensor and has no device given lands on
-    the card)."""
+    for every leaf, or a nest shaped like the target of devices or of
+    ``(mesh, placements)`` pairs (a DTensor on the mesh; see the module
+    docstring).  A target leaf that is not a tensor and has no device
+    given lands on the card."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
@@ -243,6 +255,13 @@ def restore(ckpt_dir: str, target_state, step: int | None = None,
 
     def load(key, target):
         arr = np.load(os.path.join(d, key.replace("/", "__") + ".npy"))
+        if devices is not None and _is_sharding(devices[key]):
+            mesh, pl = devices[key]
+            dev = resolve_device(mesh.device_type)
+            if dev.type == "cuda":
+                dev = torch.device("cuda", torch.cuda.current_device())
+            return distribute_tensor(_from_host(arr, target, dev), mesh, pl,
+                                     src_data_rank=None)
         if devices is not None:
             dev = resolve_device(devices[key])
         elif every is not None:

@@ -63,14 +63,51 @@ fails the run, and a rank that does not answer in time gets the world
 killed.  The mesh tests, ``verify_world`` and ``chip_smoke.py``'s
 step M spawn their worlds through it.
 
-``make_production_mesh`` and ``make_local_mesh`` (the LLM template
-side's meshes) are item 14 of ROADMAP.md.
+The model side's meshes.  The language models shard over
+``torch.distributed.tensor`` (DTensor): `make_local_mesh` and
+`make_production_mesh` return a ``DeviceMesh`` with the reference's axis
+names, (data, model) or (pod, data, model), over the current world
+(joined as a world of one when there is none; the world's size must be
+the mesh's).  `set_mesh` makes a mesh the current one, as the
+reference's ``set_mesh``.  This module re-exports what the sharding layer
+needs (``DeviceMesh``, ``DTensor``, the placements ``Shard``,
+``Replicate`` and ``Partial``, ``distribute_tensor``, ``local_map``,
+``implicit_replication``), so that no other module imports
+``torch.distributed``.  `fake_world` is a world of N ranks in this one
+process over the ``fake`` backend: the dry run's stand-in for the
+reference's forced host devices.  Its collectives move nothing; with
+local shards on the meta device nothing is allocated either.
+
+Ranks that share one card run gloo, and DTensor's redistributions call
+the groups' collectives on CUDA tensors through ``torch.distributed``'s
+functional collectives: ``all_gather_into_tensor`` (Shard to
+Replicate), ``all_reduce`` (Partial to Replicate),
+``reduce_scatter_tensor`` (Partial to Shard) and ``all_to_all_single``
+(Shard(i) to Shard(j)).  Gloo takes CUDA tensors for all of them but
+the functional all-gather, which crashed the process on the card (a
+segfault, torch 2.11).  So a world whose ranks share a card is made
+with the ``cardgloo`` backend for CUDA tensors (`CardGloo`): gloo
+itself, with the kinds of `SHARED_CARD_DTENSOR` staged through pinned
+host memory.  As with `SHARED_CARD_STAGED`, this is fixed when the
+world is made, never reached by catching an error.
+
+Why two stagings: DTensor calls the all-gather inside torch, so only
+the process group can stage it.  The ppermute's send and receive stay
+staged in `WorkerMesh`, around ``dist.send`` / ``dist.recv``: a staged
+receive inside `CardGloo` would have to wait on gloo's work itself
+before its copy back (gloo's point-to-point works have no future to
+chain the copy onto), and under skylint's bare-name call graph that
+``wait`` would make every function named ``wait`` in the port
+pipeline-reachable (rule R1 then flags the serving engine's
+``_WaveRecord.wait``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import math
 import multiprocessing
 import os
 import queue
@@ -80,12 +117,29 @@ import traceback
 
 import torch
 import torch.distributed as dist
+from torch._C._distributed_c10d import (AllgatherOptions,
+                                        AllreduceCoalescedOptions,
+                                        AllreduceOptions, AllToAllOptions,
+                                        BarrierOptions, BroadcastOptions,
+                                        ReduceScatterOptions,
+                                        _create_work_from_future)
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import local_map
+from torch.distributed.tensor.experimental import (
+    implicit_replication as _implicit_replication)
 
 from repro_torch.kernels.backend import collective_call, resolve_device
 
 __all__ = ["WorkerMesh", "World", "init_world", "close_world", "world_size",
            "file_store", "run_world", "make_worker_mesh", "make_engine_mesh",
-           "engine_mesh_shape", "TIMEOUT_S", "SHARED_CARD_STAGED"]
+           "engine_mesh_shape", "TIMEOUT_S", "SHARED_CARD_STAGED",
+           "make_local_mesh", "make_production_mesh", "set_mesh",
+           "current_mesh", "fake_world", "has_fake_backend",
+           "DeviceMesh", "CardGloo", "SHARED_CARD_BACKEND",
+           "DTensor", "Shard", "Replicate", "Partial", "distribute_tensor",
+           "local_map", "implicit_replication", "SHARED_CARD_DTENSOR"]
 
 # seconds a collective waits for the other ranks before it fails
 TIMEOUT_S = 120.0
@@ -105,6 +159,95 @@ def _timeout(seconds: float) -> datetime.timedelta:
     return datetime.timedelta(seconds=float(seconds))
 
 
+def _done_work(value=None):
+    fut = torch.futures.Future()
+    fut.set_result(value)
+    return _create_work_from_future(fut)
+
+
+class CardGloo(dist.ProcessGroup):
+    """Gloo for ranks that share one card: each collective runs on a
+    gloo backend of the group, with the CUDA tensors as they are, except
+    the kinds of `SHARED_CARD_DTENSOR`, which go through pinned host
+    memory (copied out, run on the host, copied back)."""
+
+    def __init__(self, store, rank: int, size: int, timeout):
+        super().__init__(rank, size)
+        self._gloo = dist.ProcessGroupGloo(store, rank, size, timeout)
+        # the group's name and options live on its backends
+        for dev in ("cpu", "cuda"):
+            self._register_backend(torch.device(dev),
+                                   dist.ProcessGroup.BackendType.GLOO,
+                                   self._gloo)
+
+    def getBackendName(self) -> str:
+        return "cardgloo"
+
+    def _staged_gather(self, output, input, opts):
+        if not input.is_cuda:
+            return self._gloo._allgather_base(output, input, opts)
+        host_in = torch.empty(input.shape, dtype=input.dtype,
+                              pin_memory=True)
+        host_out = torch.empty(output.shape, dtype=output.dtype,
+                               pin_memory=True)
+        host_in.copy_(input)
+        self._gloo._allgather_base(host_out, host_in, opts).wait()
+        output.copy_(host_out)
+        return _done_work(output)
+
+    def _allgather_base(self, output, input, opts=AllgatherOptions()):
+        return self._staged_gather(output, input, opts)
+
+    def allgather_into_tensor_coalesced(self, outputs, inputs,
+                                        opts=AllgatherOptions()):
+        for o, i in zip(outputs, inputs):
+            self._staged_gather(o, i, opts).wait()
+        return _done_work(outputs)
+
+    def allgather(self, outputs, inputs, opts=AllgatherOptions()):
+        return self._gloo.allgather(outputs, inputs, opts)
+
+    def allreduce(self, tensors, opts=AllreduceOptions()):
+        return self._gloo.allreduce(tensors, opts)
+
+    def allreduce_coalesced(self, tensors, opts=AllreduceCoalescedOptions()):
+        return self._gloo.allreduce_coalesced(tensors, opts)
+
+    def _reduce_scatter_base(self, output, input,
+                             opts=ReduceScatterOptions()):
+        return self._gloo._reduce_scatter_base(output, input, opts)
+
+    def reduce_scatter_tensor_coalesced(self, outputs, inputs,
+                                        opts=ReduceScatterOptions()):
+        for o, i in zip(outputs, inputs):
+            self._gloo._reduce_scatter_base(o, i, opts).wait()
+        return _done_work(outputs)
+
+    def alltoall_base(self, output, input, output_splits, input_splits,
+                      opts=AllToAllOptions()):
+        return self._gloo.alltoall_base(output, input, output_splits,
+                                        input_splits, opts)
+
+    def broadcast(self, tensors, opts=BroadcastOptions()):
+        return self._gloo.broadcast(tensors, opts)
+
+    def barrier(self, opts=BarrierOptions()):
+        return self._gloo.barrier(opts)
+
+    def send(self, tensors, dst: int, tag: int = 0):
+        return self._gloo.send(tensors, dst, tag)
+
+    def recv(self, tensors, src: int, tag: int = 0):
+        return self._gloo.recv(tensors, src, tag)
+
+
+dist.Backend.register_backend("cardgloo", CardGloo, devices=["cpu", "cuda"])
+
+# the backend of a world whose ranks share the card: cardgloo for CUDA
+# tensors, gloo for host tensors
+SHARED_CARD_BACKEND = "cpu:gloo,cuda:cardgloo"
+
+
 def init_world(rank: int, size: int, *, store=None, init_method=None,
                device=None, timeout: float = TIMEOUT_S) -> torch.device:
     """Join a world of ``size`` ranks as ``rank``; returns this rank's
@@ -115,13 +258,14 @@ def init_world(rank: int, size: int, *, store=None, init_method=None,
     <port>"``); a world of one needs neither.  On the card (``device``
     None or ``"cuda"``) rank r takes card ``r % count``, and the backend
     is NCCL when every rank has its own card, else gloo (ranks share
-    cards).  ``device="cpu"`` takes gloo."""
+    cards: `SHARED_CARD_BACKEND`, gloo with `CardGloo` for CUDA
+    tensors).  ``device="cpu"`` takes gloo."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         cards = torch.cuda.device_count()
         dev = torch.device("cuda", rank % cards)
         torch.cuda.set_device(dev)
-        backend = "nccl" if size <= cards else "gloo"
+        backend = "nccl" if size <= cards else SHARED_CARD_BACKEND
     else:
         backend = "gloo"
     if store is None and init_method is None:
@@ -144,6 +288,7 @@ def file_store(path: str, size: int):
 def close_world() -> None:
     """Leave the world (a no-op outside one); cached meshes go with it."""
     _MESHES.clear()
+    _DEVICE_MESHES.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -462,7 +607,8 @@ def _make_mesh(queries: int, workers: int, device, q_axis: str,
     if key in _MESHES:
         return _MESHES[key]
     rank = dist.get_rank()
-    backend = dist.get_backend()
+    config = dist.get_backend()
+    backend = "nccl" if config == "nccl" else "gloo"
     tmo = _timeout(timeout)
     # every rank makes every group, members or not (torch.distributed's
     # rule), in the same order
@@ -474,7 +620,7 @@ def _make_mesh(queries: int, workers: int, device, q_axis: str,
     for ranks in w_groups + q_groups + [tuple(range(queries * workers))]:
         if ranks not in made:
             made[ranks] = dist.new_group(list(ranks), timeout=tmo,
-                                         backend=backend)
+                                         backend=config)
     inside = rank < queries * workers
     qi, wi = divmod(rank, workers) if inside else (None, None)
     staged = (SHARED_CARD_STAGED if dev.type == "cuda" and backend == "gloo"
@@ -546,3 +692,115 @@ def make_engine_mesh(queries: int | None = None,
             f"engine mesh ({queries} x {workers}) needs "
             f"{queries * workers} devices, have {ndev}")
     return _make_mesh(queries, workers, device, q_axis, w_axis, timeout)
+
+
+# --------------------------------------------------------------------------
+# The model side's meshes (DTensor)
+# --------------------------------------------------------------------------
+
+# the tensor collectives `CardGloo` stages through pinned host memory
+# (the rest run on gloo with the CUDA tensors; held by chip_smoke.py's
+# step S)
+SHARED_CARD_DTENSOR = frozenset({"all_gather_into_tensor"})
+
+_DEVICE_MESHES: dict[tuple, DeviceMesh] = {}
+_CURRENT: list[DeviceMesh] = []
+_IMPLICIT = [0]
+
+
+@contextlib.contextmanager
+def implicit_replication():
+    """Within the block DTensor takes plain tensors as replicated
+    (torch's ``implicit_replication``, made reentrant: torch's own
+    switches it off when an inner block ends)."""
+    if _IMPLICIT[0]:
+        yield
+        return
+    _IMPLICIT[0] += 1
+    try:
+        with _implicit_replication():
+            yield
+    finally:
+        _IMPLICIT[0] -= 1
+
+
+def _device_mesh(shape: tuple, names: tuple, device) -> DeviceMesh:
+    """A ``DeviceMesh`` of ``shape`` named ``names`` over the whole
+    world (one made per shape and device type, kept until
+    `close_world`)."""
+    dev = _ensure_world(device)
+    size = dist.get_world_size()
+    if size != math.prod(shape):
+        raise ValueError(f"a {' x '.join(map(str, shape))} mesh needs "
+                         f"{math.prod(shape)} ranks, the world has {size}")
+    key = (shape, names, dev.type)
+    if key not in _DEVICE_MESHES:
+        _DEVICE_MESHES[key] = init_device_mesh(dev.type, shape,
+                                               mesh_dim_names=names)
+    return _DEVICE_MESHES[key]
+
+
+def make_local_mesh(data: int = 1, model: int = 1, *,
+                    device=None) -> DeviceMesh:
+    """A (data, model) mesh over a world of ``data * model`` ranks (a
+    world of one is joined when there is none)."""
+    return _device_mesh((data, model), ("data", "model"), device)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> DeviceMesh:
+    """The reference's production meshes: (16, 16) data x model = 256
+    ranks, or with ``multi_pod`` (2, 16, 16) pod x data x model = 512.
+    On a `fake_world` of that size for the dry run."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _device_mesh(shape, names, device)
+
+
+@contextlib.contextmanager
+def set_mesh(mesh: DeviceMesh):
+    """Make ``mesh`` the current mesh within the block (`current_mesh`),
+    as the reference's ``set_mesh``: an enabled ``Sharder`` and the
+    sharded train step place plain tensors on it."""
+    _CURRENT.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _CURRENT.pop()
+
+
+def current_mesh() -> DeviceMesh | None:
+    return _CURRENT[-1] if _CURRENT else None
+
+
+def has_fake_backend() -> bool:
+    """Whether this torch has the ``fake`` process-group backend."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import (  # noqa: F401
+            FakeStore)
+    except ImportError:
+        return False
+    return True
+
+
+@contextlib.contextmanager
+def fake_world(size: int):
+    """This process as rank 0 of a world of ``size`` ranks over the
+    ``fake`` backend (``torch.testing._internal.distributed.fake_pg``):
+    groups and DTensor redistributions work and are counted, nothing
+    travels.  The world is left at the end of the block.  Raises
+    ``RuntimeError`` when this torch lacks the backend or a world is
+    already joined."""
+    if not has_fake_backend():
+        raise RuntimeError("this torch has no fake process-group backend "
+                           "(torch.testing._internal.distributed.fake_pg)")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a world is already joined; the fake world "
+                           "needs a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=size)
+    try:
+        yield
+    finally:
+        close_world()

@@ -14,10 +14,12 @@ mask.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-from repro_torch.models.common import PSpec, rmsnorm
+from repro_torch.launch.mesh import DTensor, Partial, Shard, local_map
+from repro_torch.models.common import PSpec, placements, rmsnorm
 
 __all__ = ["attn_plan", "init_rope", "apply_rope", "mask_block",
            "attention_train", "init_cache", "cache_from_prefill",
@@ -93,11 +95,39 @@ def mask_block(kind: str, q_pos, k_pos, *, window: int = 0, chunk: int = 0,
 # Projections
 # --------------------------------------------------------------------------
 
+def _head_dim_sharded(w, dim: int) -> bool:
+    """Whether ``w`` is a DTensor sharded on its head_dim ``dim``."""
+    return isinstance(w, DTensor) and any(p.is_shard(dim)
+                                          for p in w.placements)
+
+
+def _proj_in(x, w):
+    """``einsum("bsd,dhk->bshk")``.  A DTensor weight sharded on its
+    head_dim (the decode rules') is contracted with (k, h) merged, the
+    sharded dim first: DTensor on torch 2.11 refuses to merge (h, k)
+    when k is sharded."""
+    if not _head_dim_sharded(w, 2):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    d, h, k = w.shape
+    y = torch.matmul(x, w.transpose(1, 2).reshape(d, k * h))
+    return y.unflatten(-1, (k, h)).transpose(-1, -2)
+
+
+def _proj_out(o, w):
+    """``einsum("bshk,hkd->bsd")``, as `_proj_in` for a weight sharded
+    on its head_dim."""
+    if not _head_dim_sharded(w, 1):
+        return torch.einsum("bshk,hkd->bsd", o, w)
+    h, k, d = w.shape
+    return torch.matmul(o.transpose(-1, -2).flatten(-2),
+                        w.transpose(0, 1).reshape(k * h, d))
+
+
 def _project_qkv(params, x, dt, qk_norm):
     xd = x.to(dt)
-    q = torch.einsum("bsd,dhk->bshk", xd, params["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", xd, params["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", xd, params["wv"].to(dt))
+    q = _proj_in(xd, params["wq"].to(dt))
+    k = _proj_in(xd, params["wk"].to(dt))
+    v = _proj_in(xd, params["wv"].to(dt))
     if qk_norm:
         q = rmsnorm(q, params["q_norm"])
         k = rmsnorm(k, params["k_norm"])
@@ -130,13 +160,16 @@ def _attn_full(q, k, v, mask):
     return torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype), v)
 
 
-def _attn_blockwise(q, k, v, kind, *, window, chunk, prefix_len, block_k):
-    """Online-softmax loop over key blocks (no (S, S) buffer)."""
+def _attn_blockwise(q, k, v, kind, *, window, chunk, prefix_len, block_k,
+                    q_pos=None):
+    """Online-softmax loop over key blocks (no (S, S) buffer); ``q_pos``
+    the queries' positions (default ``0..Sq-1``)."""
     b, h, sq, dh = q.shape
     sk = k.shape[2]
     assert sk % block_k == 0, (sk, block_k)
     scale = dh ** -0.5
-    q_pos = torch.arange(sq, device=q.device)
+    if q_pos is None:
+        q_pos = torch.arange(sq, device=q.device)
     m = torch.full((b, h, sq), _NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, sq, dh), dtype=torch.float32, device=q.device)
@@ -158,6 +191,41 @@ def _attn_blockwise(q, k, v, kind, *, window, chunk, prefix_len, block_k):
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
+def _attn_core(q, k, v, q_pos, *, kind, window, chunk, prefix_len,
+               block_k, blockwise):
+    """Attention of the queries at ``q_pos`` over all the keys."""
+    if blockwise:
+        return _attn_blockwise(q, k, v, kind, window=window, chunk=chunk,
+                               prefix_len=prefix_len, block_k=block_k,
+                               q_pos=q_pos)
+    k_pos = torch.arange(k.shape[2], device=k.device)
+    return _attn_full(q, k, v, mask_block(kind, q_pos, k_pos, window=window,
+                                          chunk=chunk,
+                                          prefix_len=prefix_len))
+
+
+def _sharded_core(core, sharder, q, k, v, pos):
+    """``core`` on each rank's shard under ``local_map``: the queries as
+    the rules shard them (batch, heads, attn_seq), the keys and values
+    whole along the sequence (gathered where kv_seq shards them: XLA
+    keeps them sharded and reduces the softmax across shards instead).
+    DTensor's own products would merge the batch and heads dims, which
+    torch 2.11's DTensor refuses when the heads are sharded."""
+    mesh = q.device_mesh
+    qpl = placements(sharder.spec("batch", "heads", "attn_seq", None), mesh)
+    kpl = placements(sharder.spec("batch", "heads", None, None), mesh)
+    ppl = placements(sharder.spec("attn_seq"), mesh)
+    # a rank's key and value gradients cover its own queries only: a
+    # partial sum over the axis that shards the queries' sequence
+    kgrad = tuple(Partial() if p == Shard(2) else k_
+                  for p, k_ in zip(qpl, kpl))
+    return local_map(core, out_placements=list(qpl),    # one output
+                     in_placements=(qpl, kpl, kpl, ppl),
+                     in_grad_placements=(qpl, kgrad, kgrad, ppl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k, v, sharder.place(pos, "attn_seq"))
+
+
 def attention_train(params, x, *, n_heads, n_kv, head_dim, compute_dtype,
                     rope_freqs=None, kind="causal", window=0, chunk=0,
                     prefix_len=None, qk_norm=False, block_k: int = 1024,
@@ -165,7 +233,7 @@ def attention_train(params, x, *, n_heads, n_kv, head_dim, compute_dtype,
                     unroll=False):
     """Self-attention over a full sequence (train / prefill).  Returns
     ((k, v) as (B, Hkv, S, Dh), y)."""
-    del n_kv, head_dim, sharder, unroll
+    del n_kv, head_dim, unroll
     s = x.shape[1]
     q, k, v = _project_qkv(params, x, compute_dtype, qk_norm)
     pos = torch.arange(s, device=x.device)
@@ -175,16 +243,26 @@ def attention_train(params, x, *, n_heads, n_kv, head_dim, compute_dtype,
     if rope_freqs is not None:
         qg = apply_rope(qg, pos, rope_freqs)
         kh = apply_rope(kh, pos, rope_freqs)
+    if sharder is not None:
+        # heads over the model axis where they divide it, else the
+        # sequence (attn_seq): the quadratic intermediates shard either
+        # way; K/V before the GQA repeat, which then stays local
+        qg = sharder(qg, "batch", "heads", "attn_seq", None)
+        kh = sharder(kh, "batch", "kv_heads", "kv_seq", None)
+        vh = sharder(vh, "batch", "kv_heads", "kv_seq", None)
     kf = _repeat_kv(kh, n_heads)
     vf = _repeat_kv(vh, n_heads)
-    if s <= blockwise_threshold:
-        msk = mask_block(kind, pos, pos, window=window, chunk=chunk,
-                         prefix_len=prefix_len)
-        out = _attn_full(qg, kf, vf, msk)
+    core = functools.partial(
+        _attn_core, kind=kind, window=window, chunk=chunk,
+        prefix_len=prefix_len, block_k=block_k,
+        blockwise=s > blockwise_threshold)
+    if sharder is not None and sharder.enabled:
+        out = _sharded_core(core, sharder, qg, kf, vf, pos)
     else:
-        out = _attn_blockwise(qg, kf, vf, kind, window=window, chunk=chunk,
-                              prefix_len=prefix_len, block_k=block_k)
-    y = torch.einsum("bhsk,hkd->bsd", out.to(compute_dtype),
+        out = core(qg, kf, vf, pos)
+    if sharder is not None:    # (B,Hq,S,Dh): the reference's (B,S,Hq,Dh)
+        out = sharder(out, "batch", "heads", "attn_seq", None)
+    y = _proj_out(out.transpose(1, 2).to(compute_dtype),
                      params["wo"].to(compute_dtype))
     return (kh, vh), y
 
@@ -257,7 +335,7 @@ def attention_decode(params, x, cache: KVCache, pos, *, n_heads, n_kv,
                      sharder=None):
     """One-token decode step. x: (B, 1, D); pos: 0-d int32 tensor (or an
     int), the absolute position.  Returns (new_cache, y)."""
-    del n_heads, sharder
+    del n_heads
     if not isinstance(pos, torch.Tensor):
         pos = torch.tensor(pos, dtype=torch.int32, device=x.device)
     pos = pos.to(torch.int32)
@@ -278,6 +356,10 @@ def attention_decode(params, x, cache: KVCache, pos, *, n_heads, n_kv,
         v=torch.where(sel[None, :, None, None], v.to(cache.v.dtype),
                       cache.v),
         kpos=torch.where(sel, pos, cache.kpos))
+    if sharder is not None:
+        new = new._replace(
+            k=sharder(new.k, "batch", "kv_seq", "kv_heads", None),
+            v=sharder(new.v, "batch", "kv_seq", "kv_heads", None))
 
     # grouped-query attention against the unrepeated cache
     b_, _, hq, dh_ = q.shape
@@ -299,6 +381,6 @@ def attention_decode(params, x, cache: KVCache, pos, *, n_heads, n_kv,
     wts = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", wts.to(vh.dtype), vh)
     out = out.reshape(b_, 1, hq, dh_)                   # (B,1,Hq,Dh)
-    y = torch.einsum("bshk,hkd->bsd", out.to(compute_dtype),
+    y = _proj_out(out.to(compute_dtype),
                      params["wo"].to(compute_dtype))
     return new, y

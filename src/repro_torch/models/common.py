@@ -8,10 +8,19 @@ reference's tree: the same nested dict keys, the same leading layer
 axis on stacked blocks.  So a checkpoint written by either package's
 ``checkpoint.manager`` restores into the other's tree.
 
-``abstract_params`` and ``plan_pspecs`` (the dry run's sharded stand-ins)
-and an enabled `Sharder` belong to the sharding layer, ROADMAP item
-14c; the port's `Sharder` is the identity when disabled and raises when
-asked to shard.
+Sharding.  Logical axes map to mesh axes through rules (`DEFAULT_RULES`,
+``configs.arch_rules``), as in the reference.  `plan_pspecs` gives each
+leaf the reference's ``PartitionSpec`` entries as a tuple (a mesh-axis
+name, a tuple of them, or None per dim); `placements` turns such a spec
+into DTensor placements on a ``DeviceMesh``.  A dim over a tuple of
+axes is sharded over each in the order given, major first, as JAX lays
+out ``P(("pod", "data"))``; DTensor shards a dim over several mesh dims
+in mesh order, so the tuple must follow the mesh's order.
+`abstract_params` makes the dry run's stand-ins: tensors that hold no
+memory (on the meta device, or fake under ``FakeTensorMode``), as
+DTensors with those placements when a mesh is given.  An enabled
+`Sharder` is the reference's ``with_sharding_constraint``: it
+redistributes a DTensor to the rule's placements.
 """
 
 from __future__ import annotations
@@ -23,10 +32,13 @@ from typing import Any
 import torch
 
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.launch.mesh import (DTensor, Replicate, Shard,
+                                     current_mesh, distribute_tensor)
 
-__all__ = ["PSpec", "init_params", "stack_plan", "plan_leaves", "Sharder",
-           "DEFAULT_RULES", "rmsnorm", "RMSNORM_EPS", "dense", "Dtypes",
-           "cross_entropy"]
+__all__ = ["PSpec", "init_params", "abstract_params", "plan_pspecs",
+           "placements", "axes_to_spec", "map_plan", "stack_plan",
+           "plan_leaves", "Sharder", "DEFAULT_RULES", "rmsnorm",
+           "RMSNORM_EPS", "dense", "Dtypes", "cross_entropy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,10 +86,12 @@ def plan_leaves(plan, path=()):
     return out
 
 
-def _map_plan(plan, fn, path=()):
+def map_plan(plan, fn, path=()):
+    """``fn(path, leaf)`` over a plan's `PSpec` leaves, in its tree."""
     if isinstance(plan, PSpec):
         return fn(path, plan)
-    return {k: _map_plan(v, fn, path + (k,)) for k, v in plan.items()}
+    return {k: map_plan(v, fn, path + (k,)) for k, v in plan.items()}
+
 
 
 def init_params(plan, *, seed: int = 0,
@@ -118,30 +132,117 @@ def init_params(plan, *, seed: int = 0,
                         device=dev).mul_(std)
         return a if a.dtype == dt else a.to(dt)
 
-    return _map_plan(plan, leaf)
+    return map_plan(plan, leaf)
+
+
+def axes_to_spec(axes, rules) -> tuple:
+    """The reference's ``P(*(rules.get(a) ...))`` entries, as a tuple."""
+    return tuple(rules.get(a) if a is not None else None for a in axes)
+
+
+def plan_pspecs(plan, rules=None):
+    """Each leaf's spec (`axes_to_spec` of its logical axes), in the
+    plan's tree."""
+    rules = rules or DEFAULT_RULES
+    return map_plan(plan, lambda _, s: axes_to_spec(s.axes, rules))
+
+
+def placements(spec, mesh) -> tuple:
+    """DTensor placements on ``mesh`` of a spec (a tuple of mesh-axis
+    names, tuples of them, or None, one per tensor dim; shorter than
+    the tensor's rank means None for the rest).  An axis the mesh lacks,
+    an axis used twice, or a tuple out of the mesh's order is an error,
+    as the reference's ``NamedSharding`` makes it one."""
+    names = tuple(mesh.mesh_dim_names or ())
+    out = [Replicate()] * mesh.ndim
+    used = set()
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        where = []
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"mesh axis {a!r} of spec {spec} is not "
+                                 f"in the mesh's axes {names}")
+            if a in used:
+                raise ValueError(f"mesh axis {a!r} used twice in {spec}")
+            used.add(a)
+            where.append(names.index(a))
+        if where != sorted(where):
+            raise ValueError(f"the axes {axes} of spec {spec} are not in "
+                             f"the mesh's order {names}")
+        for i in where:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def abstract_params(plan, mesh=None, rules=None, dtype=None, *,
+                    device=None):
+    """Stand-ins of the parameters that hold no memory: empty tensors on
+    ``device`` (the meta device by default; a device under
+    ``FakeTensorMode`` makes fake tensors), as DTensors with each leaf's
+    `placements` when ``mesh`` is given (each rank's local shard shape
+    then follows the mesh)."""
+    rules = rules or DEFAULT_RULES
+    dev = torch.device(device or "meta")
+
+    def leaf(_, spec: PSpec):
+        t = torch.empty(spec.shape, dtype=dtype or spec.dtype, device=dev)
+        if mesh is None:
+            return t
+        return distribute_tensor(
+            t, mesh, placements(axes_to_spec(spec.axes, rules), mesh),
+            src_data_rank=None)
+
+    return map_plan(plan, leaf)
 
 
 def stack_plan(plan, n: int, axis_name: str = "layer"):
     """Prefix every leaf with a stacked layer dimension."""
-    return _map_plan(plan, lambda _, s: PSpec(
+    return map_plan(plan, lambda _, s: PSpec(
         (n,) + s.shape, (axis_name,) + s.axes, s.init, s.dtype))
 
 
 class Sharder:
-    """Activation-sharding helper.  Disabled, it is the identity, as the
-    reference's is on one device; sharding activations over a mesh is
-    ROADMAP item 14c, so an enabled one raises."""
+    """Activation-sharding helper: maps logical axes through the rules
+    and redistributes a DTensor to their placements (the reference's
+    ``with_sharding_constraint``).  Disabled, it is the identity, as the
+    reference's is on one device.  Enabled, a plain tensor is an error:
+    the sharded paths hand it DTensors (``mesh``, or the current mesh,
+    is where `place` puts plain inputs)."""
 
-    def __init__(self, rules=None, enabled: bool = True):
-        if enabled:
-            raise NotImplementedError(
-                "an enabled Sharder shards activations over a device mesh: "
-                "the sharding layer is ROADMAP item 14c, not ported yet")
+    def __init__(self, rules=None, enabled: bool = True, mesh=None):
         self.rules = rules or DEFAULT_RULES
-        self.enabled = False
+        self.enabled = enabled
+        self.mesh = mesh
+
+    def spec(self, *axes) -> tuple:
+        return axes_to_spec(axes, self.rules)
 
     def __call__(self, x, *axes):
-        return x
+        if not self.enabled:
+            return x
+        if not isinstance(x, DTensor):
+            raise TypeError("an enabled Sharder constrains DTensors; got a "
+                            f"plain {type(x).__name__} of shape "
+                            f"{tuple(x.shape)}")
+        mesh = x.device_mesh
+        return x.redistribute(mesh, placements(self.spec(*axes), mesh))
+
+    def place(self, x, *axes):
+        """A plain tensor, the same on every rank, as a DTensor on the
+        sharder's mesh (or the current one) with the rule's placements;
+        a DTensor is redistributed.  Each rank keeps its own shard: no
+        collective runs."""
+        if isinstance(x, DTensor):
+            return self(x, *axes)
+        mesh = self.mesh or current_mesh()
+        if mesh is None:
+            raise ValueError("an enabled Sharder places tensors on a mesh: "
+                             "pass mesh= or use launch.mesh.set_mesh")
+        return distribute_tensor(x, mesh, placements(self.spec(*axes), mesh),
+                                 src_data_rank=None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,11 +271,18 @@ def dense(x, w, compute_dtype=torch.bfloat16):
 
 def cross_entropy(logits, labels, mask=None):
     """Token-level cross entropy in f32; labels (B, S) integer, logits
-    (B, S, V).  The label's logit is gathered (the reference contracts a
-    one-hot, which gives the same value)."""
+    (B, S, V).  The label's logit is gathered on plain tensors.  On
+    DTensors (whose ``gather`` takes no vocab-sharded operand) it is the
+    reference's one-hot contraction, which gives the same value: a sum
+    of one logit and zeros, per vocab shard and then over the shards."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        vocab = torch.arange(logits.shape[-1], device=labels.device)
+        onehot = (labels.long()[..., None] == vocab).float()
+        ll = torch.sum(logits * onehot, dim=-1)
+    else:
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - ll
     if mask is None:
         return torch.mean(nll)

@@ -15,9 +15,9 @@ The execution fields were written for XLA; in eager torch they mean:
 * ``scan_layers`` and ``scan_unroll`` select how XLA compiles the loop
   over the stacked layer axis.  Here that loop is a Python loop over the
   leading layer axis of the parameters; the math is the same either way.
-* ``param_dtype`` is read only by the dry run and the parameter specs
-  (ROADMAP item 14c); ``init_params`` makes every leaf in its plan dtype
-  (f32) unless asked for another.
+* ``param_dtype`` is read only by the dry run's parameter specs
+  (``launch.specs.state_specs``); ``init_params`` makes every leaf in its
+  plan dtype (f32) unless asked for another.
 * ``compute_dtype`` is the dtype of the matrix products, as in the
   reference; norms, softmax and the loss stay f32.
 """

@@ -12,18 +12,28 @@ which the scatter writes into an extra row that is cut off, and the
 combine reads from an extra zero row, as the reference's ``mode="drop"``
 scatter and ``mode="fill"`` gather do.
 
-The reference's distributed branch (dispatch under ``shard_map`` per
-data shard) is the sharding layer, ROADMAP item 14c: an enabled sharder
-raises.
+Distributed (an enabled sharder; the parameters and ``x`` are
+DTensors), the routing, the dispatch and the combine run on each token
+shard alone under ``local_map``, the reference's ``shard_map`` bodies:
+the tokens are sharded as the rules' ``batch`` axes say, each shard has
+its own capacity ``max(1, int(cf * t_l * k / E))`` for its ``t_l``
+tokens, and the (E, cap_l * shards, D) buffer is sharded on its slot dim.
+So a distributed layer drops other tokens than a one-device layer does.
+The router's product and the expert products stay on DTensors, so the
+weights' rules (EP: experts over the model axis; TP: the expert hidden
+dim over it) apply to them.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.dominance import topk_order
-from repro_torch.models.common import PSpec
+from repro_torch.launch.mesh import local_map
+from repro_torch.models.common import PSpec, placements
 
 __all__ = ["moe_plan", "moe_apply", "moe_dispatch", "moe_capacity"]
 
@@ -87,14 +97,17 @@ def _moe_combine(y, dest, gate, top_k: int):
             * gate[..., None].to(y.dtype)).sum(dim=1)
 
 
+def _route(probs, top_k: int):
+    """The top-k choices (T, k) and their renormalised gates."""
+    idx = topk_order(probs)[:, :top_k]
+    gate = torch.gather(probs, 1, idx)
+    return idx, gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+
 def moe_apply(params, x, *, n_experts: int, top_k: int,
               capacity_factor: float = 1.25,
               compute_dtype=torch.bfloat16, sharder=None):
     """x: (B, S, D) -> (B, S, D), aux metrics dict."""
-    if sharder is not None and getattr(sharder, "enabled", False):
-        raise NotImplementedError(
-            "the distributed MoE dispatch (per-shard capacity under a "
-            "device mesh) is the sharding layer, ROADMAP item 14c")
     b, s, d = x.shape
     t = b * s
     e = n_experts
@@ -103,20 +116,49 @@ def moe_apply(params, x, *, n_experts: int, top_k: int,
 
     logits = torch.matmul(xt.float(), params["router"].float())
     probs = torch.softmax(logits, dim=-1)
-    idx = topk_order(probs)[:, :top_k]                       # (T, k)
-    gate = torch.gather(probs, 1, idx)
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
-    buf, dest, ok = moe_dispatch(xt, idx.reshape(t * top_k), n_experts=e,
-                                 top_k=top_k,
-                                 capacity_factor=capacity_factor,
-                                 compute_dtype=dt)
+    def dispatch(xt_l, idx_l):
+        return moe_dispatch(xt_l, idx_l.reshape(-1), n_experts=e,
+                            top_k=top_k, capacity_factor=capacity_factor,
+                            compute_dtype=dt)
 
-    # expert FFN (SwiGLU)
-    h = torch.bmm(buf, params["wi"].to(dt))
-    g = torch.bmm(buf, params["wg"].to(dt))
-    y = torch.bmm(F.silu(h) * g, params["wo"].to(dt))
-    out = _moe_combine(y, dest, gate, top_k)
+    def combine(y_l, dest_l, gate_l):
+        return _moe_combine(y_l, dest_l, gate_l, top_k)
+
+    if sharder is not None and sharder.enabled:
+        # per token shard, as the reference's shard_map bodies
+        mesh = xt.device_mesh
+        tok = sharder.rules.get("batch")
+
+        def on(*spec):
+            return placements(spec, mesh)
+
+        idx, gate = local_map(
+            functools.partial(_route, top_k=top_k),
+            out_placements=(on(tok, None), on(tok, None)),
+            in_placements=(on(tok, None),), device_mesh=mesh,
+            redistribute_inputs=True)(probs)
+        buf, dest, ok = local_map(
+            dispatch, out_placements=(on(None, tok, None), on(tok), on(tok)),
+            in_placements=(on(tok, None), on(tok, None)), device_mesh=mesh,
+            redistribute_inputs=True)(xt, idx)
+    else:
+        idx, gate = _route(probs, top_k)                     # (T, k)
+        buf, dest, ok = dispatch(xt, idx)
+
+    # expert FFN (SwiGLU); distributed, the weights keep their rules
+    h = torch.matmul(buf, params["wi"].to(dt))
+    g = torch.matmul(buf, params["wg"].to(dt))
+    y = torch.matmul(F.silu(h) * g, params["wo"].to(dt))
+
+    if sharder is not None and sharder.enabled:
+        y = y.redistribute(mesh, on(None, tok, None))
+        out = local_map(
+            combine, out_placements=list(on(tok, None)),  # one output
+            in_placements=(on(None, tok, None), on(tok), on(tok, None)),
+            device_mesh=mesh, redistribute_inputs=True)(y, dest, gate)
+    else:
+        out = combine(y, dest, gate)
 
     if "shared" in params:
         sh = params["shared"]
@@ -126,7 +168,8 @@ def moe_apply(params, x, *, n_experts: int, top_k: int,
         out = out + torch.matmul(F.silu(hh) * gg, sh["wo"].to(dt))
 
     # Switch-style load-balance aux loss terms
-    frac = torch.mean(F.one_hot(idx[:, 0], e).float(), dim=0)
+    experts = torch.arange(e, device=idx.device)
+    frac = torch.mean((idx[:, :1] == experts).float(), dim=0)
     pmean = torch.mean(probs, dim=0)
     aux = {"moe_aux_loss": e * torch.sum(frac * pmean),
            "moe_drop_frac": 1.0 - torch.mean(ok.float())}

@@ -171,7 +171,7 @@ def mamba2_apply(params, x, *, n_heads, head_dim, state, chunk=128,
 
     x: (B, S, D) -> (B, S, D), final SSMState (for decode continuation).
     """
-    del n_heads, head_dim, state, sharder, unroll
+    del n_heads, head_dim, state, unroll
     dt_ = compute_dtype
     s = x.shape[1]
     xd = x.to(dt_)
@@ -188,6 +188,9 @@ def mamba2_apply(params, x, *, n_heads, head_dim, state, chunk=128,
     xi = _causal_conv(xi, params["conv_x"].to(dt_))
     bi = _causal_conv(bi, params["conv_B"].to(dt_))
     ci = _causal_conv(ci, params["conv_C"].to(dt_))
+    if sharder is not None:
+        xi = sharder(xi, "batch", None, "heads", None)
+        z = sharder(z, "batch", None, "heads", None)
 
     dt = F.softplus(dt_raw + params["dt_bias"].float())
     A = -torch.exp(params["A_log"].float())                  # (H,) < 0

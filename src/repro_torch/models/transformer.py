@@ -11,6 +11,15 @@ parameters (views of the stacked tensors) at a time; in bf16 compute
 each product casts its own weight, so no second copy of the model is
 held.  Everything runs where the parameters lie.
 
+Sharded, the parameters are DTensors over a ``DeviceMesh`` and an
+enabled `Sharder` constrains the activations at the reference's sites
+(the residual stream after the embedding and after every block, the
+attention's q/k/v and output, the KV cache's write, the Mamba-2 block's
+x and z, the MoE's token shards).  The forward then runs under
+``implicit_replication``: the constants it makes (positions, masks,
+RoPE tables) are plain tensors, the same on every rank, which DTensor
+takes as replicated, as XLA does.
+
 Public surface:
   lm_plan(cfg)                              parameter plan
   forward(params, cfg, inputs, ...)         logits (train/encoder fwd)
@@ -23,6 +32,7 @@ Public surface:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any
 
@@ -31,11 +41,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.launch.mesh import (Partial, Replicate, Shard,
+                                     distribute_tensor, implicit_replication,
+                                     local_map)
 from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (PSpec, cross_entropy, rmsnorm,
-                                       stack_plan)
+from repro_torch.models.common import (PSpec, Sharder, cross_entropy,
+                                       placements, rmsnorm, stack_plan)
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["lm_plan", "forward", "loss_fn", "prefill", "decode_step",
@@ -180,7 +193,7 @@ def _mlp_apply(params, x, cfg, dt):
     return torch.matmul(h, params["wo"].to(dt))
 
 
-def _attn_block(params, x, *, cfg, kind, use_rope, rope_freqs,
+def _attn_block(params, x, *, cfg, sharder, kind, use_rope, rope_freqs,
                 prefix_len=None, is_moe=False):
     """Full-sequence attention block -> (x, (k, v), aux)."""
     dt = _dt(cfg)
@@ -191,49 +204,107 @@ def _attn_block(params, x, *, cfg, kind, use_rope, rope_freqs,
         rope_freqs=rope_freqs if use_rope else None, kind=kind,
         window=cfg.window, chunk=cfg.chunk, prefix_len=prefix_len,
         qk_norm=cfg.qk_norm, block_k=cfg.attn_block_k,
-        blockwise_threshold=cfg.blockwise_threshold)
+        blockwise_threshold=cfg.blockwise_threshold, sharder=sharder)
+    # DTensor keeps the heads' partial sums lazy through the residual
+    # add and the norm's scaling, and would then gather the MLP weights;
+    # GSPMD sums them here, as this constraint does
+    a = sharder(a, "batch", "seq", "act_embed")
     x = x + a.to(x.dtype)
     h = rmsnorm(x, params["ln2"])
     aux = {}
     if is_moe:
         f, aux = moe_mod.moe_apply(
             params["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
-            capacity_factor=cfg.capacity_factor, compute_dtype=dt)
+            capacity_factor=cfg.capacity_factor, compute_dtype=dt,
+            sharder=sharder)
     else:
         f = _mlp_apply(params["mlp"], h, cfg, dt)
-    return x + f.to(x.dtype), kv, aux
+    x = x + f.to(x.dtype)
+    return sharder(x, "batch", "seq", "act_embed"), kv, aux
 
 
-def _ssm_block(params, x, *, cfg):
+def _ssm_block(params, x, *, cfg, sharder):
     h = rmsnorm(x, params["ln"])
     y, state = ssm_mod.mamba2_apply(
         params["mamba"], h, n_heads=cfg.ssm_heads,
         head_dim=cfg.ssm_head_dim, state=cfg.ssm_state,
-        chunk=cfg.ssm_chunk, compute_dtype=_dt(cfg))
-    return x + y.to(x.dtype), state
+        chunk=cfg.ssm_chunk, compute_dtype=_dt(cfg), sharder=sharder)
+    x = x + y.to(x.dtype)
+    return sharder(x, "batch", "seq", "act_embed"), state
 
 
 # ==========================================================================
 # Embedding / head
 # ==========================================================================
 
-def _embed_lookup(embed, tokens, dt):
+def _embed_lookup(embed, tokens, dt, sharder=None):
     """Row gather, then the cast (the reference casts the table first:
-    the same values)."""
-    return embed[tokens.long()].to(dt)
+    the same values); sharded, `_sharded_lookup`."""
+    if sharder is not None and sharder.enabled:
+        return _sharded_lookup(embed, tokens, sharder).to(dt)
+    return F.embedding(tokens.long(), embed).to(dt)
 
 
-def _embed_inputs(params, cfg, inputs):
+def _masked_rows(table, tokens, ids):
+    """The rows of ``table`` (the vocab ids ``ids``, contiguous) that
+    ``tokens`` name; zeros for a token outside them."""
+    lo, n = ids[:1], table.shape[0]
+    local = tokens.long() - lo
+    inside = (local >= 0) & (local < n)
+    rows = F.embedding(torch.where(inside, local, 0), table)
+    return torch.where(inside[..., None], rows, torch.zeros_like(rows))
+
+
+def _sharded_lookup(embed, tokens, sharder):
+    """The lookup on each rank's shard of the table (a vocab-parallel
+    embedding, under ``local_map``): a rank reads the tokens that fall in
+    its rows and writes zeros for the rest, and the shards' results are a
+    partial sum over the mesh axes that shard the vocab.  DTensor's own
+    rules for ``embedding`` give a masked partial whose gradient meets the
+    tied head's plain partial sum in the table's gradient, which
+    torch 2.11 cannot add; here both are plain sums."""
+    mesh = embed.device_mesh
+    table = tuple(embed.placements)
+    tok_in, out = [], []
+    for i, (p, t) in enumerate(zip(table, placements(
+            sharder.spec("batch", "seq"), mesh))):
+        if p.is_shard(0):                  # vocab rows: a partial sum
+            tok_in.append(Replicate())
+            out.append(Partial())
+        elif p.is_shard(1):                # embed columns
+            tok_in.append(Replicate())
+            out.append(Shard(tokens.ndim))
+        else:
+            tok_in.append(t)
+            out.append(t)
+    id_pl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in table)
+    ids = distribute_tensor(
+        torch.arange(embed.shape[0], device=tokens.device), mesh, id_pl,
+        src_data_rank=None)
+    # each rank's gradient of its rows sums over its own tokens: a partial
+    # sum over the axes that shard the tokens
+    grad = tuple(Partial() if t.is_shard() and not p.is_shard() else p
+                 for p, t in zip(table, tok_in))
+    return local_map(_masked_rows, out_placements=out,
+                     in_placements=(table, tuple(tok_in), id_pl),
+                     in_grad_placements=(grad, tuple(tok_in), id_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        embed, tokens, ids)
+
+
+def _embed_inputs(params, cfg, inputs, sharder):
     dt = _dt(cfg)
     if cfg.family == "encoder":
-        return torch.matmul(inputs["frames"].to(dt),
-                            params["frontend_proj"].to(dt))
-    if cfg.family == "vlm":
+        x = torch.matmul(inputs["frames"].to(dt),
+                         params["frontend_proj"].to(dt))
+    elif cfg.family == "vlm":
         img = torch.matmul(inputs["image_emb"].to(dt),
                            params["frontend_proj"].to(dt))
-        txt = _embed_lookup(params["embed"], inputs["tokens"], dt)
-        return torch.cat([img, txt], dim=1)
-    return _embed_lookup(params["embed"], inputs["tokens"], dt)
+        txt = _embed_lookup(params["embed"], inputs["tokens"], dt, sharder)
+        x = torch.cat([img, txt], dim=1)
+    else:
+        x = _embed_lookup(params["embed"], inputs["tokens"], dt, sharder)
+    return sharder(x, "batch", "seq", "act_embed")
 
 
 def _head(params, cfg, x, last_only: bool = False):
@@ -280,15 +351,29 @@ def _maybe_remat(fn, cfg: ModelConfig, graph: bool):
     return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
+def _sharded(sharder):
+    """``(sharder, context)``: a disabled sharder for None, and the
+    context a forward runs in (``implicit_replication`` when enabled)."""
+    sharder = sharder or Sharder(enabled=False)
+    return sharder, (implicit_replication() if sharder.enabled
+                     else contextlib.nullcontext())
+
+
 def forward(params, cfg: ModelConfig, inputs, *, sharder=None,
             collect_kv: bool = False, last_only: bool = False):
     """Returns (logits, collected, aux). collected is family-specific:
     stacked (k, v) or SSM states when collect_kv (prefill), else None.
     With ``cfg.remat``, a forward that builds an autograd graph
     recomputes each block in the backward pass, where the reference
-    remats."""
-    _check_sharder(sharder)
-    x = _embed_inputs(params, cfg, inputs)
+    remats.  With an enabled ``sharder`` the parameters and inputs are
+    DTensors, and so are the results."""
+    sharder, ctx = _sharded(sharder)
+    with ctx:
+        return _forward(params, cfg, inputs, sharder, collect_kv, last_only)
+
+
+def _forward(params, cfg, inputs, sharder, collect_kv, last_only):
+    x = _embed_inputs(params, cfg, inputs, sharder)
     rope_freqs = _rope(cfg, x.device)
     prefix_len = cfg.prefix_len if cfg.family == "vlm" else None
     kind = ("bidir" if cfg.family == "encoder"
@@ -303,7 +388,7 @@ def forward(params, cfg: ModelConfig, inputs, *, sharder=None,
                                               and not cfg.global_every):
         is_moe = fam == "moe"
         blk = _maybe_remat(functools.partial(
-            _attn_block, cfg=cfg, kind=kind, use_rope=True,
+            _attn_block, cfg=cfg, sharder=sharder, kind=kind, use_rope=True,
             rope_freqs=rope_freqs, prefix_len=prefix_len, is_moe=is_moe),
             cfg, graph)
         kvs, auxs = [], []
@@ -323,7 +408,7 @@ def forward(params, cfg: ModelConfig, inputs, *, sharder=None,
             a_sum = zero
             for i, (is_global, is_moe) in enumerate(pattern):
                 x, kv, aux = _attn_block(
-                    p[f"sub{i}"], x, cfg=cfg,
+                    p[f"sub{i}"], x, cfg=cfg, sharder=sharder,
                     kind="causal" if is_global else "chunk",
                     use_rope=not is_global, rope_freqs=rope_freqs,
                     is_moe=is_moe)
@@ -345,8 +430,8 @@ def forward(params, cfg: ModelConfig, inputs, *, sharder=None,
         aux_sum["moe_aux_loss"] = torch.stack(auxs).sum()
 
     elif fam == "ssm":
-        blk = _maybe_remat(functools.partial(_ssm_block, cfg=cfg), cfg,
-                           graph)
+        blk = _maybe_remat(functools.partial(_ssm_block, cfg=cfg,
+                                             sharder=sharder), cfg, graph)
         states = []
         for p in _unstack(params["blocks"], cfg.n_layers):
             x, st = blk(p, x)
@@ -359,10 +444,10 @@ def forward(params, cfg: ModelConfig, inputs, *, sharder=None,
         period = cfg.attn_every
         shared = params["shared_attn"]
         attn_once = _maybe_remat(functools.partial(
-            _attn_block, cfg=cfg, kind="causal", use_rope=True,
-            rope_freqs=rope_freqs), cfg, graph)
-        blk = _maybe_remat(functools.partial(_ssm_block, cfg=cfg), cfg,
-                           graph)
+            _attn_block, cfg=cfg, sharder=sharder, kind="causal",
+            use_rope=True, rope_freqs=rope_freqs), cfg, graph)
+        blk = _maybe_remat(functools.partial(_ssm_block, cfg=cfg,
+                                             sharder=sharder), cfg, graph)
         layers = _unstack(params["blocks"], cfg.n_layers)
         states, kvs = [], []
         for app in range(cfg.n_attn_apps):
@@ -381,13 +466,13 @@ def forward(params, cfg: ModelConfig, inputs, *, sharder=None,
     return logits, collected, aux_sum
 
 
-def _check_sharder(sharder):
-    if sharder is not None and getattr(sharder, "enabled", False):
-        raise NotImplementedError(
-            "sharding activations over a device mesh is ROADMAP item 14c")
-
-
 def loss_fn(params, cfg: ModelConfig, batch, *, sharder=None):
+    sharder, ctx = _sharded(sharder)
+    with ctx:
+        return _loss(params, cfg, batch, sharder)
+
+
+def _loss(params, cfg, batch, sharder):
     logits, _, aux = forward(params, cfg, batch, sharder=sharder)
     labels = batch["labels"]
     if cfg.family == "vlm":  # loss only over text positions
@@ -472,22 +557,24 @@ def cache_axes(cfg, batch, cache_len):
                        factory=lambda s, d, a: (s, d, a))
 
 
-def _attn_decode_block(params, x, cache, pos, cfg, *, kind, use_rope,
-                       rope_freqs, is_moe):
+def _attn_decode_block(params, x, cache, pos, cfg, sharder, *, kind,
+                       use_rope, rope_freqs, is_moe):
     dt = _dt(cfg)
     h = rmsnorm(x, params["ln1"])
     cache, a = att.attention_decode(
         params["attn"], h, cache, pos, n_heads=cfg.n_heads,
         n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_eff, compute_dtype=dt,
         rope_freqs=rope_freqs if use_rope else None, kind=kind,
-        window=cfg.window, chunk=cfg.chunk, qk_norm=cfg.qk_norm)
+        window=cfg.window, chunk=cfg.chunk, qk_norm=cfg.qk_norm,
+        sharder=sharder)
+    a = sharder(a, "batch", None, "act_embed")   # as in _attn_block
     x = x + a.to(x.dtype)
     h = rmsnorm(x, params["ln2"])
     if is_moe:
         f, _ = moe_mod.moe_apply(
             params["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
             capacity_factor=max(cfg.capacity_factor, 2.0),
-            compute_dtype=dt)
+            compute_dtype=dt, sharder=sharder)
     else:
         f = _mlp_apply(params["mlp"], h, cfg, dt)
     return cache, x + f.to(x.dtype)
@@ -506,10 +593,16 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos, *,
                 sharder=None):
     """One-token decode. token: (B, 1) integer; pos: 0-d int32 tensor
     (or an int), the position of the new token.  Returns (new_caches,
-    logits (B, vocab_padded))."""
-    _check_sharder(sharder)
+    logits (B, vocab_padded)).  Sharded as `forward`."""
+    sharder, ctx = _sharded(sharder)
+    with ctx:
+        return _decode_step(params, cfg, caches, token, pos, sharder)
+
+
+def _decode_step(params, cfg, caches, token, pos, sharder):
     dt = _dt(cfg)
-    x = _embed_lookup(params["embed"], token, dt)
+    x = _embed_lookup(params["embed"], token, dt, sharder)
+    x = sharder(x, "batch", None, "act_embed")
     if not isinstance(pos, torch.Tensor):
         pos = torch.tensor(pos, dtype=torch.int32, device=x.device)
     rope_freqs = _rope(cfg, x.device)
@@ -521,8 +614,8 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos, *,
         for i in range(cfg.n_layers):
             c, x = _attn_decode_block(
                 _layer(params["blocks"], i), x, _layer(caches["kv"], i),
-                pos, cfg, kind=kind, use_rope=True, rope_freqs=rope_freqs,
-                is_moe=fam == "moe")
+                pos, cfg, sharder, kind=kind, use_rope=True,
+                rope_freqs=rope_freqs, is_moe=fam == "moe")
             new.append(c)
         new_caches = {"kv": _stack(new)}
 
@@ -534,7 +627,7 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos, *,
                 name = f"sub{i}"
                 c, x = _attn_decode_block(
                     _layer(params["blocks"][name], j), x,
-                    _layer(caches[name], j), pos, cfg,
+                    _layer(caches[name], j), pos, cfg, sharder,
                     kind="causal" if is_global else "chunk",
                     use_rope=not is_global, rope_freqs=rope_freqs,
                     is_moe=is_moe)
@@ -556,7 +649,7 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos, *,
         new_attn, new_ssm = [], []
         for app in range(cfg.n_attn_apps):
             cache, x = _attn_decode_block(
-                shared, x, _layer(caches["attn"], app), pos, cfg,
+                shared, x, _layer(caches["attn"], app), pos, cfg, sharder,
                 kind="causal", use_rope=True, rope_freqs=rope_freqs,
                 is_moe=False)
             new_attn.append(cache)
@@ -580,6 +673,12 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos, *,
 def prefill(params, cfg: ModelConfig, inputs, cache_len: int, *,
             sharder=None):
     """Process a prompt, return (caches, last-position logits)."""
+    sharder, ctx = _sharded(sharder)
+    with ctx:
+        return _prefill(params, cfg, inputs, cache_len, sharder)
+
+
+def _prefill(params, cfg, inputs, cache_len, sharder):
     logits, collected, _ = forward(params, cfg, inputs, sharder=sharder,
                                    collect_kv=True, last_only=True)
     fam = cfg.family

@@ -92,6 +92,62 @@ def collectives(workers: int):
         "index": (m.w_index, m.q_index, m.workers, m.queries)}
 
 
+def cardgloo_collectives():
+    """Each collective of `CardGloo` on host tensors, over a group of the
+    whole world made with the ``cardgloo`` backend and over the world's
+    own gloo group: (cardgloo's results, gloo's), as numpy."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    import repro_torch.launch.mesh  # noqa: F401  (registers cardgloo)
+    size, rank = dist.get_world_size(), dist.get_rank()
+    card = dist.new_group(list(range(size)), backend="cardgloo")
+
+    def run(group):
+        x = torch.arange(2 * size, dtype=torch.float32) + 100 * rank
+        out = {}
+        whole = torch.empty(2 * size * size)
+        dist.all_gather_into_tensor(whole, x, group=group)
+        out["all_gather_into_tensor"] = whole
+        out["functional_all_gather"] = funcol.all_gather_tensor(
+            x, 0, group).wait()
+        a, b = torch.empty_like(whole), torch.empty_like(whole)
+        with dist._coalescing_manager(group=group):
+            dist.all_gather_into_tensor(a, x, group=group)
+            dist.all_gather_into_tensor(b, -x, group=group)
+        out["all_gather_coalesced"] = torch.cat([a, b])
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x, group=group)
+        out["all_gather"] = torch.cat(parts)
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        out["all_reduce"] = y
+        shard = torch.empty(2)
+        dist.reduce_scatter_tensor(shard, x, group=group)
+        out["reduce_scatter_tensor"] = shard
+        out["functional_reduce_scatter"] = funcol.reduce_scatter_tensor(
+            x, "sum", 0, group).wait()
+        moved = torch.empty_like(x)
+        dist.all_to_all_single(moved, x, group=group)
+        out["all_to_all_single"] = moved
+        y = x.clone()
+        dist.broadcast(y, 0, group=group)
+        out["broadcast"] = y
+        got = torch.zeros_like(x)
+        calls = []
+        if rank + 1 < size:
+            calls.append(lambda: dist.send(x, rank + 1, group=group))
+        if rank > 0:
+            calls.append(lambda: dist.recv(got, rank - 1, group=group))
+        for call in (calls if rank % 2 == 0 else calls[::-1]):
+            call()
+        out["send_recv"] = got
+        dist.barrier(group=group)
+        return {k: v.numpy().copy() for k, v in out.items()}
+
+    return run(card), run(dist.group.WORLD)
+
+
 def hang(workers: int):
     """Rank 0 waits in an all_gather that rank 1 never joins: the group's
     timeout must fail it."""
@@ -345,3 +401,186 @@ def gpipe_case(workers: int, w, xs, kind: str):
                                                   workers),
                         torch.from_numpy(xs), mesh=m)
     return out.numpy().copy()
+
+
+# --------------------------------------------------------------------------
+# the model side's sharding (DTensor over a (data, model) mesh)
+# --------------------------------------------------------------------------
+
+def _flat(tree, prefix=""):
+    """``{path: numpy}`` of a nest of dicts of tensors (DTensors whole)."""
+    from repro_torch.launch.mesh import DTensor
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat(tree[k], f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, DTensor):
+        tree = tree.full_tensor()
+    return {prefix: tree.detach().float().numpy().copy()}
+
+
+def sharded_train_step(arch: str, data: int, model: int, kw: dict,
+                       seed: int = 0):
+    """One train step of the smoke config ``arch`` (fields ``kw``
+    replaced) on a (data, model) mesh of this world, and the same step
+    on one rank: (loss unsharded, loss sharded, params unsharded,
+    params sharded, the sharded parameters' placements) from rank 0."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import arch_rules, get_config
+    from repro_torch.data.pipeline import DataState, make_batch
+    from repro_torch.launch.mesh import make_local_mesh, set_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import init_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **kw)
+    opt = OptConfig(total_steps=10, warmup_steps=1)
+    params = init_params(T.lm_plan(cfg), seed=seed, device="cpu")
+    batch = make_batch(cfg, 8, 64, DataState(0, 0), device="cpu")
+    copy = T.tree_map(torch.clone, params)
+    s1, m1 = make_train_step(cfg, opt)(init_state(params, opt), batch)
+    mesh = make_local_mesh(data, model, device="cpu")
+    rules = arch_rules(cfg, "train_4k", model_axis=model, data_axis=data)
+    with set_mesh(mesh):
+        step = make_train_step(cfg, opt, rules=rules, shard_activations=True)
+        s2, m2 = step(init_state(copy, opt), batch)
+    placed = {k: str(v.placements) for k, v in _flat_dt(s2["params"]).items()}
+    out = (float(m1["loss"]), float(m2["loss"]), _flat(s1["params"]),
+           _flat(s2["params"]), placed)
+    return out if mesh.get_rank() == 0 else None
+
+
+def elastic_restore(arch: str, ckpt_dir: str):
+    """The smoke config's parameters saved under ``ckpt_dir``, restored
+    onto a 2 x 2 (data, model) mesh by the train_4k rules: (whole
+    leaves, this rank's local shards, placements, mesh coordinate)."""
+    from repro_torch.checkpoint.manager import restore
+    from repro_torch.configs import arch_rules, get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import abstract_params, plan_pspecs
+    from repro_torch.sharding import named_shardings
+
+    cfg = get_config(arch, smoke=True)
+    plan = T.lm_plan(cfg)
+    mesh = make_local_mesh(2, 2, device="cpu")
+    rules = arch_rules(cfg, "train_4k", model_axis=2, data_axis=2)
+    sh = named_shardings(plan_pspecs(plan, rules), mesh)
+    target = T.tree_map(lambda t: torch_empty_like(t),
+                        abstract_params(plan))
+    got, step, _ = restore(ckpt_dir, target, shardings=sh)
+    assert step == 1
+    dts = _flat_dt(got)
+    local = {k: _bits(v.to_local()) for k, v in dts.items()}
+    whole = {k: _bits(v.full_tensor()) for k, v in dts.items()}
+    placed = {k: str(v.placements) for k, v in dts.items()}
+    return whole, local, placed, list(mesh.get_coordinate())
+
+
+def torch_empty_like(t):
+    import torch
+    return torch.empty(t.shape, dtype=t.dtype)
+
+
+def _bits(t) -> np.ndarray:
+    return t.detach().contiguous().numpy().copy()
+
+
+def _flat_dt(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat_dt(tree[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def distributed_moe(arch: str, host: dict, x, idx, rules: dict):
+    """The smoke config ``arch``'s MoE layer (parameters ``host``, f32)
+    on ``x`` (B, S, D) with the recorded routing ``idx`` (T, k), sharded
+    by ``rules`` on a 2 x 2 (data, model) mesh: (output and aux, whole;
+    this rank's dispatch buffer, dest and ok; its mesh coordinate)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import distribute_tensor, make_local_mesh
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.common import Sharder, placements, plan_pspecs
+
+    cfg = get_config(arch, smoke=True)
+    mesh = make_local_mesh(2, 2, device="cpu")
+    sharder = Sharder(rules, enabled=True, mesh=mesh)
+    plan = tmoe.moe_plan(cfg.d_model, cfg.d_ff, cfg.n_experts,
+                         cfg.shared_expert)
+    specs = plan_pspecs(plan, rules)
+
+    def place(tree, spec):
+        if isinstance(tree, dict):
+            return {k: place(tree[k], spec[k]) for k in tree}
+        return distribute_tensor(torch.from_numpy(tree), mesh,
+                                 placements(spec, mesh), src_data_rank=None)
+
+    params = place(host, specs)
+    xs = sharder.place(torch.from_numpy(x), "batch", "seq", "act_embed")
+    # this rank's token shard takes its rows of the recorded routing
+    shards = 2 if rules["batch"] else 1
+    me = mesh.get_coordinate()[0] if shards > 1 else 0
+    rows = idx.shape[0] // shards
+    mine = torch.from_numpy(idx[me * rows:(me + 1) * rows].astype(np.int64))
+    seen = {}
+    orig_dispatch = tmoe.moe_dispatch
+
+    def dispatch(*a, **kw):
+        out = orig_dispatch(*a, **kw)
+        seen["local"] = [t.detach().clone() for t in out]
+        return out
+
+    tmoe.topk_order = lambda merit: mine
+    tmoe.moe_dispatch = dispatch
+    from repro_torch.launch.mesh import implicit_replication
+    with implicit_replication():
+        out, aux = tmoe.moe_apply(params, xs, n_experts=cfg.n_experts,
+                                  top_k=cfg.top_k,
+                                  capacity_factor=cfg.capacity_factor,
+                                  compute_dtype=torch.float32,
+                                  sharder=sharder)
+        res = (_bits(out.full_tensor()),
+               {k: float(v.full_tensor()) for k, v in aux.items()})
+    return res + tuple(_bits(t) for t in seen["local"]) + (
+        list(mesh.get_coordinate()),)
+
+
+
+def sharded_gradients(arch: str, data: int, model: int, kw: dict):
+    """The loss and gradients of the smoke config ``arch`` (fields ``kw``
+    replaced) on one rank and on a (data, model) mesh of this world:
+    (loss one rank, loss sharded, {leaf: (one rank, sharded)}) from
+    rank 0."""
+    import dataclasses
+    from repro_torch.configs import arch_rules, get_config
+    from repro_torch.data.pipeline import DataState, make_batch
+    from repro_torch.launch.mesh import (implicit_replication,
+                                         make_local_mesh)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import Sharder, init_params
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import init_state, loss_and_grads, shard_state
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **kw)
+    params = init_params(T.lm_plan(cfg), seed=0, device="cpu")
+    batch = make_batch(cfg, 8, 64, DataState(0, 0), device="cpu")
+    loss1, _, g1 = loss_and_grads(params, cfg, batch)
+    mesh = make_local_mesh(data, model, device="cpu")
+    rules = arch_rules(cfg, "train_4k", model_axis=model, data_axis=data)
+    sharded = shard_state(init_state(params, OptConfig()), cfg, rules, mesh)
+    sh = Sharder(rules, enabled=True, mesh=mesh)
+    with implicit_replication():
+        placed = {k: sh.place(v, "batch", None) for k, v in batch.items()}
+        loss2, _, g2 = loss_and_grads(sharded["params"], cfg, placed,
+                                      sharder=sh)
+    one, two = _flat(g1), _flat(g2)
+    out = (float(loss1), float(loss2.full_tensor()),
+           {k: (one[k], two[k]) for k in one})
+    return out if mesh.get_rank() == 0 else None

@@ -8,6 +8,7 @@ Parity with the reference, tolerance zero: the baseline file format,
 the rule ids, and the ``fused``, ``stream`` and ``slab_wave`` cells
 against the JAX package on the same numpy inputs."""
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import ast
 import dataclasses
 import gc
@@ -248,8 +249,8 @@ def test_r3_repaired_core_reaches_kernels_through_the_packages():
 
 def _cli(*args, timeout=300):
     env = dict(os.environ, PYTHONPATH=SRC)
-    return subprocess.run([sys.executable, "-m", "repro_torch.analysis",
-                           *args], capture_output=True, text=True, env=env,
+    return subprocess.run(_torch_threads.python_m("repro_torch.analysis",
+                                                  *args), capture_output=True, text=True, env=env,
                           cwd=ROOT, timeout=timeout)
 
 
@@ -752,9 +753,10 @@ def test_verifier_cli_on_a_world_of_eight(tmp_path):
     rank: the tree cell runs ceil(log2 8) = 3 rounds on each."""
     out = tmp_path / "v.json"
     r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.analysis", "--layer", "verify",
-         "--device", "cpu", "--world", "8", "--cells", "tree_merge_p512",
-         "engine_vmap", "batch_8x64", "--json", str(out)],
+        _torch_threads.python_m(
+            "repro_torch.analysis", "--layer", "verify", "--device", "cpu",
+            "--world", "8", "--cells", "tree_merge_p512", "engine_vmap",
+            "batch_8x64", "--json", str(out)),
         capture_output=True, text=True, timeout=300,
         env=dict(os.environ, PYTHONPATH=SRC))
     assert r.returncode == 0, r.stdout + r.stderr

@@ -13,6 +13,7 @@
   without qk-norm; and ``attention_decode``'s output.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import gc
 
 import jax

@@ -13,6 +13,7 @@ generator (ROADMAP.md, contract 5).  The data carries ties, masked rows,
 Q, and each must be one flat sort of all Q x N keys.  Tolerance: zero.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 
 import jax

@@ -10,6 +10,7 @@ direction is held on f32 and int32 leaves, and the port reads the
 reference's bf16 files.  Tolerance: zero.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import collections
 import os
 

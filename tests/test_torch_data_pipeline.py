@@ -5,6 +5,7 @@ both packages, and from each package's own smoke config of the ten
 architectures (`repro_torch.configs` against `repro.configs`); cursors
 advance alike, and shards and steps differ.  Tolerance: zero."""
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 
 import numpy as np

@@ -4,6 +4,7 @@ seeded ``torch.Generator``.  The draws are the port's own (they do not
 match ``jax.random``), so nothing here is compared with the JAX package;
 the correlation bounds are loose statistical checks at n = 20000."""
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import numpy as np
 import pytest
 import torch

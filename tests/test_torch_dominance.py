@@ -10,6 +10,7 @@ Subnormal inputs are held in tests/test_torch_subnormal.py: the port
 flushes them in comparisons and arithmetic as XLA on the CPU does.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ batch at a time.  The CUDA kernel is held against the same plain version
 on the card by ``chip_smoke.py``.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

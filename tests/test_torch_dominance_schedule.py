@@ -25,6 +25,7 @@ here against the constants of the CUDA source and the card's per-CTA
 limit.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import math
 import re
 from pathlib import Path

@@ -16,6 +16,7 @@ zero; f32 leaves through their int32 bits.  The data are the
 reference's arrays (ROADMAP.md, contract 5).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import gc
 import threading
 import time

@@ -12,6 +12,7 @@ jit-retrace assertions become assertions on the port's pack keys and on
 the number of sweep and dominance calls per bucket.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import gc
 import warnings

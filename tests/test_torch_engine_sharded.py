@@ -14,6 +14,7 @@ bucket through its winner; and the scheduler's default engine takes a
 mesh over the world.  In this process: the mesh checks of the
 constructor and the calibration's grid rule."""
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import json
 import os
 import subprocess

@@ -12,6 +12,7 @@ different numbers in the two packages, so only its final buffer, which
 does not depend on the draw, is compared (ROADMAP.md, contract 5).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import gc
 

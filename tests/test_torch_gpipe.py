@@ -16,6 +16,7 @@ B = 2 rows, D = 16), on a gloo world of four CPU ranks.
 * ``pipeline_stages`` bit for bit.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import os
 import subprocess
 import sys

@@ -10,6 +10,7 @@ wave-time model falls back in the JAX loop's order.  Engines and
 calibration run on the CPU.  Tolerance: zero.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 
 import jax.numpy as jnp

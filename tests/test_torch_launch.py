@@ -14,6 +14,7 @@ parameters); the decode itself is held against the reference's
 ``generate`` in ``tests/test_torch_serve_lm.py``.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import gc
 import os
 import subprocess
@@ -74,13 +75,14 @@ def test_env_main_execs_under_the_environment(tmp_path):
     run = dict(env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
                capture_output=True, text=True, timeout=60)
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.env", "--tuning",
-         str(tmp_path / "t.json"), sys.executable, "-c",
-         "import os; print(os.environ['REPRO_KERNEL_TUNING'])"], **run)
+        _torch_threads.python_m(
+            "repro_torch.launch.env", "--tuning", str(tmp_path / "t.json"),
+            sys.executable, "-c",
+            "import os; print(os.environ['REPRO_KERNEL_TUNING'])"), **run)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == str(tmp_path / "t.json")
-    bad = subprocess.run([sys.executable, "-m", "repro_torch.launch.env",
-                          "--devices", "8", "true"], **run)
+    bad = subprocess.run(_torch_threads.python_m(
+        "repro_torch.launch.env", "--devices", "8", "true"), **run)
     assert bad.returncode != 0 and "--world" in bad.stderr
 
 

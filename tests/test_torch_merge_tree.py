@@ -19,6 +19,7 @@ the same mesh, and their one-shot answer the reference's
 ``parallel_skyline`` or ``fused_skyline_batch_fn`` on that mesh; a window
 fed on a mesh equals the reference's window leaf by leaf."""
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import json
 import os
 import subprocess

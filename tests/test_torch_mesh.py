@@ -10,6 +10,7 @@ degenerate case, the one-device answer bit for bit); the type and
 membership checks; and the group timeout, which fails a rank whose peer
 never arrives instead of hanging it."""
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import itertools
 
@@ -82,6 +83,18 @@ def test_collectives_in_a_world_of_three(world3, workers):
         assert o["bcast"].tolist() == root + [nan_bits]
         np.testing.assert_array_equal(
             o["psum"], [workers * (workers - 1) // 2, workers])
+
+
+def test_cardgloo_runs_each_collective_as_gloo(world3):
+    """A group of the world made with the shared card's ``cardgloo``
+    backend (`CardGloo`) answers every collective it implements as the
+    world's gloo group does, bit for bit.  On host tensors it hands each
+    to gloo; its staging of CUDA tensors runs on the card only
+    (chip_smoke.py's step S)."""
+    for card, gloo in world3.run("cardgloo_collectives"):
+        assert card.keys() == gloo.keys()
+        for k in gloo:
+            np.testing.assert_array_equal(card[k], gloo[k], err_msg=k)
 
 
 def test_world_of_one_in_process_is_the_one_device_answer():

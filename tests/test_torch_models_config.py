@@ -14,6 +14,7 @@ exactly: no tolerance anywhere in this file.
   on the process (the reference's salted ``hash`` does).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import os
 import subprocess
@@ -198,8 +199,19 @@ def test_init_params_are_the_same_in_every_process():
 
 
 def test_sharder():
+    """Disabled, the identity; enabled (the default), it redistributes a
+    DTensor to the rule's placements and refuses a plain tensor."""
+    from repro_torch.launch.mesh import (DTensor, Replicate, Shard,
+                                         make_local_mesh)
     sh = tcommon.Sharder(enabled=False)
     x = torch.ones(2)
     assert sh(x, "batch") is x and not sh.enabled
-    with pytest.raises(NotImplementedError, match="14c"):
-        tcommon.Sharder()
+    mesh = make_local_mesh(1, 1, device="cpu")
+    on = tcommon.Sharder({"batch": ("data",), "mlp": "model"}, mesh=mesh)
+    assert on.enabled
+    with pytest.raises(TypeError, match="plain"):
+        on(torch.ones(2, 4), "batch", "mlp")
+    y = on(on.place(torch.ones(2, 4), None, None), "batch", "mlp")
+    assert isinstance(y, DTensor)
+    assert y.placements == (Shard(0), Shard(1))
+    assert on(y, None, None).placements == (Replicate(), Replicate())

@@ -17,6 +17,7 @@
   replayed in the port, norm-wise within bf16's own error).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import gc
 
 import jax

@@ -22,6 +22,7 @@
   the reference's.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import gc
 

@@ -11,6 +11,7 @@ bits, mask, count, overflow) and the stats ``bucket_counts``,
 entry points are compared the same way.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import gc
 

@@ -11,6 +11,7 @@ are held to their balance, and ``bucketize`` is held against the
 reference given the reference's ids.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import functools
 
 import jax

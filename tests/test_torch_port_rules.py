@@ -3,6 +3,7 @@ card unless asked for the CPU, its kernels run on CUDA tensors only and
 check their arguments, unported options raise, and state crosses between
 the packages with every bit kept (tolerance: zero)."""
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import ast
 import dataclasses
 from pathlib import Path
@@ -372,27 +373,75 @@ def test_model_entry_points_raise_without_cuda(monkeypatch):
         == "cpu"
 
 
-def test_sharding_the_models_raises():
-    """An enabled ``Sharder`` and the distributed MoE dispatch are the
-    sharding layer (ROADMAP item 14c): both raise."""
-    from types import SimpleNamespace
-
+def test_sharding_the_models_runs_on_a_mesh_of_one():
+    """An enabled ``Sharder`` constrains DTensors (and refuses a plain
+    tensor); on a 1 x 1 mesh the sharded forward and the distributed MoE
+    dispatch give the plain results bit for bit.  The sharding layer's
+    modules import neither JAX nor the reference, and only
+    ``launch/mesh.py`` imports ``torch.distributed``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import (DTensor, Shard, make_local_mesh,
+                                         set_mesh)
     from repro_torch.models import moe as tmoe
     from repro_torch.models import transformer as TT
     from repro_torch.models.common import Sharder, init_params
-    with pytest.raises(NotImplementedError, match="14c"):
-        Sharder(enabled=True)
-    enabled = SimpleNamespace(enabled=True, rules={})
-    params = init_params(tmoe.moe_plan(8, 16, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match="14c"):
-        tmoe.moe_apply(params, torch.zeros((1, 3, 8)), n_experts=4, top_k=2,
-                       sharder=enabled)
-    from repro_torch.configs import get_config
+    from repro_torch.models.common import map_plan, placements, plan_pspecs
+    from repro_torch.launch.mesh import distribute_tensor
+
+    mesh = make_local_mesh(1, 1, device="cpu")
+    rules = {"batch": ("data",), "heads": "model", "kv_heads": "model",
+             "mlp": "model", "vocab": "model", "expert": "model"}
+    sharder = Sharder(rules, enabled=True, mesh=mesh)
+    with pytest.raises(TypeError, match="plain"):
+        sharder(torch.zeros(2, 3), "batch", None)
+    x = sharder.place(torch.arange(6.).reshape(2, 3), None, None)
+    y = sharder(x, "batch", None)
+    assert isinstance(y, DTensor) and y.placements[0] == Shard(0)
+
     cfg = get_config("yi-6b", smoke=True)
-    with pytest.raises(NotImplementedError, match="14c"):
-        TT.forward(init_params(TT.lm_plan(cfg), device="cpu"), cfg,
-                   {"tokens": torch.zeros((1, 3), dtype=torch.int32)},
-                   sharder=enabled)
+    plan = TT.lm_plan(cfg)
+    params = init_params(plan, device="cpu")
+    specs = plan_pspecs(plan, rules)
+
+    def at(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    dparams = map_plan(plan, lambda path, _: distribute_tensor(
+        at(params, path), mesh, placements(at(specs, path), mesh),
+        src_data_rank=None))
+    tokens = torch.randint(0, cfg.vocab, (2, 8),
+                           generator=torch.Generator().manual_seed(0))
+    want = TT.forward(params, cfg, {"tokens": tokens})[0]
+    with set_mesh(mesh):
+        got = TT.forward(dparams, cfg, {"tokens": sharder.place(
+            tokens, "batch", None)}, sharder=sharder)[0]
+    assert torch.equal(got.to_local(), want)
+
+    mp = init_params(tmoe.moe_plan(8, 16, 4), device="cpu")
+    xm = torch.randn(2, 3, 8, generator=torch.Generator().manual_seed(1))
+    kw = dict(n_experts=4, top_k=2, compute_dtype=torch.float32)
+    want, _ = tmoe.moe_apply(mp, xm, **kw)
+    mspecs = plan_pspecs(tmoe.moe_plan(8, 16, 4), rules)
+    dmp = {k: distribute_tensor(v, mesh, placements(mspecs[k], mesh),
+                                src_data_rank=None) for k, v in mp.items()}
+    from repro_torch.launch.mesh import implicit_replication
+    with implicit_replication():
+        got, _ = tmoe.moe_apply(dmp, sharder.place(xm, "batch", None, None),
+                                sharder=sharder, **kw)
+    assert torch.equal(got.to_local(), want)
+
+    port = ROOT / "src" / "repro_torch"
+    for path in [*(port / "sharding").rglob("*.py"),
+                 port / "launch" / "specs.py"]:
+        for mod in _imported_modules(path):
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                f"{path}: {mod}"
+    for path in port.rglob("*.py"):
+        if path != port / "launch" / "mesh.py":
+            assert not any(m.startswith("torch.distributed") for m in
+                           _imported_modules(path)), path
 
 
 def test_model_state_crosses_with_every_bit():

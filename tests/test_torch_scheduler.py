@@ -8,6 +8,7 @@ plus `admit` / `admit_many`, whose fronts and admitted indices must be
 the reference's.  Tolerance: zero (rows through their int32 bits).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import gc
 

@@ -10,6 +10,7 @@ column's minimum is ``-0.0`` when it holds both zeros), which the
 scheduler's criteria share.  Tolerance: zero.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import gc
 
 import jax

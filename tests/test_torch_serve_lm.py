@@ -17,6 +17,7 @@ in f32 compute.
   (1e-4), for every family with a decode step.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import gc
 
 import jax

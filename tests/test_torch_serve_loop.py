@@ -15,6 +15,7 @@ contract 5).  Every wait is bounded (``Ticket.wait(timeout=60)``, and
 are daemons.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import gc
 import sys

@@ -10,6 +10,7 @@ tests/test_sfs_kernel.py: ties and duplicates, masked rows, overflow at a
 capacity far below n, n not a multiple of the block, block 2, d 12.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import gc
 
 import jax

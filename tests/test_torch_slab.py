@@ -16,6 +16,7 @@ record the poll does not find ready, overlaid by reads and chained by
 later feeds) is forced by making the poll answer "not yet".
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import gc
 

@@ -10,6 +10,7 @@
   a given state.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import gc
 
 import jax

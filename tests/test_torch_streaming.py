@@ -10,6 +10,7 @@ both packages.  Tolerance: zero; f32 leaves through their int32 bits.
 The configs are the sliced ones of ``tests/test_streaming.py``.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import gc
 

@@ -10,6 +10,7 @@ arrays go through both packages (JAX on the CPU, impls ``'jnp'`` and
 ``'perpair'``).  Tolerance: zero; f32 results through their int32 bits.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import gc
 

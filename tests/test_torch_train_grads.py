@@ -8,6 +8,7 @@ with ``F.silu`` its ``blocks/ln`` gradient was 4.4x the bound and
 MoE routing: the reference's bf16 choices, taken by its f32 run and
 replayed in the port."""
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import gc
 
 import jax

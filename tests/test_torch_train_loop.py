@@ -20,6 +20,7 @@ infrastructure half of ``tests/test_train_infra.py`` (all of it but
   without CUDA.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import gc
 import os

@@ -26,6 +26,7 @@
   raises, naming ROADMAP item 14c.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import gc
 
@@ -213,12 +214,36 @@ def test_train_step_matches_reference(arch):
                                    atol=3e-4, err_msg=str(path))
 
 
-def test_shard_activations_raises():
+def test_shard_activations_builds_a_step():
+    """``shard_activations=True`` builds the sharded train and eval
+    steps; on a 1 x 1 mesh (a world of one) they give the unsharded
+    steps' state, loss and metrics bit for bit."""
+    from repro_torch.configs import arch_rules
+    from repro_torch.data.pipeline import DataState, make_batch
+    from repro_torch.launch.mesh import DTensor, make_local_mesh, set_mesh
+    from repro_torch.models.common import init_params
     cfg = get_config("yi-6b", smoke=True)
-    with pytest.raises(NotImplementedError, match="14c"):
-        tstep.make_train_step(cfg, OptConfig(), shard_activations=True)
-    with pytest.raises(NotImplementedError, match="14c"):
-        tstep.make_eval_step(cfg, shard_activations=True)
+    opt = OptConfig(total_steps=10, warmup_steps=1)
+    params = init_params(TT.lm_plan(cfg), seed=0, device="cpu")
+    batch = make_batch(cfg, 4, 16, DataState(0, 0), device="cpu")
+    s1, m1 = tstep.make_train_step(cfg, opt)(
+        tstep.init_state(TT.tree_map(torch.clone, params), opt), batch)
+    e1 = tstep.make_eval_step(cfg)(s1["params"], batch)
+    mesh = make_local_mesh(1, 1, device="cpu")
+    rules = arch_rules(cfg, "train_4k", model_axis=1, data_axis=1)
+    with set_mesh(mesh):
+        step = tstep.make_train_step(cfg, opt, rules=rules,
+                                     shard_activations=True)
+        s2, m2 = step(tstep.init_state(params, opt), batch)
+        e2 = tstep.make_eval_step(cfg, rules=rules, shard_activations=True)(
+            s2["params"], batch)
+    assert isinstance(s2["params"]["embed"], DTensor)
+    assert state_bits(s1) == state_bits(TT.tree_map(
+        lambda t: t.to_local() if isinstance(t, DTensor) else t, s2))
+    for ours, theirs in ((m1, m2), (e1, e2)):
+        assert ours.keys() == theirs.keys()
+        for k in ours:
+            assert torch.equal(ours[k], theirs[k]), k
 
 
 def test_eval_step_matches_reference():

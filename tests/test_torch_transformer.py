@@ -33,6 +33,7 @@ Decode caches crossing between the packages are held in
 ``tests/test_torch_serve_lm.py``.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import gc
 

@@ -13,6 +13,7 @@ each insert's key (ROADMAP.md, contract 5).  The cases mirror
 tests/test_windowed.py without its mesh and compile-count tests.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import gc
 
