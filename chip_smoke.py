@@ -212,13 +212,14 @@ It builds the port's CUDA kernels from the sources in the checkout
      yi-6b at its published widths with 2 layers, f32 gradients card
      against CPU within 1e-2 of each leaf's norm (near-argmax attention
      at this width, see G3); R3, ``train_loop`` at
-     yi-6b's published widths cut to 8 of 32 layers (bf16 compute, f32
+     yi-6b's published widths cut to 4 of 32 layers (bf16 compute, f32
      parameters and moments, remat, 8 microbatches, batch 8 x 4,096), 4
-     steps (cut from 6 to keep step R near two minutes): ms a step by
+     steps (cut from 6, and from 8 layers since step S4 came, to keep the
+     script inside its time limit): ms a step by
      CUDA events, tokens/s, the model's FLOPs a step over 989.4 TFLOP/s
      dense bf16, peak device memory, losses finite and parameters moved,
      no kernel launched, the last step traced (device idle share); then
-     a run to step 2 that writes its checkpoint (19.8 GB) and a restart
+     a run to step 2 that writes its checkpoint (11.4 GB) and a restart
      from it to step 4 whose state is the straight run's bit for bit;
      R4, ``python
      -m repro_torch.launch.train --arch yi-6b --smoke --steps 20
@@ -243,13 +244,25 @@ It builds the port's CUDA kernels from the sources in the checkout
      the loss within 1e-4, each gradient leaf and each first-moment leaf
      after the step within 1e-4 of its largest element, the parameters
      within rtol = atol = 1e-4; with rank 0's collectives and the
-     second bf16 step's time; S2, a world of one under NCCL whose (1, 1)
-     mesh gives the unsharded step's state and loss bit for bit; S3, the
-     dry run's yi-6b train_4k and decode_32k cells at full width and
-     depth on a fake world of 256 ranks (one subprocess each, started
-     before step G, on the host): per rank the argument and peak bytes, FLOPs, collectives
-     and the roofline terms against the H100's peaks.  No kernel of the
-     port runs in step S;
+     second bf16 step's time; S4, in the same worlds after S1, the same
+     bf16 and f32 checks of the sequence-parallel residual stream
+     (Megatron-SP: the rules' ``heads`` None and ``head_dim``,
+     ``attn_seq`` and ``seq`` over the model axis, as ``arch_rules``
+     gives them the 16-wide axis when the heads do not divide it;
+     asserted, with a reduce-scatter over the model axis counted), its
+     bf16 step also with q and k at fan-in (with the reference's init
+     bf16's own error of the loss, 0.00734 on the H100, is above the
+     2e-3 bound: S4 prints that sharded loss, S1 the error); S2, a world
+     of one under NCCL whose (1, 1) mesh gives the unsharded step's state
+     and loss bit for bit; S3, the dry run's cells at full width and
+     depth (yi-6b train_4k and decode_32k and qwen3-14b's
+     sequence-parallel train_4k on a fake world of 256 ranks, yi-6b
+     train_4k on the multi-pod world of 512;
+     one subprocess each, started before step G, on the host): per rank
+     the argument and peak bytes, FLOPs, collectives (the gradient's
+     reduction over the ``pod`` axis on the multi-pod world) and the
+     roofline terms against the H100's peaks.  No kernel of the port
+     runs in step S;
   8. prints the script's run time, one JSON line with both kernels, then
      the device line.
 
@@ -2908,7 +2921,7 @@ R_B, R_S = 4, 32                   # R1's batch (tests/test_models_smoke.py)
 R_F32_TOL = 2e-3                   # f32 gradients, norm-wise per leaf
 R_UPDATE_TOL = 1e-6                # f32 update differences counted
 R2_TOL = 1e-2                      # R2's gradients, norm-wise per leaf
-R3_LAYERS, R3_BATCH, R3_SEQ, R3_STEPS = 8, 8, 4096, 4
+R3_LAYERS, R3_BATCH, R3_SEQ, R3_STEPS = 4, 8, 4096, 4
 R3_CKPT_AT = 2
 BF16_FLOPS_PER_S = 989.4e12        # H100 SXM dense bf16 (data sheet)
 R5_SHAPE = (8, 6, 2, 16)           # L, M, B, D: tests/test_pipeline.py
@@ -3300,7 +3313,7 @@ def _train_r3_runs(tag, dev, cfg, kw, kernels, ckpt, counts,
         print_trace(times.prof, tag, f"step {R3_STEPS} of that run "
                     f"(device activity only)")
     marks.append(("the trace's report", time.perf_counter()))
-    straight = state      # kept on the card (19.8 GB at yi-6b's widths)
+    straight = state      # kept on the card (11.4 GB at yi-6b's widths)
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -3482,7 +3495,7 @@ def train_phase(tag, kernels, dev=torch.device("cuda"),
     bf16 error (|card - CPU| at most max(|CPU bf16 - CPU f32|, 1e-3
     |f32|)), MoE routing replayed.  R2, yi-6b at its published widths
     with 2 layers, f32: gradients card against CPU.  R3, ``train_loop``
-    at yi-6b's widths cut to 8 of 32 layers, bf16 compute, remat, 8
+    at yi-6b's widths cut to 4 of 32 layers, bf16 compute, remat, 8
     microbatches, batch 8 x 4,096, ``R3_STEPS`` steps: ms a step,
     tokens/s, the FLOP bound, peak memory, the idle share of the traced
     last step, then a checkpoint at step ``R3_CKPT_AT``, a restart and
@@ -3527,9 +3540,12 @@ S32_SEQ = 64                        # the f32 check's batch: 8 x 64 tokens
 S_NOISE = 1e-7                      # the conditioning probe's relative
 #                                     perturbation of the parameters
 S_DEADLINE_S = 300.0
-S3_CELLS = ("train_4k", "decode_32k")
+S4_KEYS = ("heads", "kv_heads", "head_dim", "attn_seq", "seq")
+S3_CELLS = (("yi-6b", "train_4k", False), ("yi-6b", "decode_32k", False),
+            ("qwen3-14b", "train_4k", False), ("yi-6b", "train_4k", True))
 S3_RESULTS = ROOT / "build" / "dryrun_models"
 S3_DEVICE = "cuda"                  # the fake mesh's device type
+S3_SMOKE = False                    # smoke-sized S3 cells (a CPU rehearsal)
 
 
 def _s_config(full_config):
@@ -3598,80 +3614,126 @@ def _s_rel(w):
     return S_TOL32 * w.abs().max().clamp_min(torch.finfo(w.dtype).tiny)
 
 
+def _s_rule_sets(cfg, data: int, model: int) -> dict:
+    """The rules of S1 and S4 on a (data, model) mesh: S1's are
+    ``arch_rules``'; S4's are those with the sequence-parallel entries
+    ``arch_rules`` gives the 16-wide model axis when the heads do not
+    divide it (qwen3-14b's 40 heads), asserted to be the Megatron-SP
+    layout."""
+    from repro_torch.configs import arch_rules, get_config
+    base = arch_rules(cfg, "train_4k", model_axis=model, data_axis=data)
+    sp16 = arch_rules(get_config("qwen3-14b"), "train_4k")
+    sp = dict(base, **{k: sp16[k] for k in S4_KEYS})
+    if not (sp["heads"] is None and sp["kv_heads"] is None
+            and sp["head_dim"] == sp["attn_seq"] == sp["seq"] == "model"):
+        raise AssertionError(f"S4's rules are not sequence-parallel: "
+                             f"{ {k: sp[k] for k in S4_KEYS} }")
+    return {"S1": base, "S4": sp}
+
+
 def shard_rank(data: int, model: int, full_config=None,
                device=None) -> dict:
-    """S1 in one rank of a world of ``data * model`` ranks sharing the
-    card: one sharded train step of yi-6b's widths (``S_LAYERS``
-    layers, bf16) on a (data, model) mesh, its collectives counted;
-    rank 0 also runs the one-rank step from the same parameters and
-    batch and holds the sharded step against it; then a second
-    sharded step, timed; then the f32 checks of `_s1_f32`
-    (``device`` None: the card)."""
-    from repro_torch.configs import arch_rules, get_config
+    """S1 and S4 in one rank of a world of ``data * model`` ranks sharing
+    the card: one sharded train step of yi-6b's widths (``S_LAYERS``
+    layers, bf16) on a (data, model) mesh under each rule set of
+    `_s_rule_sets`, its collectives counted, held against the one-rank
+    step from the same parameters and batch (rank 0 runs it); S1 then
+    times a second sharded step.  S1 runs the reference's init; S4 first
+    takes the sharded loss there (reported: with the reference's init
+    bf16's own error of the loss is above the 2e-3 bound), then rescales
+    q and k to fan-in (`_condition_attention`) for its checked step.
+    Then the f32 checks of `_s_f32` (``device`` None: the card)."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import (SHARED_CARD_DTENSOR, DTensor,
+                                         implicit_replication,
                                          make_local_mesh, set_mesh)
     from repro_torch.models import transformer as T
-    from repro_torch.train.step import init_state, make_train_step
+    from repro_torch.models.common import Sharder
+    from repro_torch.train.step import (init_state, make_train_step,
+                                        shard_params)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = (torch.device("cuda", torch.cuda.current_device())
            if device is None else torch.device(device))
     cfg = _s_config(full_config or get_config)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     opt, params, batch = _s_setup(cfg, dev)
     mesh = make_local_mesh(data, model, device=device)
     rank = torch.distributed.get_rank()
     out = {"backend": torch.distributed.get_backend(),
            "staged": sorted(SHARED_CARD_DTENSOR), "rank": rank}
-    if rank == 0:
-        s1, m1 = make_train_step(cfg, opt)(
-            init_state(T.tree_map(torch.clone, params), opt), batch)
-        want = {k: v.float() for k, v in _s_leaves(s1["params"]).items()}
-        loss1 = float(m1["loss"])
-        del s1
-    rules = arch_rules(cfg, "train_4k", model_axis=model, data_axis=data)
-    with set_mesh(mesh):
-        step = make_train_step(cfg, opt, rules=rules, shard_activations=True)
-        census = dryrun.RankCensus(mesh)
-        with census:
-            state, m2 = step(init_state(params, opt), batch)
-        _sync(dev)
-        got = _s_leaves(state["params"])
-        worst = _s_worst(got, want if rank == 0 else None,
-                         lambda w: S_TOL[2] + S_TOL[1] * w.abs())
-        sharded = sum(isinstance(v, DTensor) and any(
-            p.is_shard() for p in v.placements) for v in got.values())
-        _sync(dev)
+    sets = _s_rule_sets(cfg, data, model)
+    for name, rules in sets.items():
         t0 = time.perf_counter()
-        state, m3 = step(state, batch)
-        _sync(dev)
-        out["step_ms"] = (time.perf_counter() - t0) * 1e3
-    out["collectives"] = {k: dict(v) for k, v in
-                          sorted(census.collectives.items())}
-    out["sharded_leaves"], out["leaves"] = sharded, len(got)
-    del state, got
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    out["f32"] = _s1_f32(data, model, rank, dev, device, full_config)
-    out["f32_s"] = time.perf_counter() - t0
-    if rank == 0:
-        out.update(loss1=loss1, loss2=float(m2["loss"]), worst=worst,
-                   loss3=float(m3["loss"]))
+        r = out[name] = {"rules": {k: rules[k] for k in S4_KEYS}}
+        if name == "S4":
+            with set_mesh(mesh), torch.no_grad(), implicit_replication():
+                sh = Sharder(rules, enabled=True, mesh=mesh)
+                placed = {k: sh.place(v, "batch", None)
+                          for k, v in batch.items()}
+                loss = T.loss_fn(shard_params(params, cfg, rules, mesh),
+                                 cfg, placed, sharder=sh)[0]
+                r["loss_ref_init"] = float(loss.full_tensor())
+            _condition_attention(params)
+        want = None
+        if rank == 0:
+            s1, m1 = make_train_step(cfg, opt)(
+                init_state(T.tree_map(torch.clone, params), opt), batch)
+            want = {k: v.float() for k, v in _s_leaves(s1["params"]).items()}
+            r["loss1"] = float(m1["loss"])
+            del s1
+            # bf16's own error: the one-rank loss in f32 compute
+            with torch.no_grad():
+                r["loss1_f32"] = float(T.loss_fn(params, cfg32, batch)[0])
+        with set_mesh(mesh):
+            step = make_train_step(cfg, opt, rules=rules,
+                                   shard_activations=True)
+            census = dryrun.RankCensus(mesh)
+            with census:
+                state, m2 = step(init_state(
+                    T.tree_map(torch.clone, params), opt), batch)
+            _sync(dev)
+            got = _s_leaves(state["params"])
+            r["worst"] = _s_worst(got, want,
+                                  lambda w: S_TOL[2] + S_TOL[1] * w.abs())
+            r["sharded_leaves"] = sum(
+                isinstance(v, DTensor)
+                and any(p.is_shard() for p in v.placements)
+                for v in got.values())
+            r["leaves"], r["loss2"] = len(got), float(m2["loss"])
+            if name == "S1":
+                _sync(dev)
+                t1 = time.perf_counter()
+                state, m3 = step(state, batch)
+                _sync(dev)
+                r["step_ms"] = (time.perf_counter() - t1) * 1e3
+                r["loss3"] = float(m3["loss"])
+        r["collectives"] = {k: dict(v) for k, v in
+                            sorted(census.collectives.items())}
+        del state, got, want
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        r["bf16_s"] = time.perf_counter() - t0
+    del params
+    for name, f32 in _s_f32(data, model, rank, dev, device, full_config,
+                            sets).items():
+        out[name]["f32"] = f32
     return out
 
 
-def _s1_f32(data: int, model: int, rank: int, dev, device,
-            full_config) -> dict:
-    """S1 in f32 (`_s32_setup`), where a gradient's size shows, on a
-    (data, model) mesh of this world on ``device``: the sharded loss
-    and gradients, then one sharded train step's first moments (after
-    one step from zero, m = 0.1·g as clipped: the gradients that reached
-    each ZeRO-1 shard; the second moments, 0.05·g², tell nothing more)
-    and parameters, each held against the one-rank ones (rank 0 holds
-    those, on the host; every rank takes part in the collectives).  Each
-    gradient and moment leaf within ``S_TOL32`` of its largest element,
-    the losses and the parameters within ``S_TOL32``."""
-    from repro_torch.configs import arch_rules, get_config
+def _s_f32(data: int, model: int, rank: int, dev, device, full_config,
+           sets: dict) -> dict:
+    """S1's and S4's checks in f32 (`_s32_setup`), where a gradient's
+    size shows, on a (data, model) mesh of this world on ``device``: for
+    each rule set of ``sets`` the sharded loss and gradients, then one
+    sharded train step's first moments (after one step from zero, m =
+    0.1·g as clipped: the gradients that reached each ZeRO-1 shard; the
+    second moments, 0.05·g², tell nothing more) and parameters, each
+    held against the one-rank ones (rank 0 holds those, on the host,
+    made once; every rank takes part in the collectives).  Each gradient
+    and moment leaf within ``S_TOL32`` of its largest element, the
+    losses and the parameters within ``S_TOL32``."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import (implicit_replication,
                                          make_local_mesh, set_mesh)
     from repro_torch.models import transformer as T
@@ -3680,44 +3742,49 @@ def _s1_f32(data: int, model: int, rank: int, dev, device,
                                         make_train_step, shard_params)
     cfg, opt, params, batch = _s32_setup(full_config or get_config, dev)
     mesh = make_local_mesh(data, model, device=device)
-    rules = arch_rules(cfg, "train_4k", model_axis=model, data_axis=data)
-    want, out = {}, {}
+    want, one = {}, {}
     if rank == 0:
         loss, _, grads = loss_and_grads(params, cfg, batch)
-        out["loss1"], want["grads"] = float(loss), _s_host(grads)
+        one["loss1"], want["grads"] = float(loss), _s_host(grads)
         del grads
         s1, m1 = make_train_step(cfg, opt)(
             init_state(T.tree_map(torch.clone, params), opt), batch)
-        out["step_loss1"] = float(m1["loss"])
+        one["step_loss1"] = float(m1["loss"])
         want["m"] = _s_host(s1["opt"]["m"])
         want["params"] = _s_host(s1["params"])
         del s1
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    with set_mesh(mesh):
-        sh = Sharder(rules, enabled=True, mesh=mesh)
-        with implicit_replication():
-            placed = {k: sh.place(v, "batch", None) for k, v in batch.items()}
-            loss, _, grads = loss_and_grads(
-                shard_params(params, cfg, rules, mesh), cfg, placed,
-                sharder=sh)
-        out["loss"] = float(loss.full_tensor())
-        out["grads"] = _s_worst(_s_leaves(grads), want.get("grads"),
-                                _s_rel)
-        del grads
-        state, m2 = make_train_step(cfg, opt, rules=rules,
-                                    shard_activations=True)(
-            init_state(params, opt), batch)
-        out["step_loss"] = float(m2["loss"])
-        out["m"] = _s_worst(_s_leaves(state["opt"]["m"]), want.get("m"),
-                            _s_rel)
-        out["params"] = _s_worst(_s_leaves(state["params"]),
-                                 want.get("params"),
-                                 lambda w: S_TOL32 + S_TOL32 * w.abs())
-    del state
-    _sync(dev)
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    out = {}
+    for name, rules in sets.items():
+        t0 = time.perf_counter()
+        r = out[name] = dict(one)
+        with set_mesh(mesh):
+            sh = Sharder(rules, enabled=True, mesh=mesh)
+            with implicit_replication():
+                placed = {k: sh.place(v, "batch", None)
+                          for k, v in batch.items()}
+                loss, _, grads = loss_and_grads(
+                    shard_params(params, cfg, rules, mesh), cfg, placed,
+                    sharder=sh)
+            r["loss"] = float(loss.full_tensor())
+            r["grads"] = _s_worst(_s_leaves(grads), want.get("grads"),
+                                  _s_rel)
+            del grads
+            state, m2 = make_train_step(cfg, opt, rules=rules,
+                                        shard_activations=True)(
+                init_state(T.tree_map(torch.clone, params), opt), batch)
+            r["step_loss"] = float(m2["loss"])
+            r["m"] = _s_worst(_s_leaves(state["opt"]["m"]), want.get("m"),
+                              _s_rel)
+            r["params"] = _s_worst(_s_leaves(state["params"]),
+                                   want.get("params"),
+                                   lambda w: S_TOL32 + S_TOL32 * w.abs())
+        del state
+        _sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        r["s"] = time.perf_counter() - t0
     return out
 
 
@@ -3752,9 +3819,11 @@ def _s_conditioning(full_config, dev, condition: bool) -> dict:
 
 
 def _s1(tag, full_config, dev) -> None:
-    """S1: worlds of 2 (1 x 2) and 4 (2 x 2) ranks sharing the card,
-    after the conditioning probe of the f32 gradients with the
-    reference's init and with q and k at fan-in."""
+    """S1 and S4: worlds of 2 (1 x 2) and 4 (2 x 2) ranks sharing the
+    card, after the conditioning probe of the f32 gradients with the
+    reference's init and with q and k at fan-in; each world runs S1's
+    rules (``arch_rules``: yi-6b's heads divide the model axis) and then
+    S4's (the sequence-parallel residual stream)."""
     from repro_torch.launch.mesh import run_world
     where = None if dev.type == "cuda" else "cpu"
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3781,53 +3850,83 @@ def _s1(tag, full_config, dev) -> None:
                              where, device=where, deadline=S_DEADLINE_S,
                              timeout=120.0)
         except RuntimeError as e:
-            fail(f"step S1: world of {size}: {e}")
+            fail(f"step S1/S4: world of {size}: {e}")
         r0 = reps[0]
         check(all(r["backend"] == reps[0]["backend"] for r in reps)
               and ("cardgloo" in r0["backend"] or where == "cpu"),
-              f"step S1: W={size} runs {r0['backend']}, expected cardgloo "
-              f"for the card's tensors")
-        dl = abs(r0["loss1"] - r0["loss2"])
-        check(dl < S_TOL[0], f"step S1: W={size}: |loss one rank - loss "
-              f"sharded| = {dl} >= {S_TOL[0]}")
-        check(r0["worst"] <= 1.0, f"step S1: W={size}: a parameter after "
-              f"the step is {r0['worst']:.3f}x outside rtol {S_TOL[1]}, "
-              f"atol {S_TOL[2]} of the one-rank step")
-        check(np.isfinite(r0["loss3"]), "step S1: second step not finite")
-        check(r0["sharded_leaves"] > 0, f"step S1: W={size}: no leaf sharded")
-        f = r0["f32"]
-        dl32 = max(abs(f["loss1"] - f["loss"]),
-                   abs(f["step_loss1"] - f["step_loss"]))
-        check(dl32 < S_TOL32, f"step S1: W={size}: f32 |loss one rank - "
-              f"loss sharded| = {dl32} >= {S_TOL32}")
-        for key, what in (("grads", "a gradient"), ("m", "a first moment"),
-                          ("params", "a parameter after the step")):
-            check(f[key] <= 1.0, f"step S1: W={size}: f32: {what} is "
-                  f"{f[key]:.3f}x outside its bound against the one-rank "
-                  f"step")
-        coll = ", ".join(f"{k} x{v['count']} ({v['bytes']} B)"
-                         for k, v in r0["collectives"].items())
-        print(f"{tag} S1 yi-6b widths, {S_LAYERS} layers, bf16, batch "
-              f"{S_BATCH} x {S_SEQ}, {data} x {model} (data, model) mesh of "
-              f"{size} ranks sharing the card ({r0['backend']}; staged "
-              f"{r0['staged']}): loss one rank {r0['loss1']:.6f}, sharded "
-              f"{r0['loss2']:.6f} (|diff| {dl:.3g} < {S_TOL[0]}); parameters "
-              f"after the step within rtol {S_TOL[1]}, atol {S_TOL[2]} "
-              f"(worst {r0['worst']:.3f} of the bound); in f32 (batch "
-              f"{S_BATCH} x {S32_SEQ}, q and k at fan-in), loss "
-              f"{f['loss1']:.6f} against {f['loss']:.6f} (|diff| "
-              f"{dl32:.3g} < {S_TOL32}), each gradient leaf, and each "
-              f"first-moment leaf after the step, within {S_TOL32} of its "
-              f"largest element (worst {f['grads']:.3f}, m {f['m']:.3f} of "
-              f"the bound), parameters after the step within rtol = atol = "
-              f"{S_TOL32} (worst {f['params']:.3f}), the f32 checks "
-              f"{r0['f32_s']:.3f} s; "
-              f"{r0['sharded_leaves']} of {r0['leaves']} leaves sharded; "
-              f"rank 0's collectives in the first step: {coll}; second "
-              f"step {r0['step_ms']:.3f} ms (rank 0, host clock after a "
-              f"synchronize) [one card shared by the ranks: a check of the "
-              f"schedule, not of scaling]; {time.perf_counter() - t0:.3f} s",
-              flush=True)
+              f"step S1/S4: W={size} runs {r0['backend']}, expected "
+              f"cardgloo for the card's tensors")
+        for name in ("S1", "S4"):
+            _s_report(tag, name, r0, data, model)
+        print(f"{tag} S1 and S4, {data} x {model}: "
+              f"{time.perf_counter() - t0:.3f} s of the world", flush=True)
+
+
+def _s_report(tag, name, r0, data, model) -> None:
+    """Prints one rule set's results of a world, then checks them."""
+    size = data * model
+    r, f = r0[name], r0[name]["f32"]
+    what = f"step {name}: W={size}"
+    dl = abs(r["loss1"] - r["loss2"])
+    dl32 = max(abs(f["loss1"] - f["loss"]),
+               abs(f["step_loss1"] - f["step_loss"]))
+    coll = r["collectives"]
+    rules = ", ".join(f"{k}={v!r}" for k, v in r["rules"].items())
+    colls = ", ".join(f"{k} x{v['count']} ({v['bytes']} B)"
+                      for k, v in coll.items())
+    second = (f"; second step {r['step_ms']:.3f} ms (rank 0, host clock "
+              f"after a synchronize)" if name == "S1" else "")
+    init = ("q and k at fan-in" if name == "S4" else "the reference's "
+            "init")
+    s1 = r0["S1"]
+    ref = (f"; with the reference's init the sharded loss was "
+           f"{r['loss_ref_init']:.6f}, |diff| "
+           f"{abs(r['loss_ref_init'] - s1['loss1']):.3g} (not held: with "
+           f"that init bf16's own error of the one-rank loss is "
+           f"{abs(s1['loss1'] - s1['loss1_f32']):.3g})"
+           if name == "S4" else "")
+    print(f"{tag} {name} yi-6b widths, {S_LAYERS} layers, bf16, batch "
+          f"{S_BATCH} x {S_SEQ}, {data} x {model} (data, model) mesh of "
+          f"{size} ranks sharing the card ({r0['backend']}; staged "
+          f"{r0['staged']}), rules {rules}, {init}: loss one rank "
+          f"{r['loss1']:.6f} (in f32 compute {r['loss1_f32']:.6f}: "
+          f"bf16's own error {abs(r['loss1'] - r['loss1_f32']):.3g}), "
+          f"sharded {r['loss2']:.6f} (|diff| {dl:.3g}, bound {S_TOL[0]})"
+          f"{ref}; "
+          f"parameters after the step within rtol {S_TOL[1]}, atol "
+          f"{S_TOL[2]}: worst {r['worst']:.3f} of the bound; in f32 (batch "
+          f"{S_BATCH} x {S32_SEQ}, q and k at fan-in), loss "
+          f"{f['loss1']:.6f} against {f['loss']:.6f} (|diff| {dl32:.3g}, "
+          f"bound {S_TOL32}), each gradient leaf, and each first-moment "
+          f"leaf after the step, within {S_TOL32} of its largest element: "
+          f"worst {f['grads']:.3f}, m {f['m']:.3f} of the bound; parameters "
+          f"after the step within rtol = atol = {S_TOL32}: worst "
+          f"{f['params']:.3f}; {r['sharded_leaves']} of {r['leaves']} "
+          f"leaves sharded; rank 0's collectives in the first step: "
+          f"{colls}{second} [one card shared by the ranks: a check of the "
+          f"schedule, not of scaling]", flush=True)
+    print(f"{tag} {name} W={size}: bf16 step {r['bf16_s']:.3f} s, f32 "
+          f"checks {f['s']:.3f} s", flush=True)
+    check(dl < S_TOL[0], f"{what}: |loss one rank - loss sharded| = {dl} "
+          f">= {S_TOL[0]}")
+    check(r["worst"] <= 1.0, f"{what}: a parameter after the step is "
+          f"{r['worst']:.3f}x outside rtol {S_TOL[1]}, atol {S_TOL[2]} of "
+          f"the one-rank step")
+    check(r["sharded_leaves"] > 0, f"{what}: no leaf sharded")
+    if name == "S1":
+        check(np.isfinite(r["loss3"]), f"{what}: second step not finite")
+    else:
+        # Megatron-SP: the output's partial sums reduce-scattered over
+        # the model axis onto the sequence
+        check(coll.get("reduce_scatter_tensor@model", {}).get("count", 0)
+              > 0, f"{what}: no reduce-scatter over the model axis: "
+              f"{sorted(coll)}")
+    check(dl32 < S_TOL32, f"{what}: f32 |loss one rank - loss sharded| = "
+          f"{dl32} >= {S_TOL32}")
+    for key, leaf in (("grads", "a gradient"), ("m", "a first moment"),
+                      ("params", "a parameter after the step")):
+        check(f[key] <= 1.0, f"{what}: f32: {leaf} is {f[key]:.3f}x "
+              f"outside its bound against the one-rank step")
 
 
 def _s2(tag, full_config, dev) -> None:
@@ -3869,17 +3968,19 @@ def _s2(tag, full_config, dev) -> None:
 
 def _s3_start():
     """S3 in subprocesses (they run on the host beside the card's steps):
-    the dry run of yi-6b's ``S3_CELLS`` at full width and depth on a
-    fake world of 256 ranks, one process per cell."""
+    the dry run of the ``S3_CELLS`` at full width and depth (smoke-sized
+    with ``S3_SMOKE``) on a fake world of the production mesh's size,
+    one process per cell."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     procs = []
-    for shape in S3_CELLS:
+    for arch, shape, multi_pod in S3_CELLS:
         args = ["-c", "import runpy, torch; torch.set_num_threads(1); "
                 "runpy.run_module('repro_torch.launch.dryrun', "
-                "run_name='__main__', alter_sys=True)", "--arch", "yi-6b",
+                "run_name='__main__', alter_sys=True)", "--arch", arch,
                 "--shape", shape, "--force", "--device", S3_DEVICE,
                 "--results", str(S3_RESULTS)]
-        procs.append((shape, subprocess.Popen(
+        args += ["--multi-pod"] * multi_pod + ["--smoke"] * S3_SMOKE
+        procs.append(((arch, shape, multi_pod), subprocess.Popen(
             [sys.executable, *args], cwd=ROOT, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     return procs, time.perf_counter()
@@ -3887,9 +3988,15 @@ def _s3_start():
 
 def _s3_finish(tag, card, started) -> None:
     """S3: each cell's record per rank: argument and peak bytes, FLOPs,
-    collectives and the roofline terms against the H100's peaks."""
+    collectives and the roofline terms against the H100's peaks; a
+    multi-pod cell reduces its gradients over the ``pod`` axis, and a
+    sequence-parallel cell (qwen3-14b's 40 heads do not divide the
+    16-wide model axis) reduce-scatters over the model axis."""
+    from repro_torch.configs import arch_rules, get_config
+    from repro_torch.launch.dryrun import model_cell_name
     procs, t0 = started
-    for shape, proc in procs:
+    for (arch, shape, multi_pod), proc in procs:
+        what = f"{arch} {shape}{' multi-pod' if multi_pod else ''}"
         try:
             out, err = proc.communicate(timeout=SUBPROCESS_S)
         except subprocess.TimeoutExpired:
@@ -3898,18 +4005,34 @@ def _s3_finish(tag, card, started) -> None:
         if proc.returncode != 0:
             print(out[-4000:])
             print(err[-4000:], file=sys.stderr)
-            fail(f"step S3: the dry run of yi-6b {shape} exited "
-                 f"{proc.returncode}")
-        rec = json.loads((S3_RESULTS / f"yi-6b__{shape}__pod.json")
-                         .read_text())
-        check(rec["status"] == "ok", f"step S3: {shape}: {rec.get('error')}")
+            fail(f"step S3: the dry run of {what} exited {proc.returncode}")
+        name = model_cell_name(arch, shape, multi_pod, S3_SMOKE)
+        rec = json.loads((S3_RESULTS / f"{name}.json").read_text())
+        check(rec["status"] == "ok", f"step S3: {what}: {rec.get('error')}")
+        cfg = get_config(arch, smoke=S3_SMOKE)
+        rules = arch_rules(cfg, shape, multi_pod=multi_pod)
+        per = rec["collectives"]["per_chip"]
+        check(rec["chips"] == (512 if multi_pod else 256),
+              f"step S3: {what}: {rec['chips']} chips")
+        if multi_pod:
+            check(any(k.endswith("@pod") for k in per),
+                  f"step S3: {what}: no collective over the pod axis")
+        if rules["seq"] == "model" and shape == "train_4k":
+            check("reduce_scatter_tensor@model" in per, f"step S3: {what}: "
+                  f"sequence-parallel rules but no reduce-scatter over the "
+                  f"model axis")
         m, c, r = rec["memory_analysis"], rec["cost_analysis"], \
             rec["roofline"]
         coll = ", ".join(f"{k} x{v['count']} ({v['bytes']} B)" for k, v in
-                         rec["collectives"]["per_chip"].items())
-        print(f"{tag} S3 dry run yi-6b {shape} (published widths, 32 "
-              f"layers) on a fake world of {rec['chips']} ranks, (16, 16) "
-              f"(data, model), per rank: arguments {m['argument_bytes']} B, "
+                         per.items())
+        mesh = ("(2, 16, 16) (pod, data, model)" if multi_pod
+                else "(16, 16) (data, model)")
+        sp = ("; sequence-parallel (seq, attn_seq over model)"
+              if rules["seq"] == "model" else "")
+        print(f"{tag} S3 dry run {arch} {shape} (published widths, "
+              f"{cfg.n_layers} layers, {cfg.microbatches} microbatches"
+              f"{sp}) on a fake world of {rec['chips']} ranks, {mesh}, per "
+              f"rank: arguments {m['argument_bytes']} B, "
               f"peak {m['peak_bytes_per_chip']} B (live local storages), "
               f"{c['flops_per_chip']} FLOPs, {c['op_bytes_per_chip']} B "
               f"of operands and results; collectives {coll}; wire "
@@ -3921,8 +4044,9 @@ def _s3_finish(tag, card, started) -> None:
               f"compute {r['compute_s']:.6f} s, memory {r['memory_s']:.6f} "
               f"s, collective {r['collective_s']:.6f} s, dominant "
               f"{r['dominant']}, model FLOPs / counted "
-              f"{r['useful_flops_ratio']:.4f}; the cell ran "
-              f"{rec['compile_seconds']:.3f} s", flush=True)
+              f"{r['useful_flops_ratio']:.4f}", flush=True)
+        print(f"{tag} S3 {what}: the cell ran {rec['compile_seconds']:.3f} "
+              f"s", flush=True)
     print(f"{tag} S3: {time.perf_counter() - t0:.3f} s of subprocesses",
           flush=True)
 
@@ -3935,12 +4059,14 @@ def shard_phase(tag, card, s3=None, full_config=None,
     one-rank step to the reference's tolerances, collectives counted,
     then in f32 with q and k at fan-in its gradients, first moments and
     parameters to 1e-4 (after measuring why not with the reference's
-    init);
+    init); S4, in the same worlds, the same checks of the
+    sequence-parallel residual stream (the rules ``arch_rules`` gives
+    the 16-wide model axis when the heads do not divide it);
     S2, a world of one under NCCL whose (1, 1) mesh gives the
-    unsharded step bit for bit; S3, the dry run's yi-6b train_4k and
-    decode_32k cells at full width and depth on a fake world of 256
-    ranks (started by the caller beside earlier steps, or here).  No
-    kernel of the port runs here."""
+    unsharded step bit for bit; S3, the dry run's ``S3_CELLS`` at full
+    width and depth on a fake world of 256 or 512 ranks (started by the
+    caller beside earlier steps, or here).  No kernel of the port runs
+    here."""
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
     s3 = s3 or _s3_start()

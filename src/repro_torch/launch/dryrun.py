@@ -44,7 +44,10 @@ record holds:
 
 Torch runs every layer eagerly, so every layer's work is counted as it
 runs: the reference's two unrolled probes (a fix for XLA's cost
-analysis counting a loop body once) are not needed.  Without the fake
+analysis counting a loop body once) are not needed.  ``--jobs N`` runs
+the cells in N worker processes, one cell a process (the full sweep at
+the published widths); each record's ``compile_seconds`` is its cell's
+time.  Without the fake
 backend the model mode exits non-zero and says why; it never shrinks
 the world.
 
@@ -81,7 +84,7 @@ partitions).
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\
       [--arch A] [--shape S] [--multi-pod | --both-meshes] [--smoke] \\
-      [--force] [--device cpu|cuda]
+      [--force] [--device cpu|cuda] [--jobs N]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --skyline \\
       [--cell NAME] [--smoke] [--force] [--world W] [--device cpu|cuda]
 
@@ -94,7 +97,9 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import json
+import multiprocessing
 import os
 import sys
 import time
@@ -509,6 +514,32 @@ def _meta_step(arch, shape, multi_pod, rules_override, smoke, device, t0):
                    arg_bytes=arg_bytes, seconds=seconds)
 
 
+def _cell_job(arch, shape, mp, smoke, device, results) -> dict:
+    """One model cell in a worker process of ``--jobs`` (one intra-op
+    thread: the workers share the host's cores)."""
+    torch.set_num_threads(1)
+    return run_cell(arch, shape, mp, smoke=smoke, device=device,
+                    results=results)
+
+
+def _print_cell(rec: dict) -> None:
+    cell, st = rec["cell"], rec["status"]
+    if st == "ok":
+        r = rec["roofline"]
+        m = rec["memory_analysis"]
+        peak = f"{m['peak_bytes_per_chip'] / 2 ** 30:.2f}GiB"
+        print(f"[ok]     {cell}: dominant={r['dominant']} "
+              f"bound={r['bound_s']:.4f}s "
+              f"frac={r['roofline_fraction']:.3f} "
+              f"args/chip={m['argument_bytes'] / 2 ** 30:.2f}GiB "
+              f"peak/chip={peak} "
+              f"compile={rec['compile_seconds']:.0f}s", flush=True)
+    elif st == "skipped":
+        print(f"[skip]   {cell}: {rec['reason']}", flush=True)
+    else:
+        print(f"[ERROR]  {cell}: {rec['error']}", flush=True)
+
+
 def _model_main(args) -> int:
     from repro_torch.configs import ARCH_NAMES, SHAPES
     from repro_torch.launch.mesh import has_fake_backend
@@ -521,7 +552,8 @@ def _model_main(args) -> int:
         return 2
     archs = [args.arch] if args.arch else ARCH_NAMES
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
-    n_ok = n_skip = n_err = 0
+    counts = collections.Counter()
+    todo = []
     for arch in archs:
         for shape in ([args.shape] if args.shape else list(SHAPES)):
             for mp in meshes:
@@ -532,30 +564,32 @@ def _model_main(args) -> int:
                         rec = json.load(f)
                     if rec.get("status") in ("ok", "skipped"):
                         print(f"[cached] {cell}: {rec['status']}")
-                        n_ok += rec["status"] == "ok"
-                        n_skip += rec["status"] == "skipped"
+                        counts[rec["status"]] += 1
                         continue
-                rec = run_cell(arch, shape, mp, smoke=args.smoke,
-                               device=args.device, results=args.results)
-                st = rec["status"]
-                n_ok += st == "ok"
-                n_skip += st == "skipped"
-                n_err += st == "error"
-                if st == "ok":
-                    r = rec["roofline"]
-                    m = rec["memory_analysis"]
-                    peak = f"{m['peak_bytes_per_chip'] / 2 ** 30:.2f}GiB"
-                    print(f"[ok]     {cell}: dominant={r['dominant']} "
-                          f"bound={r['bound_s']:.4f}s "
-                          f"frac={r['roofline_fraction']:.3f} "
-                          f"args/chip={m['argument_bytes'] / 2 ** 30:.2f}GiB "
-                          f"peak/chip={peak} "
-                          f"compile={rec['compile_seconds']:.0f}s")
-                elif st == "skipped":
-                    print(f"[skip]   {cell}: {rec['reason']}")
-                else:
-                    print(f"[ERROR]  {cell}: {rec['error']}")
-    print(f"done: ok={n_ok} skip={n_skip} err={n_err}")
+                todo.append((arch, shape, mp))
+
+    def done(rec):
+        counts[rec["status"]] += 1
+        _print_cell(rec)
+
+    if args.jobs <= 1:
+        for cell in todo:
+            done(run_cell(*cell, smoke=args.smoke, device=args.device,
+                          results=args.results))
+    else:
+        # the longest cells first: training steps, then the prefills
+        kind = {"train": 0, "prefill": 1, "decode": 2}
+        todo.sort(key=lambda c: (kind[SHAPES[c[1]].kind], not c[2]))
+        with concurrent.futures.ProcessPoolExecutor(
+                args.jobs, mp_context=multiprocessing.get_context("spawn"),
+                max_tasks_per_child=1) as pool:
+            futures = [pool.submit(_cell_job, *cell, args.smoke,
+                                   args.device, args.results)
+                       for cell in todo]
+            for f in concurrent.futures.as_completed(futures):
+                done(f.result())
+    n_err = counts["error"]
+    print(f"done: ok={counts['ok']} skip={counts['skipped']} err={n_err}")
     return 1 if n_err else 0
 
 
@@ -578,6 +612,9 @@ def main(argv=None) -> int:
                          "/ 16 (skyline cells)")
     ap.add_argument("--force", action="store_true",
                     help="rerun cells with a cached ok record")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="model cells: run them in this many worker "
+                         "processes, one cell a process")
     ap.add_argument("--world", type=int, default=1,
                     help="with --skyline: ranks of the world the cells run "
                          "on")

@@ -71,12 +71,14 @@ names, (data, model) or (pod, data, model), over the current world
 the mesh's).  `set_mesh` makes a mesh the current one, as the
 reference's ``set_mesh``.  This module re-exports what the sharding layer
 needs (``DeviceMesh``, ``DTensor``, the placements ``Shard``,
-``Replicate`` and ``Partial``, ``distribute_tensor``, ``local_map``,
+``Replicate`` and ``Partial``, ``distribute_tensor``,
 ``implicit_replication``), so that no other module imports
-``torch.distributed``.  `fake_world` is a world of N ranks in this one
-process over the ``fake`` backend: the dry run's stand-in for the
-reference's forced host devices.  Its collectives move nothing; with
-local shards on the meta device nothing is allocated either.
+``torch.distributed``; its `local_map` is torch's, save that a body's
+output keeps an uneven shard's global shape.  `fake_world` is a world
+of N ranks in this one process over the ``fake`` backend: the dry run's
+stand-in for the reference's forced host devices.  Its collectives move
+nothing; with local shards on the meta device nothing is allocated
+either.
 
 Ranks that share one card run gloo, and DTensor's redistributions call
 the groups' collectives on CUDA tensors through ``torch.distributed``'s
@@ -126,7 +128,7 @@ from torch._C._distributed_c10d import (AllgatherOptions,
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
-from torch.distributed.tensor.experimental import local_map
+from torch.distributed._functional_collectives import AsyncCollectiveTensor
 from torch.distributed.tensor.experimental import (
     implicit_replication as _implicit_replication)
 
@@ -722,6 +724,83 @@ def implicit_replication():
             yield
     finally:
         _IMPLICIT[0] -= 1
+
+
+def local_map(func, out_placements, in_placements=None,
+              in_grad_placements=None, device_mesh=None,
+              redistribute_inputs: bool = False, out_shapes=None):
+    """torch's ``local_map`` for positional arguments (``out_placements``
+    a tuple of placements per output, or a list of placements for a
+    single output), save that an output's global shape follows the
+    inputs: a dim sharded over the same mesh dims as a dim of a DTensor
+    input, with the same local size, takes that dim's global size
+    (``out_shapes``, one global shape or None per output, says it
+    outright).  So an uneven shard keeps its true global shape (a
+    microbatch of 8 rows over 16 data ranks: ranks 0-7 hold a row each,
+    the rest none, as GSPMD pads it), where torch's ``from_local``
+    without a shape takes the local size times the mesh dims' size."""
+    def run(*args):
+        mesh, local, inputs = device_mesh, [], []
+        for i, a in enumerate(args):
+            if not isinstance(a, DTensor):
+                local.append(a)
+                continue
+            mesh = mesh or a.device_mesh
+            grad = None
+            if in_placements is not None:
+                want = tuple(in_placements[i])
+                if tuple(a.placements) != want:
+                    if not redistribute_inputs:
+                        raise ValueError(f"argument {i} is placed "
+                                         f"{a.placements}, not {want}")
+                    a = a.redistribute(mesh, want)
+            if in_grad_placements is not None:
+                grad = tuple(in_grad_placements[i])
+            part = a.to_local(grad_placements=grad)
+            if isinstance(part, AsyncCollectiveTensor):
+                part = part.trigger_wait()
+            local.append(part)
+            inputs.append((a, part.shape))
+        out = func(*local)
+        if not inputs:
+            return out
+        single = not isinstance(out_placements, tuple)
+        outs, pls = ((out,), (out_placements,)) if single else (
+            out, out_placements)
+        if len(outs) != len(pls):
+            raise ValueError(f"{len(outs)} outputs, {len(pls)} placements")
+        shapes = out_shapes or (None,) * len(outs)
+        made = tuple(_from_local(o, mesh, tuple(p), inputs, shape)
+                     if isinstance(o, torch.Tensor) else o
+                     for o, p, shape in zip(outs, pls, shapes))
+        return made[0] if single else made
+
+    return run
+
+
+def _sharded_dims(placements, dim: int) -> list:
+    return [i for i, p in enumerate(placements) if p.is_shard(dim)]
+
+
+def _from_local(part, mesh, placements, inputs, given=None) -> DTensor:
+    """``part`` as a DTensor; its global shape ``given``, or by
+    `local_map`'s rule."""
+    shape = list(part.shape if given is None else given)
+    for d in range(part.ndim if given is None else 0):
+        dims = _sharded_dims(placements, d)
+        if dims:
+            shape[d] = next(
+                (t.shape[e] for t, lshape in inputs for e in range(t.ndim)
+                 if lshape[e] == part.shape[d]
+                 and _sharded_dims(t.placements, e) == dims),
+                part.shape[d] * math.prod(mesh.size(i) for i in dims))
+    if not shape:
+        return DTensor.from_local(part, mesh, placements, run_check=False)
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * max(shape[d + 1], 1)
+    return DTensor.from_local(part, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
 
 
 def _device_mesh(shape: tuple, names: tuple, device) -> DeviceMesh:

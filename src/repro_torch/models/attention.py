@@ -18,8 +18,9 @@ import functools
 
 import torch
 
-from repro_torch.launch.mesh import DTensor, Partial, Shard, local_map
-from repro_torch.models.common import PSpec, placements, rmsnorm
+from repro_torch.launch.mesh import (DTensor, Partial, Replicate, Shard,
+                                     local_map)
+from repro_torch.models.common import PSpec, placements, product, rmsnorm
 
 __all__ = ["attn_plan", "init_rope", "apply_rope", "mask_block",
            "attention_train", "init_cache", "cache_from_prefill",
@@ -95,32 +96,17 @@ def mask_block(kind: str, q_pos, k_pos, *, window: int = 0, chunk: int = 0,
 # Projections
 # --------------------------------------------------------------------------
 
-def _head_dim_sharded(w, dim: int) -> bool:
-    """Whether ``w`` is a DTensor sharded on its head_dim ``dim``."""
-    return isinstance(w, DTensor) and any(p.is_shard(dim)
-                                          for p in w.placements)
-
-
 def _proj_in(x, w):
-    """``einsum("bsd,dhk->bshk")``.  A DTensor weight sharded on its
-    head_dim (the decode rules') is contracted with (k, h) merged, the
-    sharded dim first: DTensor on torch 2.11 refuses to merge (h, k)
-    when k is sharded."""
-    if not _head_dim_sharded(w, 2):
-        return torch.einsum("bsd,dhk->bshk", x, w)
-    d, h, k = w.shape
-    y = torch.matmul(x, w.transpose(1, 2).reshape(d, k * h))
-    return y.unflatten(-1, (k, h)).transpose(-1, -2)
+    """``einsum("bsd,dhk->bshk")``; on DTensors a `product` of the
+    shards, ``x`` whole along its sequence."""
+    return product("bsd,dhk->bshk", x, w)
 
 
 def _proj_out(o, w):
-    """``einsum("bshk,hkd->bsd")``, as `_proj_in` for a weight sharded
-    on its head_dim."""
-    if not _head_dim_sharded(w, 1):
-        return torch.einsum("bshk,hkd->bsd", o, w)
-    h, k, d = w.shape
-    return torch.matmul(o.transpose(-1, -2).flatten(-2),
-                        w.transpose(0, 1).reshape(k * h, d))
+    """``einsum("bshk,hkd->bsd")``; on DTensors a `product` of the
+    shards: a partial sum over the axis that shards the heads or the
+    head_dim (``o`` is moved onto the weight's shards)."""
+    return product("bshk,hkd->bsd", o, w)
 
 
 def _project_qkv(params, x, dt, qk_norm):
@@ -240,16 +226,18 @@ def attention_train(params, x, *, n_heads, n_kv, head_dim, compute_dtype,
     qg = q.transpose(1, 2)                     # (B,Hq,S,Dh)
     kh = k.transpose(1, 2)                     # (B,Hkv,S,Dh)
     vh = v.transpose(1, 2)
-    if rope_freqs is not None:
-        qg = apply_rope(qg, pos, rope_freqs)
-        kh = apply_rope(kh, pos, rope_freqs)
     if sharder is not None:
         # heads over the model axis where they divide it, else the
         # sequence (attn_seq): the quadratic intermediates shard either
-        # way; K/V before the GQA repeat, which then stays local
+        # way; K/V before the GQA repeat, which then stays local.
+        # Before RoPE, which is elementwise: RoPE's halves of a
+        # head_dim-sharded q would gather all of q first
         qg = sharder(qg, "batch", "heads", "attn_seq", None)
         kh = sharder(kh, "batch", "kv_heads", "kv_seq", None)
         vh = sharder(vh, "batch", "kv_heads", "kv_seq", None)
+    if rope_freqs is not None:
+        qg = apply_rope(qg, pos, rope_freqs)
+        kh = apply_rope(kh, pos, rope_freqs)
     kf = _repeat_kv(kh, n_heads)
     vf = _repeat_kv(vh, n_heads)
     core = functools.partial(
@@ -295,6 +283,21 @@ def init_cache(batch: int, capacity: int, n_kv: int, head_dim: int,
         rolling=rolling)
 
 
+def _roll(t, shift: int, dim: int):
+    """``torch.roll`` along ``dim``; a DTensor (torch 2.11's has no
+    sharding strategy for ``roll``) is rolled on each rank with ``dim``
+    gathered, then placed back."""
+    if not isinstance(t, DTensor):
+        return torch.roll(t, shift, dims=dim)
+    d = dim % t.ndim
+    mesh = t.device_mesh
+    whole = tuple(Replicate() if p.is_shard(d) else p for p in t.placements)
+    out = local_map(lambda x: torch.roll(x, shift, dims=d),
+                    out_placements=list(whole), in_placements=(whole,),
+                    device_mesh=mesh, redistribute_inputs=True)(t)
+    return out.redistribute(mesh, t.placements)
+
+
 def cache_from_prefill(k, v, capacity: int, rolling: bool) -> KVCache:
     """k/v: (..., B, Hkv, S, Dh) from attention_train, with any leading
     (layer) axes: keep the last ``capacity`` positions.  A rolling cache
@@ -320,10 +323,10 @@ def cache_from_prefill(k, v, capacity: int, rolling: bool) -> KVCache:
                       torch.full((pad,), -1, dtype=torch.int32,
                                  device=dev)])
     kc, vc = padded(kk), padded(vv)
-    if rolling:
+    if rolling and start % capacity:
         shift = start % capacity
-        kc = torch.roll(kc, shift, dims=-3)
-        vc = torch.roll(vc, shift, dims=-3)
+        kc = _roll(kc, shift, -3)
+        vc = _roll(vc, shift, -3)
         kpos = torch.roll(kpos, shift)
     return KVCache(kc, vc, kpos.expand(lead + (capacity,)).contiguous(),
                    rolling=rolling)

@@ -20,25 +20,30 @@ in mesh order, so the tuple must follow the mesh's order.
 memory (on the meta device, or fake under ``FakeTensorMode``), as
 DTensors with those placements when a mesh is given.  An enabled
 `Sharder` is the reference's ``with_sharding_constraint``: it
-redistributes a DTensor to the rule's placements.
+redistributes a DTensor to the rule's placements.  Where GSPMD infers
+the layout of a product of an activation and a weight, the port says
+it: `product` runs the plain product on each rank's shards with the
+placements written out, so DTensor searches no strategy for it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import zlib
 from typing import Any
 
 import torch
 
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.launch.mesh import (DTensor, Replicate, Shard,
-                                     current_mesh, distribute_tensor)
+from repro_torch.launch.mesh import (DTensor, Partial, Replicate, Shard,
+                                     current_mesh, distribute_tensor,
+                                     local_map)
 
 __all__ = ["PSpec", "init_params", "abstract_params", "plan_pspecs",
            "placements", "axes_to_spec", "map_plan", "stack_plan",
            "plan_leaves", "Sharder", "DEFAULT_RULES", "rmsnorm",
-           "RMSNORM_EPS", "dense", "Dtypes", "cross_entropy"]
+           "RMSNORM_EPS", "dense", "product", "Dtypes", "cross_entropy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,6 +272,93 @@ def rmsnorm(x, scale, eps: float = RMSNORM_EPS):
 def dense(x, w, compute_dtype=torch.bfloat16):
     """x @ w in the compute dtype."""
     return torch.matmul(x.to(compute_dtype), w.to(compute_dtype))
+
+
+# mesh axes over which a weight shards as FSDP does (gathered for a
+# product whose activation that axis shards on another dim); on the
+# other axes (``model``) weights stay where they are, as tensor
+# parallelism keeps them
+_FSDP_AXES = ("pod", "data")
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def product(eq: str, x, w, fn=None):
+    """``fn(x, w)`` (by default ``torch.einsum(eq, x, w)``) of an
+    activation ``x`` and a weight ``w``; ``eq`` names their dims as an
+    einsum does, and ``fn`` must compute that einsum.
+
+    On plain tensors it is ``fn(x, w)``.  On DTensors it is ``fn`` of
+    each rank's shards under ``local_map``, with the layout said outright
+    on every mesh dim, so that DTensor searches no strategy for the
+    product (a search that does not end on a 3-D mesh, and that torch
+    2.11 refuses where ``x``'s sequence is sharded and the product merges
+    it with the batch):
+
+    * ``w`` sharded on a dim of its own (``f`` of ``bsd,df->bsf``): ``x``
+      whole on that mesh dim (gathered: Megatron-SP's all-gather of a
+      sequence-sharded ``x``), the result sharded on ``f``;
+    * ``w`` sharded on a contracted dim or a dim both share: ``x`` sharded
+      on the same dim (moved there when it is sharded on another), the
+      result a partial sum over that mesh dim, or sharded on the shared
+      dim;
+    * ``w`` whole: ``x`` keeps a shard of a dim of its own (a batch or
+      sequence dim), else is made whole.
+
+    On an FSDP axis (``pod``, ``data``) where ``x`` is sharded on a dim
+    of its own, a sharded ``w`` is gathered instead when it is the
+    smaller of the two (a training step's expert weights; a decode
+    step's few tokens are gathered, and the weights stay).  Each input's
+    gradient comes back in its placements (a partial sum where the other
+    operand's shards met a whole input)."""
+    fn = fn or functools.partial(torch.einsum, eq)
+    if not isinstance(x, DTensor) and not isinstance(w, DTensor):
+        return fn(x, w)
+    mesh = (w if isinstance(w, DTensor) else x).device_mesh
+    whole = (Replicate(),) * mesh.ndim
+    x = x if isinstance(x, DTensor) else DTensor.from_local(
+        x, mesh, whole, run_check=False)
+    w = w if isinstance(w, DTensor) else DTensor.from_local(
+        w, mesh, whole, run_check=False)
+    ins, out = eq.replace(" ", "").split("->")
+    xs, ws = ins.split(",")
+    names = tuple(mesh.mesh_dim_names or ())
+    xpl, wpl, opl, gx, gw = [], [], [], [], []
+    for i, (xp, wp) in enumerate(zip(x.placements, w.placements)):
+        if wp.is_partial():
+            raise ValueError(f"a weight in partial sums: {w.placements}")
+        lx = xs[xp.dim] if xp.is_shard() else None
+        own = lx is not None and lx in out and lx not in ws
+        if wp.is_shard() and own and names[i] in _FSDP_AXES \
+                and _nbytes(w) <= _nbytes(x):
+            wp = Replicate()                  # FSDP: gather the weight
+        lw = ws[wp.dim] if wp.is_shard() else None
+        wpl.append(wp)
+        if lw is None:
+            if own:                           # x's own dim stays sharded
+                xpl.append(xp), gx.append(xp), gw.append(Partial())
+                opl.append(Shard(out.index(lx)))
+            else:
+                xpl.append(Replicate()), gx.append(Replicate())
+                gw.append(Replicate()), opl.append(Replicate())
+        elif lw in xs:                        # contracted, or shared
+            sx = Shard(xs.index(lw))
+            xpl.append(sx), gx.append(sx), gw.append(wp)
+            opl.append(Shard(out.index(lw)) if lw in out else Partial())
+        else:                                 # w's own dim
+            xpl.append(Replicate()), gx.append(Partial()), gw.append(wp)
+            opl.append(Shard(out.index(lw)))
+    xpl, wpl = tuple(xpl), tuple(wpl)
+    if tuple(x.placements) != xpl:
+        x = x.redistribute(mesh, xpl)
+    if tuple(w.placements) != wpl:
+        w = w.redistribute(mesh, wpl)
+    return local_map(fn, out_placements=list(opl),      # one output
+                     in_placements=(xpl, wpl),
+                     in_grad_placements=(tuple(gx), tuple(gw)),
+                     device_mesh=mesh, redistribute_inputs=False)(x, w)
 
 
 def cross_entropy(logits, labels, mask=None):

@@ -19,21 +19,20 @@ the tokens are sharded as the rules' ``batch`` axes say, each shard has
 its own capacity ``max(1, int(cf * t_l * k / E))`` for its ``t_l``
 tokens, and the (E, cap_l * shards, D) buffer is sharded on its slot dim.
 So a distributed layer drops other tokens than a one-device layer does.
-The router's product and the expert products stay on DTensors, so the
-weights' rules (EP: experts over the model axis; TP: the expert hidden
-dim over it) apply to them.
+The router's product and the expert products are `common.product`s of
+the shards, so the weights' rules (EP: experts over the model axis; TP:
+the expert hidden dim over it) apply to them; over an FSDP axis the
+smaller of weight and buffer is gathered.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.dominance import topk_order
 from repro_torch.launch.mesh import local_map
-from repro_torch.models.common import PSpec, placements
+from repro_torch.models.common import PSpec, placements, product
 
 __all__ = ["moe_plan", "moe_apply", "moe_dispatch", "moe_capacity"]
 
@@ -108,6 +107,10 @@ def moe_apply(params, x, *, n_experts: int, top_k: int,
               capacity_factor: float = 1.25,
               compute_dtype=torch.bfloat16, sharder=None):
     """x: (B, S, D) -> (B, S, D), aux metrics dict."""
+    if sharder is not None and sharder.enabled:
+        return _moe_sharded(params, x, sharder, n_experts=n_experts,
+                            top_k=top_k, capacity_factor=capacity_factor,
+                            compute_dtype=compute_dtype)
     b, s, d = x.shape
     t = b * s
     e = n_experts
@@ -116,61 +119,97 @@ def moe_apply(params, x, *, n_experts: int, top_k: int,
 
     logits = torch.matmul(xt.float(), params["router"].float())
     probs = torch.softmax(logits, dim=-1)
+    idx, gate = _route(probs, top_k)                         # (T, k)
+    buf, dest, ok = moe_dispatch(xt, idx.reshape(-1), n_experts=e,
+                                 top_k=top_k,
+                                 capacity_factor=capacity_factor,
+                                 compute_dtype=dt)
+    y = _experts(params, buf, dt)
+    out = _moe_combine(y, dest, gate, top_k)
+    if "shared" in params:
+        out = out + _shared(params["shared"], xt.to(dt), "t", dt)
+    aux = _aux(idx, torch.mean(probs, dim=0), ok, e)
+    return out.reshape(b, s, d), aux
 
-    def dispatch(xt_l, idx_l):
-        return moe_dispatch(xt_l, idx_l.reshape(-1), n_experts=e,
-                            top_k=top_k, capacity_factor=capacity_factor,
+
+def _experts(params, buf, dt):
+    """The expert FFN (SwiGLU) on the (E, cap, D) buffer; distributed,
+    `product`s of the shards: the weights keep their rules but over an
+    FSDP axis, where the smaller of weight and buffer is gathered."""
+    def mm(eq, a, w):
+        return product(eq, a, w.to(dt), torch.matmul)
+
+    h = mm("ecd,edf->ecf", buf, params["wi"])
+    g = mm("ecd,edf->ecf", buf, params["wg"])
+    return mm("ecf,efd->ecd", F.silu(h) * g, params["wo"])
+
+
+def _shared(sh, xd, lead: str, dt):
+    """The shared expert on ``xd``, whose leading dims are ``lead``."""
+    def mm(eq, a, w):
+        return product(eq, a, w.to(dt), torch.matmul)
+
+    hh = mm(f"{lead}d,df->{lead}f", xd, sh["wi"])
+    gg = mm(f"{lead}d,df->{lead}f", xd, sh["wg"])
+    return mm(f"{lead}f,fd->{lead}d", F.silu(hh) * gg, sh["wo"])
+
+
+def _aux(idx, pmean, ok, e: int) -> dict:
+    """Switch-style load-balance aux loss terms."""
+    experts = torch.arange(e, device=idx.device)
+    frac = torch.mean((idx[:, :1] == experts).float(), dim=0)
+    return {"moe_aux_loss": e * torch.sum(frac * pmean),
+            "moe_drop_frac": 1.0 - torch.mean(ok.float())}
+
+
+def _moe_sharded(params, x, sharder, *, n_experts, top_k, capacity_factor,
+                 compute_dtype):
+    """`moe_apply` with an enabled sharder: the routing, the dispatch and
+    the combine on each token shard under ``local_map``, as the
+    reference's shard_map bodies.  Between the bodies the tokens stay
+    (B, S, ...), and each body flattens its own shard: DTensor cannot
+    flatten a batch sharded unevenly (a microbatch of 8 rows over 16
+    data ranks, where GSPMD pads), and the combine's output takes the
+    input's global shape.  A flattened token shard (the choices, their
+    destinations) is taken as even."""
+    b, s, d = x.shape
+    e, dt = n_experts, compute_dtype
+    mesh = x.device_mesh
+    tok = sharder.rules.get("batch")
+
+    def on(*spec):
+        return placements(spec, mesh)
+
+    logits = product("bsd,de->bse", x.float(), params["router"].float(),
+                     torch.matmul)
+    probs = torch.softmax(logits, dim=-1)
+
+    def route(p_l):
+        return _route(p_l.reshape(-1, e), top_k)
+
+    def dispatch(x_l, idx_l):
+        return moe_dispatch(x_l.reshape(-1, d), idx_l.reshape(-1),
+                            n_experts=e, top_k=top_k,
+                            capacity_factor=capacity_factor,
                             compute_dtype=dt)
 
     def combine(y_l, dest_l, gate_l):
-        return _moe_combine(y_l, dest_l, gate_l, top_k)
+        return _moe_combine(y_l, dest_l, gate_l, top_k).reshape(-1, s, d)
 
-    if sharder is not None and sharder.enabled:
-        # per token shard, as the reference's shard_map bodies
-        mesh = xt.device_mesh
-        tok = sharder.rules.get("batch")
-
-        def on(*spec):
-            return placements(spec, mesh)
-
-        idx, gate = local_map(
-            functools.partial(_route, top_k=top_k),
-            out_placements=(on(tok, None), on(tok, None)),
-            in_placements=(on(tok, None),), device_mesh=mesh,
-            redistribute_inputs=True)(probs)
-        buf, dest, ok = local_map(
-            dispatch, out_placements=(on(None, tok, None), on(tok), on(tok)),
-            in_placements=(on(tok, None), on(tok, None)), device_mesh=mesh,
-            redistribute_inputs=True)(xt, idx)
-    else:
-        idx, gate = _route(probs, top_k)                     # (T, k)
-        buf, dest, ok = dispatch(xt, idx)
-
-    # expert FFN (SwiGLU); distributed, the weights keep their rules
-    h = torch.matmul(buf, params["wi"].to(dt))
-    g = torch.matmul(buf, params["wg"].to(dt))
-    y = torch.matmul(F.silu(h) * g, params["wo"].to(dt))
-
-    if sharder is not None and sharder.enabled:
-        y = y.redistribute(mesh, on(None, tok, None))
-        out = local_map(
-            combine, out_placements=list(on(tok, None)),  # one output
-            in_placements=(on(None, tok, None), on(tok), on(tok, None)),
-            device_mesh=mesh, redistribute_inputs=True)(y, dest, gate)
-    else:
-        out = combine(y, dest, gate)
-
+    idx, gate = local_map(
+        route, out_placements=(on(tok, None), on(tok, None)),
+        in_placements=(on(tok, None, None),), device_mesh=mesh,
+        redistribute_inputs=True)(probs)
+    buf, dest, ok = local_map(
+        dispatch, out_placements=(on(None, tok, None), on(tok), on(tok)),
+        in_placements=(on(tok, None, None), on(tok, None)), device_mesh=mesh,
+        redistribute_inputs=True)(x, idx)
+    y = _experts(params, buf, dt).redistribute(mesh, on(None, tok, None))
+    out = local_map(
+        combine, out_placements=list(on(tok, None, None)),  # one output
+        in_placements=(on(None, tok, None), on(tok), on(tok, None)),
+        device_mesh=mesh, redistribute_inputs=True,
+        out_shapes=(x.shape,))(y, dest, gate)
     if "shared" in params:
-        sh = params["shared"]
-        xd = xt.to(dt)
-        hh = torch.matmul(xd, sh["wi"].to(dt))
-        gg = torch.matmul(xd, sh["wg"].to(dt))
-        out = out + torch.matmul(F.silu(hh) * gg, sh["wo"].to(dt))
-
-    # Switch-style load-balance aux loss terms
-    experts = torch.arange(e, device=idx.device)
-    frac = torch.mean((idx[:, :1] == experts).float(), dim=0)
-    pmean = torch.mean(probs, dim=0)
-    aux = {"moe_aux_loss": e * torch.sum(frac * pmean),
-           "moe_drop_frac": 1.0 - torch.mean(ok.float())}
-    return out.reshape(b, s, d), aux
+        out = out + _shared(params["shared"], x.to(dt), "bs", dt)
+    return out, _aux(idx, torch.mean(probs, dim=(0, 1)), ok, e)

@@ -21,12 +21,14 @@ reference's own distance from f32.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import PSpec, rmsnorm
+from repro_torch.launch.mesh import Partial, Replicate, local_map
+from repro_torch.models.common import PSpec, placements, product, rmsnorm
 
 __all__ = ["mamba2_plan", "mamba2_apply", "mamba2_decode", "SSMState",
            "init_ssm_state", "silu"]
@@ -165,35 +167,25 @@ def _ssd_scan(xdt, dtA, b_in, c_in, chunk: int):
     return y, hcur
 
 
-def mamba2_apply(params, x, *, n_heads, head_dim, state, chunk=128,
-                 compute_dtype=torch.bfloat16, sharder=None, unroll=False):
-    """Full-sequence Mamba-2 block (train / prefill).
-
-    x: (B, S, D) -> (B, S, D), final SSMState (for decode continuation).
-    """
-    del n_heads, head_dim, state, unroll
+def _ssm_core(xi, z, bi, ci, dt_raw, conv_x, conv_B, conv_C, dt_bias,
+              A_log, D, *, chunk, compute_dtype):
+    """The block from its input projections to its gated output, before
+    the norm: the causal convolutions, the SSD scan, the skip and the
+    gate.  Returns (y, final state, pre-conv tails of x, B and C).  It
+    is separable over the batch, the heads and the head_dim, so that a
+    rank runs it on its shards alone (`_sharded_core`)."""
     dt_ = compute_dtype
-    s = x.shape[1]
-    xd = x.to(dt_)
-    z = torch.einsum("bsd,dhp->bshp", xd, params["wz"].to(dt_))
-    xi = torch.einsum("bsd,dhp->bshp", xd, params["wx"].to(dt_))
-    bi = torch.einsum("bsd,dn->bsn", xd, params["wB"].to(dt_))
-    ci = torch.einsum("bsd,dn->bsn", xd, params["wC"].to(dt_))
-    dt_raw = torch.einsum("bsd,dh->bsh", x.float(), params["wdt"].float())
-
+    s = xi.shape[1]
     # pre-conv tails for decode continuation
     tail_x = xi[:, -(_CONV_W - 1):]
     tail_B = bi[:, -(_CONV_W - 1):]
     tail_C = ci[:, -(_CONV_W - 1):]
-    xi = _causal_conv(xi, params["conv_x"].to(dt_))
-    bi = _causal_conv(bi, params["conv_B"].to(dt_))
-    ci = _causal_conv(ci, params["conv_C"].to(dt_))
-    if sharder is not None:
-        xi = sharder(xi, "batch", None, "heads", None)
-        z = sharder(z, "batch", None, "heads", None)
+    xi = _causal_conv(xi, conv_x)
+    bi = _causal_conv(bi, conv_B)
+    ci = _causal_conv(ci, conv_C)
 
-    dt = F.softplus(dt_raw + params["dt_bias"].float())
-    A = -torch.exp(params["A_log"].float())                  # (H,) < 0
+    dt = F.softplus(dt_raw + dt_bias.float())
+    A = -torch.exp(A_log.float())                            # (H,) < 0
     dtA = dt * A[None, None, :]                              # (B,S,H)
 
     xdt = xi.float() * dt[..., None]
@@ -210,10 +202,83 @@ def mamba2_apply(params, x, *, n_heads, head_dim, state, chunk=128,
     y, hfinal = _ssd_scan(padz(xdt), padz(dtA), padz(bi.float()),
                           padz(ci.float()), chunk)
     y = y[:, :s]
-    y = y + xi.float() * params["D"].float()[None, None, :, None]
-    y = y.to(dt_) * silu(z)
+    y = y + xi.float() * D.float()[None, None, :, None]
+    return y.to(dt_) * silu(z), hfinal, tail_x, tail_B, tail_C
+
+
+# logical axes of `_ssm_core`'s arguments and results, and of
+# `_decode_core`'s
+_CORE_IN = (("batch", None, "heads", None), ("batch", None, "heads", None),
+            ("batch", None, None), ("batch", None, None),
+            ("batch", None, "heads"), (None, "heads", None), (None, None),
+            (None, None), ("heads",), ("heads",), ("heads",))
+_CORE_OUT = (("batch", None, "heads", None), ("batch", "heads", None, None),
+             ("batch", None, "heads", None), ("batch", None, None),
+             ("batch", None, None))
+_DECODE_IN = (("batch", "heads", None), ("batch", "heads", None),
+              ("batch", None), ("batch", None), ("batch", "heads"),
+              ("batch", "heads", None, None), ("batch", None, "heads", None),
+              ("batch", None, None), ("batch", None, None),
+              (None, "heads", None), (None, None), (None, None), ("heads",),
+              ("heads",), ("heads",))
+_DECODE_OUT = (("batch", "heads", None), ("batch", "heads", None, None),
+               ("batch", None, "heads", None), ("batch", None, None),
+               ("batch", None, None))
+
+
+def _sharded_core(core, sharder, in_axes, out_axes, *args):
+    """``core`` on each rank's shards under ``local_map``, its arguments
+    and results placed by the rules of their logical axes: x and z as
+    the reference constrains them (batch, heads; the head_dim whole), B
+    and C whole but for the batch, each parameter as the heads shard it.
+    A rank's gradient of an argument that is whole over a mesh dim that
+    shards another one is a partial sum over that dim.  As DTensor
+    operations, the scan's loop over chunks would dispatch some thousand
+    operations a layer through DTensor's sharding propagation, which on
+    a 3-D mesh does not end in useful time."""
+    mesh = args[0].device_mesh
+
+    def on(axes):
+        return placements(sharder.spec(*axes), mesh)
+
+    ins = tuple(on(a) for a in in_axes)
+    split = {i for pl in ins for i, p in enumerate(pl) if p.is_shard()}
+    grads = tuple(tuple(p if p.is_shard() else
+                        Partial() if i in split else Replicate()
+                        for i, p in enumerate(pl)) for pl in ins)
+    return local_map(core, out_placements=tuple(on(a) for a in out_axes),
+                     in_placements=ins, in_grad_placements=grads,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def mamba2_apply(params, x, *, n_heads, head_dim, state, chunk=128,
+                 compute_dtype=torch.bfloat16, sharder=None, unroll=False):
+    """Full-sequence Mamba-2 block (train / prefill).
+
+    x: (B, S, D) -> (B, S, D), final SSMState (for decode continuation).
+    """
+    del n_heads, head_dim, state, unroll
+    dt_ = compute_dtype
+    xd = x.to(dt_)
+    z = product("bsd,dhp->bshp", xd, params["wz"].to(dt_))
+    xi = product("bsd,dhp->bshp", xd, params["wx"].to(dt_))
+    bi = product("bsd,dn->bsn", xd, params["wB"].to(dt_))
+    ci = product("bsd,dn->bsn", xd, params["wC"].to(dt_))
+    dt_raw = product("bsd,dh->bsh", x.float(), params["wdt"].float())
+
+    args = (xi, z, bi, ci, dt_raw, params["conv_x"].to(dt_),
+            params["conv_B"].to(dt_), params["conv_C"].to(dt_),
+            params["dt_bias"], params["A_log"], params["D"])
+    core = functools.partial(_ssm_core, chunk=chunk, compute_dtype=dt_)
+    if sharder is not None and sharder.enabled:
+        # the reference constrains the convolved x and z to (batch, heads);
+        # the convolution is per channel, so x is constrained before it
+        y, hfinal, tail_x, tail_B, tail_C = _sharded_core(
+            core, sharder, _CORE_IN, _CORE_OUT, *args)
+    else:
+        y, hfinal, tail_x, tail_B, tail_C = core(*args)
     y = rmsnorm(y, params["norm"])
-    out = torch.einsum("bshp,hpd->bsd", y.to(dt_), params["wo"].to(dt_))
+    out = product("bshp,hpd->bsd", y.to(dt_), params["wo"].to(dt_))
 
     ssm_state = SSMState(h=hfinal.float(), conv_x=tail_x.to(dt_),
                          conv_B=tail_B.to(dt_), conv_C=tail_C.to(dt_))
@@ -228,34 +293,53 @@ def _conv_step(tail, cur, kern):
     return silu(out), hist[:, 1:]
 
 
-def mamba2_decode(params, x, st: SSMState, *, n_heads, head_dim, state,
-                  compute_dtype=torch.bfloat16, sharder=None):
-    """Single-token recurrent step. x: (B, 1, D) -> (B, 1, D), new state."""
-    del n_heads, head_dim, state, sharder
-    dt_ = compute_dtype
-    xt = x[:, 0]
-    xd = xt.to(dt_)
-    z = torch.einsum("bd,dhp->bhp", xd, params["wz"].to(dt_))
-    xi = torch.einsum("bd,dhp->bhp", xd, params["wx"].to(dt_))
-    bi = torch.einsum("bd,dn->bn", xd, params["wB"].to(dt_))
-    ci = torch.einsum("bd,dn->bn", xd, params["wC"].to(dt_))
-    dt_raw = torch.einsum("bd,dh->bh", xt.float(), params["wdt"].float())
+def _decode_core(xi, z, bi, ci, dt_raw, h, tail_x, tail_B, tail_C, conv_x,
+                 conv_B, conv_C, dt_bias, A_log, D, *, compute_dtype):
+    """One recurrent step from the input projections to the gated
+    output, before the norm: (y, new state h, new conv tails).
+    Separable as `_ssm_core` is."""
+    xi, ncx = _conv_step(tail_x, xi, conv_x)
+    bi, ncb = _conv_step(tail_B, bi, conv_B)
+    ci, ncc = _conv_step(tail_C, ci, conv_C)
 
-    xi, ncx = _conv_step(st.conv_x, xi, params["conv_x"].to(dt_))
-    bi, ncb = _conv_step(st.conv_B, bi, params["conv_B"].to(dt_))
-    ci, ncc = _conv_step(st.conv_C, ci, params["conv_C"].to(dt_))
-
-    dt = F.softplus(dt_raw + params["dt_bias"].float())
-    A = -torch.exp(params["A_log"].float())
+    dt = F.softplus(dt_raw + dt_bias.float())
+    A = -torch.exp(A_log.float())
     decay = torch.exp(dt * A[None, :])                       # (B,H)
 
     xf = xi.float()
     bf = bi.float()
-    h_new = (st.h * decay[..., None, None]
+    h_new = (h * decay[..., None, None]
              + torch.einsum("bhp,bn->bhpn", xf * dt[..., None], bf))
     y = torch.einsum("bhpn,bn->bhp", h_new, ci.float())
-    y = y + xf * params["D"].float()[None, :, None]
-    y = y.to(dt_) * silu(z)
+    y = y + xf * D.float()[None, :, None]
+    return y.to(compute_dtype) * silu(z), h_new, ncx, ncb, ncc
+
+
+def mamba2_decode(params, x, st: SSMState, *, n_heads, head_dim, state,
+                  compute_dtype=torch.bfloat16, sharder=None):
+    """Single-token recurrent step. x: (B, 1, D) -> (B, 1, D), new state.
+    With an enabled sharder the step runs on each rank's shards, as
+    `mamba2_apply`'s core does."""
+    del n_heads, head_dim, state
+    dt_ = compute_dtype
+    xt = x[:, 0]
+    xd = xt.to(dt_)
+    z = product("bd,dhp->bhp", xd, params["wz"].to(dt_))
+    xi = product("bd,dhp->bhp", xd, params["wx"].to(dt_))
+    bi = product("bd,dn->bn", xd, params["wB"].to(dt_))
+    ci = product("bd,dn->bn", xd, params["wC"].to(dt_))
+    dt_raw = product("bd,dh->bh", xt.float(), params["wdt"].float())
+
+    args = (xi, z, bi, ci, dt_raw, st.h, st.conv_x, st.conv_B, st.conv_C,
+            params["conv_x"].to(dt_), params["conv_B"].to(dt_),
+            params["conv_C"].to(dt_), params["dt_bias"], params["A_log"],
+            params["D"])
+    core = functools.partial(_decode_core, compute_dtype=dt_)
+    if sharder is not None and sharder.enabled:
+        y, h_new, ncx, ncb, ncc = _sharded_core(core, sharder, _DECODE_IN,
+                                                _DECODE_OUT, *args)
+    else:
+        y, h_new, ncx, ncb, ncc = core(*args)
     y = rmsnorm(y, params["norm"])
-    out = torch.einsum("bhp,hpd->bd", y.to(dt_), params["wo"].to(dt_))
+    out = product("bhp,hpd->bd", y.to(dt_), params["wo"].to(dt_))
     return out[:, None], SSMState(h_new, ncx, ncb, ncc)

@@ -15,7 +15,14 @@ Sharded, the parameters are DTensors over a ``DeviceMesh`` and an
 enabled `Sharder` constrains the activations at the reference's sites
 (the residual stream after the embedding and after every block, the
 attention's q/k/v and output, the KV cache's write, the Mamba-2 block's
-x and z, the MoE's token shards).  The forward then runs under
+x and z, the MoE's token shards).  Where the rules shard the residual
+stream's sequence (``seq``: the heads do not divide the model axis),
+the port also says what GSPMD infers: each block's normed input is
+gathered along the sequence before its products, and each block's
+output (the attention's, the MLP's or MoE's, the Mamba-2 block's) is
+constrained to the residual stream's placements before the add, which
+reduce-scatters its partial sums (Megatron-SP).  Every product of an
+activation and a weight is a `common.product`.  The forward then runs under
 ``implicit_replication``: the constants it makes (positions, masks,
 RoPE tables) are plain tensors, the same on every rank, which DTensor
 takes as replicated, as XLA does.
@@ -48,7 +55,8 @@ from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (PSpec, Sharder, cross_entropy,
-                                       placements, rmsnorm, stack_plan)
+                                       placements, product, rmsnorm,
+                                       stack_plan)
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["lm_plan", "forward", "loss_fn", "prefill", "decode_step",
@@ -180,24 +188,33 @@ def lm_plan(cfg: ModelConfig):
 # ==========================================================================
 
 def _mlp_apply(params, x, cfg, dt):
+    """The MLP; on DTensors its products are `product`s: ``x`` whole
+    along the sequence in, a partial sum over the ``mlp`` axis out."""
     xd = x.to(dt)
-    h = torch.matmul(xd, params["wi"].to(dt))
+
+    def mm(eq, a, w):
+        return product(eq, a, w.to(dt), torch.matmul)
+
+    h = mm("bsd,df->bsf", xd, params["wi"])
     if cfg.mlp_kind == "swiglu":
-        h = F.silu(h) * torch.matmul(xd, params["wg"].to(dt))
+        h = F.silu(h) * mm("bsd,df->bsf", xd, params["wg"])
     elif cfg.mlp_kind == "geglu":
         # jax.nn.gelu is the tanh approximation by default
-        h = F.gelu(h, approximate="tanh") * torch.matmul(
-            xd, params["wg"].to(dt))
+        h = F.gelu(h, approximate="tanh") * mm("bsd,df->bsf", xd,
+                                                params["wg"])
     else:
         h = F.gelu(h, approximate="tanh")
-    return torch.matmul(h, params["wo"].to(dt))
+    return mm("bsf,fd->bsd", h, params["wo"])
 
 
 def _attn_block(params, x, *, cfg, sharder, kind, use_rope, rope_freqs,
                 prefix_len=None, is_moe=False):
-    """Full-sequence attention block -> (x, (k, v), aux)."""
+    """Full-sequence attention block -> (x, (k, v), aux).  Where the
+    rules shard the residual stream's sequence (``seq``), each half of
+    the block is Megatron-SP's: its input gathered along the sequence,
+    its output's partial sums reduce-scattered back onto it."""
     dt = _dt(cfg)
-    h = rmsnorm(x, params["ln1"])
+    h = _gather_seq(rmsnorm(x, params["ln1"]), sharder)
     kv, a = att.attention_train(
         params["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         head_dim=cfg.head_dim_eff, compute_dtype=dt,
@@ -210,7 +227,7 @@ def _attn_block(params, x, *, cfg, sharder, kind, use_rope, rope_freqs,
     # GSPMD sums them here, as this constraint does
     a = sharder(a, "batch", "seq", "act_embed")
     x = x + a.to(x.dtype)
-    h = rmsnorm(x, params["ln2"])
+    h = _gather_seq(rmsnorm(x, params["ln2"]), sharder)
     aux = {}
     if is_moe:
         f, aux = moe_mod.moe_apply(
@@ -219,16 +236,24 @@ def _attn_block(params, x, *, cfg, sharder, kind, use_rope, rope_freqs,
             sharder=sharder)
     else:
         f = _mlp_apply(params["mlp"], h, cfg, dt)
+    f = sharder(f, "batch", "seq", "act_embed")
     x = x + f.to(x.dtype)
     return sharder(x, "batch", "seq", "act_embed"), kv, aux
 
 
+def _gather_seq(h, sharder):
+    """The block's input whole along the sequence: an all-gather where
+    the rules' ``seq`` shards the residual stream, else nothing."""
+    return sharder(h, "batch", None, "act_embed")
+
+
 def _ssm_block(params, x, *, cfg, sharder):
-    h = rmsnorm(x, params["ln"])
+    h = _gather_seq(rmsnorm(x, params["ln"]), sharder)
     y, state = ssm_mod.mamba2_apply(
         params["mamba"], h, n_heads=cfg.ssm_heads,
         head_dim=cfg.ssm_head_dim, state=cfg.ssm_state,
         chunk=cfg.ssm_chunk, compute_dtype=_dt(cfg), sharder=sharder)
+    y = sharder(y, "batch", "seq", "act_embed")
     x = x + y.to(x.dtype)
     return sharder(x, "batch", "seq", "act_embed"), state
 
@@ -295,27 +320,33 @@ def _sharded_lookup(embed, tokens, sharder):
 def _embed_inputs(params, cfg, inputs, sharder):
     dt = _dt(cfg)
     if cfg.family == "encoder":
-        x = torch.matmul(inputs["frames"].to(dt),
-                         params["frontend_proj"].to(dt))
+        x = product("bsf,fd->bsd", inputs["frames"].to(dt),
+                    params["frontend_proj"].to(dt), torch.matmul)
     elif cfg.family == "vlm":
-        img = torch.matmul(inputs["image_emb"].to(dt),
-                           params["frontend_proj"].to(dt))
+        img = product("bsf,fd->bsd", inputs["image_emb"].to(dt),
+                      params["frontend_proj"].to(dt), torch.matmul)
         txt = _embed_lookup(params["embed"], inputs["tokens"], dt, sharder)
-        x = torch.cat([img, txt], dim=1)
+        # both whole along the sequence (and over the vocab's partial
+        # sums) before the concatenation
+        x = torch.cat([_gather_seq(img, sharder),
+                       _gather_seq(txt, sharder)], dim=1)
     else:
         x = _embed_lookup(params["embed"], inputs["tokens"], dt, sharder)
     return sharder(x, "batch", "seq", "act_embed")
 
 
-def _head(params, cfg, x, last_only: bool = False):
+def _head(params, cfg, x, sharder, last_only: bool = False):
     dt = _dt(cfg)
+    x = _gather_seq(x, sharder)
     if last_only:
         x = x[:, -1:]
     x = rmsnorm(x, params["final_norm"]).to(dt)
     if cfg.tie_embeddings:
         # contract against the (V, D) table: padded ids get logits too
-        return torch.matmul(x, params["embed"].to(dt).t()).float()
-    return torch.matmul(x, params["lm_head"].to(dt)).float()
+        return product("bsd,vd->bsv", x, params["embed"].to(dt),
+                       lambda a, w: torch.matmul(a, w.t())).float()
+    return product("bsd,dv->bsv", x, params["lm_head"].to(dt),
+                   torch.matmul).float()
 
 
 def _rope(cfg, device):
@@ -462,7 +493,7 @@ def _forward(params, cfg, inputs, sharder, collect_kv, last_only):
     else:
         raise ValueError(fam)
 
-    logits = _head(params, cfg, x, last_only=last_only)
+    logits = _head(params, cfg, x, sharder, last_only=last_only)
     return logits, collected, aux_sum
 
 
@@ -580,12 +611,12 @@ def _attn_decode_block(params, x, cache, pos, cfg, sharder, *, kind,
     return cache, x + f.to(x.dtype)
 
 
-def _ssm_decode_block(params, x, st, cfg):
+def _ssm_decode_block(params, x, st, cfg, sharder):
     h = rmsnorm(x, params["ln"])
     y, st = ssm_mod.mamba2_decode(
         params["mamba"], h, st, n_heads=cfg.ssm_heads,
         head_dim=cfg.ssm_head_dim, state=cfg.ssm_state,
-        compute_dtype=_dt(cfg))
+        compute_dtype=_dt(cfg), sharder=sharder)
     return x + y.to(x.dtype), st
 
 
@@ -638,7 +669,7 @@ def _decode_step(params, cfg, caches, token, pos, sharder):
         new = []
         for i in range(cfg.n_layers):
             x, st = _ssm_decode_block(_layer(params["blocks"], i), x,
-                                      _layer(caches["ssm"], i), cfg)
+                                      _layer(caches["ssm"], i), cfg, sharder)
             new.append(st)
         new_caches = {"ssm": _stack(new)}
 
@@ -656,13 +687,14 @@ def _decode_step(params, cfg, caches, token, pos, sharder):
             for i in range(app * period,
                            min(app * period + period, cfg.n_layers)):
                 x, st = _ssm_decode_block(_layer(params["blocks"], i), x,
-                                          _layer(caches["ssm"], i), cfg)
+                                          _layer(caches["ssm"], i), cfg,
+                                          sharder)
                 new_ssm.append(st)
         new_caches = {"ssm": _stack(new_ssm), "attn": _stack(new_attn)}
     else:
         raise ValueError(fam)
 
-    logits = _head(params, cfg, x, last_only=True)[:, 0]
+    logits = _head(params, cfg, x, sharder, last_only=True)[:, 0]
     return new_caches, logits
 
 

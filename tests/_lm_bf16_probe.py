@@ -5,6 +5,7 @@ behind step G3's conditioned consistency check in ``chip_smoke.py``.
 
     PYTHONPATH=src:tests JAX_PLATFORMS=cpu python tests/_lm_bf16_probe.py parity
     PYTHONPATH=src:tests JAX_PLATFORMS=cpu python tests/_lm_bf16_probe.py depth 2 8
+    PYTHONPATH=src:tests JAX_PLATFORMS=cpu python tests/_lm_bf16_probe.py conditioning ARCH ...
 
 ``parity``: for each smoke config and seeds 0-5, the forward logits in
 bf16 compute of the port (the reference's routing replayed), of the
@@ -17,6 +18,13 @@ f32|.  ``depth L ...``: yi-6b at full width with L layers in f32 on the
 CPU (about 1 GB per layer): decode against the full forward, with the
 seeded init and with q and k rescaled to fan-in d_model, and how a 1e-7
 relative perturbation of the embeddings grows layer by layer.
+``conditioning ARCH ...``: for each smoke config in f32 (the MoE ones
+at a capacity that drops no token), with the reference's init and with
+q and k rescaled to fan-in: how far a 1e-7 relative perturbation of the
+parameters moves the one-rank gradients (the largest change over a
+leaf's largest element), and how far the sharded gradients on a 2 x 2
+gloo world lie from the one-rank ones; the numbers behind
+``tests/test_torch_seq_parallel.py``'s per-family check.
 """
 
 import dataclasses
@@ -118,8 +126,64 @@ def depth(layers) -> None:
         del params
 
 
+def _flat_grads(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat_grads(tree[k], f"{prefix}/{k}"))
+        return out
+    return {} if tree is None else {prefix: tree}
+
+
+def conditioning(archs) -> None:
+    import tempfile
+
+    from _torch_world import World, condition_attention
+    from repro_torch.data.pipeline import DataState, make_batch
+    from repro_torch.train.step import loss_and_grads
+    with tempfile.TemporaryDirectory() as tmp:
+        world = World(4, tmp)
+        try:
+            for arch in archs:
+                base = get_config(arch, smoke=True)
+                kw = {"compute_dtype": "float32"}
+                if base.n_experts:
+                    kw["capacity_factor"] = float(base.n_experts)
+                cfg = dataclasses.replace(base, **kw)
+                batch = make_batch(cfg, 8, 64, DataState(0, 0), device="cpu")
+                for conditioned in (False, True):
+                    params = init_params(TT.lm_plan(cfg), seed=0,
+                                         device="cpu")
+                    if conditioned:
+                        condition_attention(params)
+                    grads = _flat_grads(loss_and_grads(params, cfg,
+                                                       batch)[2])
+                    g = torch.Generator().manual_seed(1)
+                    moved = _flat_grads(loss_and_grads(TT.tree_map(
+                        lambda x: x * (1 + 1e-7 * torch.randn(
+                            x.shape, generator=g)), params), cfg, batch)[2])
+                    sens = max(float((moved[k] - v).abs().max()
+                                     / v.abs().max()) for k, v in
+                               grads.items())
+                    _, _, pairs = world.run("sharded_gradients", arch, 2, 2,
+                                            kw, conditioned,
+                                            deadline=240)[0]
+                    off = max(float(np.abs(b - a).max() / np.abs(a).max())
+                              for a, b in pairs.values())
+                    init = ("q, k at fan-in" if conditioned
+                            else "reference init")
+                    print(f"{arch} smoke f32, {init}: a 1e-7 perturbation "
+                          f"moves the gradients by {sens:.3g} of a leaf's "
+                          f"largest element; sharded (2 x 2) against one "
+                          f"rank {off:.3g}", flush=True)
+        finally:
+            world.close()
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "parity":
         parity()
+    elif sys.argv[1] == "conditioning":
+        conditioning(sys.argv[2:])
     else:
         depth([int(a) for a in sys.argv[2:]])

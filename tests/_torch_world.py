@@ -408,13 +408,16 @@ def gpipe_case(workers: int, w, xs, kind: str):
 # --------------------------------------------------------------------------
 
 def _flat(tree, prefix=""):
-    """``{path: numpy}`` of a nest of dicts of tensors (DTensors whole)."""
+    """``{path: numpy}`` of a nest of dicts of tensors (DTensors whole;
+    None leaves, a gradient the loss does not reach, left out)."""
     from repro_torch.launch.mesh import DTensor
     if isinstance(tree, dict):
         out = {}
         for k in sorted(tree):
             out.update(_flat(tree[k], f"{prefix}/{k}"))
         return out
+    if tree is None:
+        return {}
     if isinstance(tree, DTensor):
         tree = tree.full_tensor()
     return {prefix: tree.detach().float().numpy().copy()}
@@ -553,11 +556,29 @@ def distributed_moe(arch: str, host: dict, x, idx, rules: dict):
 
 
 
-def sharded_gradients(arch: str, data: int, model: int, kw: dict):
+def condition_attention(params) -> None:
+    """Every q and k projection rescaled in place to the fan-in of its
+    contraction, d_model (``chip_smoke._condition_attention``): the
+    reference's init takes the fan-in from the heads, so the attention
+    is nearly an argmax and f32 rounding alone moves some configs'
+    gradients past 1e-4 of their largest element."""
+    import torch
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        for name in ("wq", "wk"):
+            w = node.get(name)
+            if isinstance(w, torch.Tensor):
+                w.mul_((w.shape[-2] / w.shape[-3]) ** 0.5)
+        stack.extend(v for v in node.values() if isinstance(v, dict))
+
+
+def sharded_gradients(arch: str, data: int, model: int, kw: dict,
+                      condition: bool = False):
     """The loss and gradients of the smoke config ``arch`` (fields ``kw``
-    replaced) on one rank and on a (data, model) mesh of this world:
-    (loss one rank, loss sharded, {leaf: (one rank, sharded)}) from
-    rank 0."""
+    replaced; q and k at fan-in with ``condition``) on one rank and on a
+    (data, model) mesh of this world: (loss one rank, loss sharded,
+    {leaf: (one rank, sharded)}) from rank 0."""
     import dataclasses
     from repro_torch.configs import arch_rules, get_config
     from repro_torch.data.pipeline import DataState, make_batch
@@ -570,6 +591,8 @@ def sharded_gradients(arch: str, data: int, model: int, kw: dict):
 
     cfg = dataclasses.replace(get_config(arch, smoke=True), **kw)
     params = init_params(T.lm_plan(cfg), seed=0, device="cpu")
+    if condition:
+        condition_attention(params)
     batch = make_batch(cfg, 8, 64, DataState(0, 0), device="cpu")
     loss1, _, g1 = loss_and_grads(params, cfg, batch)
     mesh = make_local_mesh(data, model, device="cpu")
@@ -581,6 +604,65 @@ def sharded_gradients(arch: str, data: int, model: int, kw: dict):
         loss2, _, g2 = loss_and_grads(sharded["params"], cfg, placed,
                                       sharder=sh)
     one, two = _flat(g1), _flat(g2)
+    assert one.keys() == two.keys(), sorted(one.keys() ^ two.keys())
     out = (float(loss1), float(loss2.full_tensor()),
            {k: (one[k], two[k]) for k in one})
+    return out if mesh.get_rank() == 0 else None
+
+
+def _cache_flat(tree, prefix=""):
+    """``{path: numpy}`` of a cache tree (dicts of `KVCache` or
+    `SSMState`), DTensors whole, with each leaf's placements."""
+    from repro_torch.launch.mesh import DTensor
+    from repro_torch.models.attention import KVCache
+    if isinstance(tree, KVCache):
+        tree = {"k": tree.k, "v": tree.v, "kpos": tree.kpos}
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_cache_flat(tree[k], f"{prefix}/{k}"))
+        return out
+    placed = str(tree.placements) if isinstance(tree, DTensor) else None
+    whole = tree.full_tensor() if isinstance(tree, DTensor) else tree
+    return {prefix: (whole.detach().float().numpy().copy(), placed)}
+
+
+def sharded_prefill(arch: str, data: int, model: int, kw: dict,
+                    b: int = 4, s: int = 32):
+    """The prefill of the smoke config ``arch`` (fields ``kw`` replaced)
+    on ``b`` prompts of ``s`` tokens, on one rank and on a (data, model)
+    mesh of this world under the ``prefill_32k`` rules: (rules, last
+    logits one rank, sharded, {cache leaf: (one rank, sharded, its
+    placements)}) from rank 0."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import arch_rules, get_config
+    from repro_torch.launch.mesh import (implicit_replication,
+                                         make_local_mesh)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import Sharder, init_params
+    from repro_torch.train.step import shard_params
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **kw)
+    params = init_params(T.lm_plan(cfg), seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, s)).astype(np.int32))
+    with torch.no_grad():
+        caches1, last1 = T.prefill(params, cfg, {"tokens": tokens}, s)
+        mesh = make_local_mesh(data, model, device="cpu")
+        rules = arch_rules(cfg, "prefill_32k", model_axis=model,
+                           data_axis=data)
+        sh = Sharder(rules, enabled=True, mesh=mesh)
+        with implicit_replication():
+            placed = sh.place(tokens, "batch", None)
+            caches2, last2 = T.prefill(shard_params(params, cfg, rules, mesh),
+                                       cfg, {"tokens": placed}, s,
+                                       sharder=sh)
+            one, two = _cache_flat(caches1), _cache_flat(caches2)
+            last2 = last2.full_tensor()
+    out = (rules, last1.numpy().copy(), last2.numpy().copy(),
+           {k: (one[k][0], two[k][0], two[k][1]) for k in one})
     return out if mesh.get_rank() == 0 else None

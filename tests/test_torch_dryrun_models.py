@@ -12,6 +12,8 @@ What is held how:
 | A skipped cell (an encoder has no decode step) | the reference's reason, exactly |
 | A second run | the cached record, not run again |
 | No fake backend | a non-zero exit that says why; no smaller world |
+| The multi-pod cell (yi-6b's smoke train_4k on 512 ranks, the reference's ``test_dryrun_smoke_cell_multipod``) | ``[ok]``, 512 chips, the gradient's reduction over the ``pod`` axis among the collectives |
+| A sequence-parallel prefill cell (qwen3-14b's smoke prefill_32k on 256 ranks) | ``[ok]``, the rules' ``seq`` and ``kv_seq`` over ``model``, collectives over ``model`` |
 """
 
 import _torch_threads  # noqa: F401  (one torch thread)
@@ -22,7 +24,7 @@ import sys
 
 import pytest
 
-from repro_torch.configs import get_config, skip_reason
+from repro_torch.configs import arch_rules, get_config, skip_reason
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as tmesh
 
@@ -113,3 +115,39 @@ def test_usage_errors_and_no_fake_backend(monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="no fake process-group"):
         with tmesh.fake_world(256):
             pass
+
+
+def test_multipod_smoke_cell(tmp_path):
+    """The port's twin of the reference's ``test_dryrun_smoke_cell_multipod``:
+    the 3-D (pod, data, model) mesh, its batch over two mesh dims and its
+    residual stream over the sequence."""
+    res = str(tmp_path / "res")
+    out = _dryrun("--arch", "yi-6b", "--shape", "train_4k", "--smoke",
+                  "--multi-pod", "--force", "--device", "cpu", "--results",
+                  res, timeout=120)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.splitlines()[0].startswith(
+        "[ok]     yi-6b__train_4k__multipod__smoke:")
+    rec = json.load(open(os.path.join(
+        res, "yi-6b__train_4k__multipod__smoke.json")))
+    assert rec["status"] == "ok" and rec["chips"] == 512
+    axes = {k.split("@")[1] for k in rec["collectives"]["per_chip"]}
+    assert "pod" in axes and axes <= {"pod", "data", "model"}
+
+
+def test_seq_parallel_prefill_cell(tmp_path):
+    """A prefill cell whose residual stream and KV caches shard the
+    sequence over the model axis (qwen3-14b's smoke heads do not divide
+    the 16-wide axis)."""
+    rules = arch_rules(get_config("qwen3-14b", smoke=True), "prefill_32k")
+    assert rules["seq"] == rules["kv_seq"] == "model" \
+        and rules["heads"] is None
+    res = str(tmp_path / "res")
+    out = _dryrun("--arch", "qwen3-14b", "--shape", "prefill_32k", "--smoke",
+                  "--force", "--device", "cpu", "--results", res, timeout=120)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.splitlines()[-1] == "done: ok=1 skip=0 err=0"
+    rec = json.load(open(os.path.join(
+        res, "qwen3-14b__prefill_32k__pod__smoke.json")))
+    assert rec["status"] == "ok" and rec["chips"] == 256
+    assert any(k.endswith("@model") for k in rec["collectives"]["per_chip"])
