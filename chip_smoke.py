@@ -58,11 +58,13 @@ It builds the port's CUDA kernels from the sources in the checkout
      version's, stats included; then the random (p = 8), grid (m = 2,
      p = 16, Grid Filtering on and off) and angular (m = 2, p = 8)
      strategies on the three distributions, once at the default bucket
-     factor (grid and angular overflow their skewed buckets, flagged and
-     equal to the plain version) and then with buckets sized to the
-     largest, under the sequential merge (2 + 0), NoSeq (1 + 1) and the
-     tree merge (flat on one device, 2 + 0): bit for bit the plain
-     version's and the sliced default answer, with how many angular ids
+     factor (grid and angular overflow their skewed buckets, flagged)
+     and then with buckets sized to the largest, under the sequential
+     merge (2 + 0), NoSeq (1 + 1) and the tree merge (flat on one
+     device, 2 + 0): bit for bit the sliced default answer, and the same
+     queries on the first 10^6 rows bit for bit the plain version's
+     (stats included; cut from N = 10^7 to keep the script inside its
+     time limit), with how many angular ids
      the card computes otherwise than the CPU (this and what follows in
      this step run after step 7, so that the kernel times are taken as
      in earlier runs); a sliding window of
@@ -73,7 +75,9 @@ It builds the port's CUDA kernels from the sources in the checkout
      the ring operations under set_sync_debug_mode("error"), the fused
      tick, Q = 4 windows against four single ones); and the default,
      grid and angular queries on the HOU (2,049,280 x 7) and RES
-     (3,569,678 x 7) surrogates, bit for bit the plain version's;
+     (3,569,678 x 7) surrogates, bit for bit the default answer, the
+     default query bit for bit the plain version's, grid and angular on
+     the first 2^18 rows (cut from the whole dataset, as above);
   6c. drives the serving layer (``repro_torch.serve``), after step 7's
      kernel times: E1, 64 ragged requests (N from 2^12 to 2^20, the
      three distributions, one masked) through ``submit_many``, 2 sweep
@@ -212,10 +216,11 @@ It builds the port's CUDA kernels from the sources in the checkout
      yi-6b at its published widths with 2 layers, f32 gradients card
      against CPU within 1e-2 of each leaf's norm (near-argmax attention
      at this width, see G3); R3, ``train_loop`` at
-     yi-6b's published widths cut to 4 of 32 layers (bf16 compute, f32
+     yi-6b's published widths cut to 2 of 32 layers (bf16 compute, f32
      parameters and moments, remat, 8 microbatches, batch 8 x 4,096), 4
-     steps (cut from 6, and from 8 layers since step S4 came, to keep the
-     script inside its time limit): ms a step by
+     steps (cut from 6, and from 8 layers since step S4 came and from 4
+     since step SD came, to keep the script inside its time limit): ms
+     a step by
      CUDA events, tokens/s, the model's FLOPs a step over 989.4 TFLOP/s
      dense bf16, peak device memory, losses finite and parameters moved,
      no kernel launched, the last step traced (device idle share); then
@@ -252,7 +257,21 @@ It builds the port's CUDA kernels from the sources in the checkout
      asserted, with a reduce-scatter over the model axis counted), its
      bf16 step also with q and k at fan-in (with the reference's init
      bf16's own error of the loss, 0.00734 on the H100, is above the
-     2e-3 bound: S4 prints that sharded loss, S1 the error); S2, a world
+     2e-3 bound); S4's sharded loss at the reference's init is held
+     within bf16's own error of the one-rank loss, measured in the same
+     run, beside the two packages' spreads on the CPU
+     (``tests/_lm_bf16_probe.py reference_spread``); SD, in the same
+     worlds after S4, the sharded decode: yi-6b's widths cut to 2 layers
+     under the decode_32k rules at batch 4 and mamba2-780m whole under
+     the long_500k rules at batch 1, a 512-token prefill on one rank
+     whose caches are placed as ``launch.specs.cache_specs`` places the
+     shape's, then 8 greedy decode steps on the mesh, held against the
+     one-rank decode in f32 with q and k at fan-in (logits at rtol =
+     atol = 1e-4, caches with the atol scaled by each leaf's largest
+     value; the reference's init printed beside a 1e-7 perturbation's
+     effect) and in bf16 (the logits norm-wise within bf16's own error), the
+     caches' placements kept, rank 0's collectives in a bf16 step
+     counted and its steps timed; S2, a world
      of one under NCCL whose (1, 1) mesh gives the unsharded step's state
      and loss bit for bit; S3, the dry run's cells at full width and
      depth (yi-6b train_4k and decode_32k and qwen3-14b's
@@ -283,6 +302,7 @@ repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import json
@@ -302,6 +322,9 @@ D_MAIN = 4
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 CHUNK = 1_000_000              # rows per streaming insert
+PLAIN_N = 1_000_000            # rows on which step 6's strategies are held
+                               # against the plain version
+REAL_PLAIN_N = 1 << 18         # the same for the real datasets' strategies
 SOURCE = "src/repro_torch/kernels/sfs/csrc/sfs_sweep.cu"
 REPLACES = ("src/repro/kernels/sfs/kernel.py:272, "
             "src/repro/kernels/sfs/gpu.py:95")
@@ -955,17 +978,59 @@ def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def _strategy_plain(xs, base, kernels, what, gen) -> int | None:
+    """One strategy on ``xs`` (the first rows of a dataset), card against
+    the plain version bit for bit, stats included: at the default bucket
+    factor (grid and angular), then with the buckets sized to the
+    largest under each merge of ``MERGES`` (the tree merge on one device
+    runs the flat math, so its plain version is the flat one's).
+    Returns the sized bucket capacity (None for the default factor)."""
+    from repro_torch.core import api
+    sized = base
+    if base.strategy != "random":
+        with Launches(*kernels) as run:
+            buf, stats = api.parallel_skyline(xs, cfg=base)
+        ref, rstats = api.parallel_skyline(
+            xs, cfg=dataclasses.replace(base, impl="torch"))
+        check(run.counts == (2, 0) and leaves_equal(buf, ref)
+              and stats_equal(stats, rstats), f"{what} at the default "
+              f"bucket factor on {xs.shape[0]} rows: launches {run.counts}, "
+              f"or the answer differs from impl='torch'")
+        sized = dataclasses.replace(base, bucket_capacity=_ceil_to(
+            int(stats["bucket_counts"].max()), base.block))
+    flat_ref = None
+    for mname, mfields, want in MERGES:
+        qcfg = dataclasses.replace(sized, **mfields)
+        with Launches(*kernels) as run:
+            buf, stats = api.parallel_skyline(xs, cfg=qcfg, generator=gen())
+        if mname == "tree":
+            ref, rstats = flat_ref
+        else:
+            ref, rstats = api.parallel_skyline(
+                xs, cfg=dataclasses.replace(qcfg, impl="torch"),
+                generator=gen())
+            if mname == "sequential":
+                flat_ref = ref, rstats
+        check(run.counts == want and not bool(buf.overflow)
+              and leaves_equal(buf, ref) and stats_equal(stats, rstats),
+              f"{what} {mname} on {xs.shape[0]} rows: launches "
+              f"{run.counts} (expected {want}), overflow, or a result or "
+              f"stats that differ from impl='torch'")
+    return sized.bucket_capacity
+
+
 def strategies_phase(data, oneshot, cfg, tag, kernels):
     """``parallel_skyline`` under the random, grid (Grid Filtering on and
     off) and angular strategies on every distribution at N = 10^7: once
     at the default bucket factor (grid and angular overflow their skewed
-    buckets: the flag must be set and the answer must be the plain
-    version's), then with the bucket capacity sized to the largest
-    bucket, under the sequential merge, NoSeq and the tree merge (flat on
-    one device): launches counted, bit for bit the plain version's (stats
-    included) and the sliced default answer, timed with their stages.
-    Prints how many angular ids computed on the card differ from the
-    same data's ids computed on the CPU."""
+    buckets: the flag must be set), then with the bucket capacity sized
+    to the largest bucket, under the sequential merge, NoSeq and the tree
+    merge (flat on one device): launches counted, bit for bit the sliced
+    default answer, timed with their stages.  The same queries on the
+    first ``PLAIN_N`` rows are held bit for bit against the plain version
+    (stats included): at N = 10^7 the plain version's 33 runs took about
+    290 s on an H100.  Prints how many angular ids computed on the card differ
+    from the same data's ids computed on the CPU."""
     from repro_torch.core import api, parallel, partition
 
     def gen():
@@ -979,35 +1044,31 @@ def strategies_phase(data, oneshot, cfg, tag, kernels):
               f"default query {t_def:.3f} ms best of 3 on the same data")
         for sname, fields in STRATEGIES:
             base = dataclasses.replace(cfg, **fields)
+            cap_s = _strategy_plain(x[:PLAIN_N], base, kernels,
+                                    f"{dist} {sname}", gen)
             if base.strategy == "random":
                 sized = base       # balanced: the default factor fits
             else:
                 with Launches(*kernels) as run:
                     buf, stats = api.parallel_skyline(x, cfg=base)
-                ref, rstats = api.parallel_skyline(
-                    x, cfg=dataclasses.replace(base, impl="torch"))
                 counts = stats["bucket_counts"]
                 check(bool(stats["bucket_overflow"]) and bool(buf.overflow)
-                      and run.counts == (2, 0) and leaves_equal(buf, ref)
-                      and stats_equal(stats, rstats),
+                      and run.counts == (2, 0),
                       f"{dist} {sname} at the default bucket factor: "
                       f"overflow {bool(stats['bucket_overflow'])}, launches "
-                      f"{run.counts}, or the answer differs from "
-                      f"impl='torch'")
+                      f"{run.counts}")
                 dropped = (f", grid filter dropped "
                            f"{int(stats['grid_filter_dropped'])} rows"
                            if "grid_filter_dropped" in stats else "")
                 print(f"{tag} {sname} {dist} at the default bucket factor "
                       f"(capacity {stats['bucket_counts'].shape[0]} x "
                       f"{-(-N_MAIN // counts.shape[0]) + 1}): bucket_overflow "
-                      f"set, skyline {int(buf.count)}, bitwise equal to "
-                      f"impl='torch'; bucket counts {counts.tolist()} "
-                      f"(largest share {int(counts.max()) / N_MAIN:.4f})"
-                      f"{dropped}")
+                      f"set, skyline {int(buf.count)}; bucket counts "
+                      f"{counts.tolist()} (largest share "
+                      f"{int(counts.max()) / N_MAIN:.4f}){dropped}")
                 sized = dataclasses.replace(
                     base, bucket_capacity=_ceil_to(int(counts.max()),
                                                    cfg.block))
-            flat_ref = None
             for mname, mfields, want in MERGES:
                 qcfg = dataclasses.replace(sized, **mfields)
                 with Launches(*kernels) as run:
@@ -1020,19 +1081,6 @@ def strategies_phase(data, oneshot, cfg, tag, kernels):
                 check(leaves_equal(buf, oneshot[dist]), f"{dist} {sname} "
                       f"{mname}: the result differs from the sliced default "
                       f"answer")
-                if mname == "tree":
-                    # the tree merge on one device runs the flat math: its
-                    # plain version is the flat plain version
-                    ref, rstats = flat_ref
-                else:
-                    ref, rstats = api.parallel_skyline(
-                        x, cfg=dataclasses.replace(qcfg, impl="torch"),
-                        generator=gen())
-                    if mname == "sequential":
-                        flat_ref = ref, rstats
-                check(leaves_equal(buf, ref) and stats_equal(stats, rstats),
-                      f"{dist} {sname} {mname}: result or stats differ from "
-                      f"impl='torch'")
                 e2e, runs = time_ms(lambda: api.parallel_skyline(
                     x, cfg=qcfg, generator=gen()))
                 t_part, _ = time_ms(lambda: parallel.partition_stage(
@@ -1052,8 +1100,10 @@ def strategies_phase(data, oneshot, cfg, tag, kernels):
                       f"{t_part:.3f} ms, local {t_local:.3f} ms, merge "
                       f"{t_merge:.3f} ms; union {int(stats['union_size'])}, "
                       f"skyline {int(buf.count)}; launches {run.counts}; no "
-                      f"overflow, bitwise equal to the sliced default answer "
-                      f"and to impl='torch', stats included")
+                      f"overflow, bitwise equal to the sliced default answer;"
+                      f" on the first {PLAIN_N} rows (bucket capacity "
+                      f"{cap_s or 'default'}) bitwise equal to impl='torch',"
+                      f" stats included")
         on_card = partition.angular_part_ids(x, 2)
         on_cpu = partition.angular_part_ids(x.cpu(), 2)
         differ = int((on_card.cpu() != on_cpu).sum())
@@ -2089,9 +2139,32 @@ def real_data_phase(cfg, tag, kernels):
     (2,049,280 x 7) and RES (3,569,678 x 7), as the surrogate (no CSV is
     in the repository): the default query, grid (m = 2, p = 128) and
     angular (m = 2, p = 64), buckets sized to the largest and local
-    windows to the capacity; each bit for bit the plain version's and the
-    default answer, launches counted, timed."""
+    windows to the capacity; each bit for bit the default answer,
+    launches counted, timed.  The default query is held bit for bit
+    against the plain version on the whole dataset, grid and angular on
+    its first ``REAL_PLAIN_N`` rows (buckets sized to that prefix's
+    largest): the plain grid query takes 30-60 s at the full size."""
     from repro_torch.core import api, datagen, parallel
+
+    def sized(x, mask, qcfg):
+        # one cell holds most rows of this skewed data: the bucket
+        # capacity fits it, the local windows stay at the capacity
+        _, _, st = parallel.partition_stage(x, mask, qcfg)
+        return dataclasses.replace(
+            qcfg, local_capacity=cfg.capacity,
+            bucket_capacity=_ceil_to(int(st["bucket_counts"].max()),
+                                     cfg.block))
+
+    def plain_held(x, mask, qcfg, what):
+        with Launches(*kernels) as run:
+            buf, stats = api.parallel_skyline(x, cfg=qcfg)
+        ref, rstats = api.parallel_skyline(
+            x, cfg=dataclasses.replace(qcfg, impl="torch"))
+        check(run.counts == (2, 0) and not bool(buf.overflow)
+              and leaves_equal(buf, ref) and stats_equal(stats, rstats),
+              f"{what} on {x.shape[0]} rows: launches {run.counts}, "
+              f"overflow or a result that differs from impl='torch'")
+
     for name in ("hou", "res"):
         n, d = datagen.REAL_SHAPES[name]
         t0 = time.perf_counter()
@@ -2109,21 +2182,18 @@ def real_data_phase(cfg, tag, kernels):
                                                         m=2))):
             qcfg = dataclasses.replace(cfg, **fields)
             if fields:
-                # one cell holds most rows of this skewed data: the bucket
-                # capacity fits it, the local windows stay at the capacity
-                _, _, st = parallel.partition_stage(x, mask, qcfg)
-                qcfg = dataclasses.replace(
-                    qcfg, local_capacity=cfg.capacity,
-                    bucket_capacity=_ceil_to(int(st["bucket_counts"].max()),
-                                             cfg.block))
+                xs = x[:REAL_PLAIN_N]
+                plain_held(xs, mask[:REAL_PLAIN_N], sized(
+                    xs, mask[:REAL_PLAIN_N], qcfg), f"{name} {label}")
+                qcfg = sized(x, mask, qcfg)
+                held = f"on its first {REAL_PLAIN_N} rows"
+            else:
+                plain_held(x, mask, qcfg, f"{name} {label}")
+                held = "on the whole dataset"
             with Launches(*kernels) as run:
                 buf, stats = api.parallel_skyline(x, cfg=qcfg)
-            ref, rstats = api.parallel_skyline(
-                x, cfg=dataclasses.replace(qcfg, impl="torch"))
-            check(run.counts == (2, 0) and not bool(buf.overflow)
-                  and leaves_equal(buf, ref) and stats_equal(stats, rstats),
-                  f"{name} {label}: launches {run.counts}, overflow or a "
-                  f"result that differs from impl='torch'")
+            check(run.counts == (2, 0) and not bool(buf.overflow),
+                  f"{name} {label}: launches {run.counts} or overflow")
             if default is None:
                 default = buf
             check(leaves_equal(buf, default), f"{name} {label}: the result "
@@ -2134,8 +2204,8 @@ def real_data_phase(cfg, tag, kernels):
                   f"{int(buf.count)}, largest bucket "
                   f"{int(stats['bucket_counts'].max())} of "
                   f"{stats['bucket_counts'].shape[0]}; launches "
-                  f"{run.counts}; bitwise equal to impl='torch' and the "
-                  f"default answer")
+                  f"{run.counts}; bitwise equal to the default answer, "
+                  f"and to impl='torch' {held}")
 
 
 def verify_phase(tag, kernels) -> None:
@@ -2921,7 +2991,7 @@ R_B, R_S = 4, 32                   # R1's batch (tests/test_models_smoke.py)
 R_F32_TOL = 2e-3                   # f32 gradients, norm-wise per leaf
 R_UPDATE_TOL = 1e-6                # f32 update differences counted
 R2_TOL = 1e-2                      # R2's gradients, norm-wise per leaf
-R3_LAYERS, R3_BATCH, R3_SEQ, R3_STEPS = 4, 8, 4096, 4
+R3_LAYERS, R3_BATCH, R3_SEQ, R3_STEPS = 2, 8, 4096, 4
 R3_CKPT_AT = 2
 BF16_FLOPS_PER_S = 989.4e12        # H100 SXM dense bf16 (data sheet)
 R5_SHAPE = (8, 6, 2, 16)           # L, M, B, D: tests/test_pipeline.py
@@ -3495,8 +3565,8 @@ def train_phase(tag, kernels, dev=torch.device("cuda"),
     bf16 error (|card - CPU| at most max(|CPU bf16 - CPU f32|, 1e-3
     |f32|)), MoE routing replayed.  R2, yi-6b at its published widths
     with 2 layers, f32: gradients card against CPU.  R3, ``train_loop``
-    at yi-6b's widths cut to 4 of 32 layers, bf16 compute, remat, 8
-    microbatches, batch 8 x 4,096, ``R3_STEPS`` steps: ms a step,
+    at yi-6b's widths cut to ``R3_LAYERS`` of 32 layers, bf16 compute,
+    remat, 8 microbatches, batch 8 x 4,096, ``R3_STEPS`` steps: ms a step,
     tokens/s, the FLOP bound, peak memory, the idle share of the traced
     last step, then a checkpoint at step ``R3_CKPT_AT``, a restart and
     the straight run's state.  R4,
@@ -3541,6 +3611,16 @@ S_NOISE = 1e-7                      # the conditioning probe's relative
 #                                     perturbation of the parameters
 S_DEADLINE_S = 300.0
 S4_KEYS = ("heads", "kv_heads", "head_dim", "attn_seq", "seq")
+# |sharded - one| of S4's bf16 loss at the reference's init on the CPU
+# at S4's size, the port's on a 2 x 2 gloo world and the JAX package's
+# (jitted) on four forced host devices: tests/_lm_bf16_probe.py
+# reference_spread
+S4_CPU_SPREAD = {"port": 0.00266, "reference": 0.000529}
+SD_PROMPT, SD_STEPS = 512, 8        # SD: prompt tokens, greedy steps
+SD_CASES = (("yi-6b", "decode_32k", S_LAYERS, 4),   # arch, shape rules,
+            ("mamba2-780m", "long_500k", None, 1))  # layers (None: all),
+#                                                     batch
+SD_TOL = 1e-4                       # f32 logits and caches: rtol = atol
 S3_CELLS = (("yi-6b", "train_4k", False), ("yi-6b", "decode_32k", False),
             ("qwen3-14b", "train_4k", False), ("yi-6b", "train_4k", True))
 S3_RESULTS = ROOT / "build" / "dryrun_models"
@@ -3578,7 +3658,13 @@ def _s_setup(cfg, dev, seq: int = S_SEQ):
 
 
 def _s_leaves(tree, path=""):
-    """``{path: leaf}`` of a nest of dicts, None leaves left out."""
+    """``{path: leaf}`` of a nest of dicts (a cache's ``KVCache`` and
+    ``SSMState`` as dicts of their fields), None leaves left out."""
+    from repro_torch.models.attention import KVCache
+    if isinstance(tree, KVCache):
+        tree = {"k": tree.k, "v": tree.v, "kpos": tree.kpos}
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        tree = tree._asdict()
     if isinstance(tree, dict):
         out = {}
         for k in sorted(tree):
@@ -3642,7 +3728,8 @@ def shard_rank(data: int, model: int, full_config=None,
     takes the sharded loss there (reported: with the reference's init
     bf16's own error of the loss is above the 2e-3 bound), then rescales
     q and k to fan-in (`_condition_attention`) for its checked step.
-    Then the f32 checks of `_s_f32` (``device`` None: the card)."""
+    Then the f32 checks of `_s_f32`.  SD's decode cases (`_sd`) run
+    first (``device`` None: the card)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import (SHARED_CARD_DTENSOR, DTensor,
@@ -3655,13 +3742,18 @@ def shard_rank(data: int, model: int, full_config=None,
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = (torch.device("cuda", torch.cuda.current_device())
            if device is None else torch.device(device))
+    # SD first: after S1's and S4's steps its decode ran slower (about 10
+    # s a world on the H100, the same steps in the other order)
+    sd = {case[0]: _sd(case, data, model, torch.distributed.get_rank(),
+                       dev, device, full_config or get_config)
+          for case in SD_CASES}
     cfg = _s_config(full_config or get_config)
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     opt, params, batch = _s_setup(cfg, dev)
     mesh = make_local_mesh(data, model, device=device)
     rank = torch.distributed.get_rank()
     out = {"backend": torch.distributed.get_backend(),
-           "staged": sorted(SHARED_CARD_DTENSOR), "rank": rank}
+           "staged": sorted(SHARED_CARD_DTENSOR), "rank": rank, "SD": sd}
     sets = _s_rule_sets(cfg, data, model)
     for name, rules in sets.items():
         t0 = time.perf_counter()
@@ -3719,6 +3811,203 @@ def shard_rank(data: int, model: int, full_config=None,
                             sets).items():
         out[name]["f32"] = f32
     return out
+
+
+def _sd_placements(caches) -> dict:
+    return {k: tuple(v.placements) for k, v in _s_leaves(caches).items()}
+
+
+def _sd_decode(params, cfg, caches, tokens, pos0: int, sh=None,
+               census=None, dev=None):
+    """``SD_STEPS`` decode steps of ``cfg`` from ``caches`` (a prefill's
+    caches and last logits) at positions ``pos0`` on, feeding ``tokens``
+    (each (B, 1) on the card; None: greedy, each the argmax of the last
+    logits): (tokens fed, each step's logits whole, the final
+    caches, each step's cache placements (sharded), the ms of each step
+    but the first on the host clock after a synchronize).  With a
+    sharder ``sh`` the tokens and positions are placed by its rules and
+    ``census`` counts the first step's collectives."""
+    from repro_torch.models import transformer as T
+    caches, last = caches
+    fed, logits, placed, ms = [], [], [], []
+    tok = torch.argmax(last, -1)[:, None].to(torch.int32)
+    for i in range(SD_STEPS):
+        if tokens is not None:
+            tok = tokens[i]
+        fed.append(tok)
+        pos = torch.tensor(pos0 + i, dtype=torch.int32, device=dev)
+        t, q = tok, pos
+        if sh is not None:
+            t, q = sh.place(tok, "batch", None), sh.place(pos)
+        _sync(dev)
+        t0 = time.perf_counter()
+        with (census if census is not None and i == 0
+              else contextlib.nullcontext()):
+            caches, out = T.decode_step(params, cfg, caches, t, q,
+                                        sharder=sh)
+        _sync(dev)
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if sh is not None:
+            out = out.full_tensor()
+            placed.append(_sd_placements(caches))
+        logits.append(out.float())
+        tok = torch.argmax(out, -1)[:, None].to(torch.int32)
+    return fed, logits, caches, placed, ms
+
+
+def _sd_worst(got: list, want: list) -> float:
+    """The largest |got - want| over rtol = atol = ``SD_TOL`` of want,
+    over a decode's steps."""
+    return max(float(((x - y).abs() / (SD_TOL + SD_TOL * y.abs())).max())
+               for x, y in zip(got, want))
+
+
+def _sd_caches(got: dict, want: dict | None) -> dict:
+    """The caches' largest |got - want| over rtol = atol = ``SD_TOL``
+    (``worst``, in the leaf ``leaf``) and over the same bound with the
+    atol scaled by each leaf's largest value (``scaled``, as the port's
+    tests hold caches against the reference's); each DTensor made whole
+    (every rank calls this, in the same order), ``want`` on rank 0."""
+    from repro_torch.launch.mesh import DTensor
+    out = {"worst": 0.0, "leaf": None, "scaled": 0.0}
+    for k, v in got.items():
+        whole = v.full_tensor() if isinstance(v, DTensor) else v
+        if want is None:
+            continue
+        w = want[k].to(whole.device)
+        err = (whole.float() - w).abs()
+        top = max(1.0, float(w.abs().max()))
+        r = float((err / (SD_TOL + SD_TOL * w.abs())).max())
+        if r >= out["worst"]:
+            out.update(worst=r, leaf=k)
+        out["scaled"] = max(out["scaled"], float((err / (
+            SD_TOL * top + SD_TOL * w.abs())).max()))
+    return out
+
+
+def _sd_norm(a: list, b: list) -> float:
+    return float(torch.cat([(x - y).ravel() for x, y in zip(a, b)]).norm())
+
+
+def _sd(case, data: int, model: int, rank: int, dev, device,
+        full_config) -> dict:
+    """SD in one rank of a world of ``data * model`` ranks sharing the
+    card: the sharded decode of ``case`` (arch, decode shape, layers,
+    batch) at its published widths, in three runs: f32 and bf16 compute
+    at the reference's init, then f32 with q and k at fan-in
+    (`_condition_attention`; a model with attention only, whose f32 run
+    at the reference's init is not sharded).  In each run every rank
+    prefills ``SD_PROMPT`` tokens on its own, places the prefill's
+    caches as ``launch.specs.cache_specs`` places the shape's and
+    decodes ``SD_STEPS`` steps on the (data, model) mesh under the
+    shape's rules, feeding the tokens of the first run's one-rank greedy
+    decode (every rank runs it); rank 0 runs each one-rank decode
+    beside.  Rank 0 measures the sharded f32 logits and final caches
+    against its own over rtol = atol = ``SD_TOL`` (`_sd_caches`), the
+    bf16 logits norm-wise against its own bf16 ones over bf16's own
+    error (|one rank bf16 - one rank f32|), and how far a relative perturbation of
+    ``S_NOISE`` of the parameters moves its one-rank f32 logits at the
+    reference's init, over the same bound (the conditioning: with the
+    reference's init yi-6b's attention is nearly an argmax at these
+    widths).  Every run's cache placements must stay those
+    ``cache_specs`` gave; the first bf16 step's collectives are counted
+    and the other steps timed."""
+    from repro_torch.configs import arch_rules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (distribute_tensor,
+                                         implicit_replication,
+                                         make_local_mesh)
+    from repro_torch.launch.specs import cache_specs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import Sharder, init_params
+    from repro_torch.train.step import shard_params
+    t0 = time.perf_counter()
+    arch, shape, layers, b = case
+    base = dataclasses.replace(full_config(arch), remat=False,
+                               microbatches=1)
+    if layers:
+        base = dataclasses.replace(base, n_layers=layers)
+    rng = np.random.default_rng(12)
+    prompt = torch.as_tensor(rng.integers(0, base.vocab, (
+        b, SD_PROMPT)).astype(np.int32), device=dev)
+    cache_len = SD_PROMPT + SD_STEPS
+    params = init_params(T.lm_plan(base), seed=0, device=dev)
+    mesh = make_local_mesh(data, model, device=device)
+    rules = arch_rules(base, shape, model_axis=model, data_axis=data)
+    sh = Sharder(rules, enabled=True, mesh=mesh)
+    specs = _sd_placements(cache_specs(base, shape, mesh, rules))
+    r = {"rules": {k: rules[k] for k in ("batch", "kv_seq", "heads",
+                                         "head_dim", "vocab")},
+         "params": base.param_count(), "layers": base.n_layers, "batch": b}
+    one, tokens = {}, None
+    with torch.no_grad():
+        for name, cd in (("f32", "float32"), ("bf16", "bfloat16"),
+                         ("f32 fan-in", "float32")):
+            if name == "f32 fan-in":
+                if base.family == "ssm":
+                    break
+                _condition_attention(params)
+            cfg = dataclasses.replace(base, compute_dtype=cd)
+            pre = T.prefill(params, cfg, {"tokens": prompt}, cache_len)
+            if tokens is None or rank == 0:
+                fed, one[name], caches1, _, _ = _sd_decode(
+                    params, cfg, pre, tokens, SD_PROMPT, dev=dev)
+                tokens = tokens or fed
+                want = ({k: v.float().cpu() for k, v in
+                         _s_leaves(caches1).items()}
+                        if rank == 0 else None)
+                del caches1
+            run = r[name] = {}
+            # the f32 run at the reference's init is held only for a model
+            # without attention; with attention it gives the tokens, the
+            # f32 side of bf16's own error and the conditioning below
+            if name != "f32" or base.family == "ssm":
+                census = dryrun.RankCensus(mesh) if name == "bf16" else None
+                with implicit_replication():
+                    placed = T.tree_map(
+                        lambda t, spec: distribute_tensor(
+                            t, mesh, spec.placements, src_data_rank=None),
+                        pre[0], cache_specs(base, shape, mesh, rules))
+                    _, two, caches2, after, ms = _sd_decode(
+                        shard_params(params, cfg, rules, mesh), cfg,
+                        (placed, pre[1]), tokens, SD_PROMPT, sh=sh,
+                        census=census, dev=dev)
+                del placed
+                run.update(drift=sum(p != specs for p in after),
+                           ms=sum(ms) / len(ms))
+                if cd == "float32":
+                    run["caches"] = _sd_caches(_s_leaves(caches2), want)
+                del caches2
+                if rank == 0 and cd == "float32":
+                    run["logits"] = _sd_worst(two, one[name])
+                elif rank == 0:
+                    run["bf16"] = (_sd_norm(two, one[name]),
+                                   _sd_norm(one[name], one["f32"]))
+                    run["finite"] = all(bool(torch.isfinite(x).all())
+                                        for x in two)
+                if census is not None:
+                    run["collectives"] = {k: dict(v) for k, v in
+                                          sorted(census.collectives.items())}
+            del pre
+            if rank == 0 and name == "f32":
+                # the conditioning: a perturbation of S_NOISE
+                gen = torch.Generator(device=dev).manual_seed(1)
+                moved = T.tree_map(lambda x: x * (1 + S_NOISE * torch.randn(
+                    x.shape, generator=gen, device=dev)), params)
+                _, noisy, caches3, _, _ = _sd_decode(
+                    moved, cfg, T.prefill(moved, cfg, {"tokens": prompt},
+                                          cache_len), tokens, SD_PROMPT,
+                    dev=dev)
+                run["noise"] = _sd_worst(noisy, one[name])
+                run["noise_caches"] = _sd_caches(_s_leaves(caches3), want)
+                del moved, noisy, caches3
+            _sync(dev)
+    del params, one
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    r["s"] = time.perf_counter() - t0
+    return r
 
 
 def _s_f32(data: int, model: int, rank: int, dev, device, full_config,
@@ -3822,8 +4111,9 @@ def _s1(tag, full_config, dev) -> None:
     """S1 and S4: worlds of 2 (1 x 2) and 4 (2 x 2) ranks sharing the
     card, after the conditioning probe of the f32 gradients with the
     reference's init and with q and k at fan-in; each world runs S1's
-    rules (``arch_rules``: yi-6b's heads divide the model axis) and then
-    S4's (the sequence-parallel residual stream)."""
+    rules (``arch_rules``: yi-6b's heads divide the model axis), then
+    S4's (the sequence-parallel residual stream), then SD (the sharded
+    decode of ``SD_CASES``)."""
     from repro_torch.launch.mesh import run_world
     where = None if dev.type == "cuda" else "cpu"
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3858,6 +4148,8 @@ def _s1(tag, full_config, dev) -> None:
               f"cardgloo for the card's tensors")
         for name in ("S1", "S4"):
             _s_report(tag, name, r0, data, model)
+        for arch, r in r0["SD"].items():
+            _sd_report(tag, arch, r, data, model)
         print(f"{tag} S1 and S4, {data} x {model}: "
               f"{time.perf_counter() - t0:.3f} s of the world", flush=True)
 
@@ -3879,11 +4171,15 @@ def _s_report(tag, name, r0, data, model) -> None:
     init = ("q and k at fan-in" if name == "S4" else "the reference's "
             "init")
     s1 = r0["S1"]
+    ref_diff = abs(r.get("loss_ref_init", 0.0) - s1["loss1"])
+    own = abs(s1["loss1"] - s1["loss1_f32"])
     ref = (f"; with the reference's init the sharded loss was "
-           f"{r['loss_ref_init']:.6f}, |diff| "
-           f"{abs(r['loss_ref_init'] - s1['loss1']):.3g} (not held: with "
-           f"that init bf16's own error of the one-rank loss is "
-           f"{abs(s1['loss1'] - s1['loss1_f32']):.3g})"
+           f"{r['loss_ref_init']:.6f}, |diff| {ref_diff:.3g} (bound: "
+           f"bf16's own error of the one-rank loss, {own:.3g}; on the CPU "
+           f"at this size the port's |sharded - one rank| is "
+           f"{S4_CPU_SPREAD['port']} and the JAX package's "
+           f"{S4_CPU_SPREAD['reference']}, "
+           f"tests/_lm_bf16_probe.py reference_spread)"
            if name == "S4" else "")
     print(f"{tag} {name} yi-6b widths, {S_LAYERS} layers, bf16, batch "
           f"{S_BATCH} x {S_SEQ}, {data} x {model} (data, model) mesh of "
@@ -3909,6 +4205,10 @@ def _s_report(tag, name, r0, data, model) -> None:
           f"checks {f['s']:.3f} s", flush=True)
     check(dl < S_TOL[0], f"{what}: |loss one rank - loss sharded| = {dl} "
           f">= {S_TOL[0]}")
+    if name == "S4":
+        check(ref_diff <= own, f"{what}: with the reference's init "
+              f"|loss one rank - loss sharded| = {ref_diff} > bf16's own "
+              f"error {own}")
     check(r["worst"] <= 1.0, f"{what}: a parameter after the step is "
           f"{r['worst']:.3f}x outside rtol {S_TOL[1]}, atol {S_TOL[2]} of "
           f"the one-rank step")
@@ -3927,6 +4227,66 @@ def _s_report(tag, name, r0, data, model) -> None:
                       ("params", "a parameter after the step")):
         check(f[key] <= 1.0, f"{what}: f32: {leaf} is {f[key]:.3f}x "
               f"outside its bound against the one-rank step")
+
+
+def _sd_report(tag, arch, r, data, model) -> None:
+    """Prints SD's line for one case of a world, then checks it: the f32
+    logits (elementwise) and caches (the atol scaled by each leaf's
+    largest value, as the port's tests hold caches against the
+    reference's: a cache leaf holds activations, and at mamba2-780m's
+    48 layers a relative perturbation of 1e-7 of the parameters moves
+    its elementwise distance 109 times past rtol = atol = 1e-4) with q
+    and k at fan-in (at the reference's init for a model without
+    attention: with it, such a perturbation moves yi-6b's one-rank f32
+    logits 68.9 times past their bound), the bf16 logits at the
+    reference's init, and every sharded run's cache placements."""
+    size = data * model
+    what = f"step SD: {arch}, W={size}"
+    f, h = r["f32"], r["bf16"]
+    held = r.get("f32 fan-in", f)
+    dist, own = h["bf16"]
+    worst = max(held["logits"], held["caches"]["scaled"],
+                dist / own if own else math.inf)
+    nc = f["noise_caches"]
+    colls = ", ".join(f"{k} x{v['count']} ({v['bytes']} B)"
+                      for k, v in h["collectives"].items())
+    rules = ", ".join(f"{k}={v!r}" for k, v in r["rules"].items())
+    noise = (f"a relative perturbation of {S_NOISE} of the parameters "
+             f"moves the one-rank f32 logits {f['noise']:.3f} of the bound "
+             f"and the caches {nc['worst']:.3f} ({nc['leaf']}; "
+             f"{nc['scaled']:.3f} with the atol scaled by the leaf's "
+             f"largest value)")
+    init = (f"; with the reference's init {noise} (so f32 is held with q "
+            f"and k at fan-in)" if "f32 fan-in" in r else f"; {noise}")
+    qk = " with q and k at fan-in d_model" if "f32 fan-in" in r else ""
+    print(f"{tag} SD {arch} ({r['layers']} layers, {r['params']} "
+          f"parameters), batch {r['batch']}, prompt {SD_PROMPT}, "
+          f"{SD_STEPS} greedy steps, {data} x {model} (data, model) mesh of "
+          f"{size} ranks sharing the card, rules {rules}: worst ratio to its "
+          f"bound {worst:.3f} (f32{qk}: logits {held['logits']:.3f} of "
+          f"rtol = atol = {SD_TOL}, caches {held['caches']['scaled']:.3f} "
+          f"of rtol = {SD_TOL} and atol {SD_TOL} of each leaf's largest "
+          f"value (elementwise at atol {SD_TOL}: "
+          f"{held['caches']['worst']:.3f}, {held['caches']['leaf']}); bf16 "
+          f"logits |sharded - one rank| {dist:.4g} against bf16's own error "
+          f"|bf16 - f32| {own:.4g}){init}; decode {h['ms']:.3f} ms a step "
+          f"bf16, {held['ms']:.3f} ms f32 (rank 0, host clock after a "
+          f"synchronize, steps 2-{SD_STEPS}); rank 0's collectives in a "
+          f"bf16 step: {colls or 'none'}; cache placements kept; "
+          f"{r['s']:.3f} s [one card shared by the ranks: a check of the "
+          f"schedule, not of scaling]", flush=True)
+    drift = sum(v["drift"] for k, v in r.items()
+                if isinstance(v, dict) and "drift" in v)
+    check(drift == 0, f"{what}: the caches' placements changed in {drift} "
+          f"steps")
+    check(held["logits"] <= 1.0, f"{what}: f32 logits "
+          f"{held['logits']:.3f}x outside rtol = atol = {SD_TOL} of the "
+          f"one-rank decode")
+    check(held["caches"]["scaled"] <= 1.0, f"{what}: f32 caches "
+          f"{held['caches']['scaled']:.3f}x outside rtol = {SD_TOL}, atol "
+          f"{SD_TOL} of each leaf's largest value, of the one-rank decode")
+    check(h["finite"] and dist <= own, f"{what}: bf16 logits "
+          f"|sharded - one rank| = {dist} > bf16's own error {own}")
 
 
 def _s2(tag, full_config, dev) -> None:
@@ -4061,7 +4421,9 @@ def shard_phase(tag, card, s3=None, full_config=None,
     parameters to 1e-4 (after measuring why not with the reference's
     init); S4, in the same worlds, the same checks of the
     sequence-parallel residual stream (the rules ``arch_rules`` gives
-    the 16-wide model axis when the heads do not divide it);
+    the 16-wide model axis when the heads do not divide it), its
+    reference-init loss within bf16's own error; SD, in the same worlds,
+    the sharded decode of ``SD_CASES`` against the one-rank decode;
     S2, a world of one under NCCL whose (1, 1) mesh gives the
     unsharded step bit for bit; S3, the dry run's ``S3_CELLS`` at full
     width and depth on a fake world of 256 or 512 ranks (started by the

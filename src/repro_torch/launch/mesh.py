@@ -302,15 +302,16 @@ def world_size() -> int:
 
 class World:
     """``size`` spawned ranks joined into one world through the file
-    store at ``store`` (on ``device``: see `init_world`; each collective
-    waits ``timeout`` seconds), kept until `close`.  ``run(fn, *args)``
-    calls ``fn(*args)`` in every rank (``fn`` a module-level function,
-    its arguments and result picklable) and returns the results in rank
-    order; it raises ``RuntimeError`` with the tracebacks when a rank
-    fails, and kills the world when a rank does not answer within
-    ``deadline`` seconds."""
+    store at ``store`` (on ``device``, which the caller names: None or
+    ``"cuda"`` the card, ``"cpu"`` the host, see `init_world`; each
+    collective waits ``timeout`` seconds), kept until `close`.
+    ``run(fn, *args)`` calls ``fn(*args)`` in every rank (``fn`` a
+    module-level function, its arguments and result picklable) and
+    returns the results in rank order; it raises ``RuntimeError`` with
+    the tracebacks when a rank fails, and kills the world when a rank
+    does not answer within ``deadline`` seconds."""
 
-    def __init__(self, size: int, store: str, *, device="cpu",
+    def __init__(self, size: int, store: str, *, device,
                  timeout: float = TIMEOUT_S):
         ctx = multiprocessing.get_context("spawn")
         self.size = size
@@ -382,11 +383,12 @@ def _serve_rank(rank, size, store, device, timeout, tasks, results) -> None:
     close_world()
 
 
-def run_world(fn, size: int, *args, device="cpu", deadline: float,
+def run_world(fn, size: int, *args, device, deadline: float,
               timeout: float = TIMEOUT_S) -> list:
-    """``fn(*args)`` in every rank of a `World` of ``size`` made for this
-    one run (its store in a temporary directory, removed after); each
-    rank's result, in rank order."""
+    """``fn(*args)`` in every rank of a `World` of ``size`` on ``device``
+    (named by the caller, as `World`'s) made for this one run (its store
+    in a temporary directory, removed after); each rank's result, in
+    rank order."""
     with tempfile.TemporaryDirectory() as tmp:
         world = World(size, os.path.join(tmp, "store"), device=device,
                       timeout=timeout)

@@ -610,10 +610,9 @@ def sharded_gradients(arch: str, data: int, model: int, kw: dict,
     return out if mesh.get_rank() == 0 else None
 
 
-def _cache_flat(tree, prefix=""):
-    """``{path: numpy}`` of a cache tree (dicts of `KVCache` or
-    `SSMState`), DTensors whole, with each leaf's placements."""
-    from repro_torch.launch.mesh import DTensor
+def _cache_leaves(tree, prefix="") -> dict:
+    """``{path: leaf}`` of a cache tree (dicts of `KVCache` or
+    `SSMState`)."""
     from repro_torch.models.attention import KVCache
     if isinstance(tree, KVCache):
         tree = {"k": tree.k, "v": tree.v, "kpos": tree.kpos}
@@ -622,47 +621,218 @@ def _cache_flat(tree, prefix=""):
     if isinstance(tree, dict):
         out = {}
         for k in sorted(tree):
-            out.update(_cache_flat(tree[k], f"{prefix}/{k}"))
+            out.update(_cache_leaves(tree[k], f"{prefix}/{k}"))
         return out
-    placed = str(tree.placements) if isinstance(tree, DTensor) else None
-    whole = tree.full_tensor() if isinstance(tree, DTensor) else tree
-    return {prefix: (whole.detach().float().numpy().copy(), placed)}
+    return {prefix: tree}
 
 
-def sharded_prefill(arch: str, data: int, model: int, kw: dict,
-                    b: int = 4, s: int = 32):
-    """The prefill of the smoke config ``arch`` (fields ``kw`` replaced)
-    on ``b`` prompts of ``s`` tokens, on one rank and on a (data, model)
-    mesh of this world under the ``prefill_32k`` rules: (rules, last
-    logits one rank, sharded, {cache leaf: (one rank, sharded, its
-    placements)}) from rank 0."""
+def _cache_placements(tree) -> dict:
+    """Each DTensor leaf's placements, as a string, by path."""
+    return {k: str(v.placements) for k, v in _cache_leaves(tree).items()}
+
+
+def _cache_flat(tree) -> dict:
+    """``{path: (numpy, placements or None)}`` of a cache tree, DTensors
+    whole."""
+    from repro_torch.launch.mesh import DTensor
+    out = {}
+    for k, v in _cache_leaves(tree).items():
+        placed = str(v.placements) if isinstance(v, DTensor) else None
+        whole = v.full_tensor() if isinstance(v, DTensor) else v
+        out[k] = (whole.detach().float().numpy().copy(), placed)
+    return out
+
+
+def lm_inputs(cfg, b: int, s: int, seed: int = 1) -> dict:
+    """Numpy prompt inputs of ``b`` rows and ``s`` text positions (an
+    encoder's frames; a VLM's image embeddings before its tokens)."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encoder":
+        return {"frames": rng.standard_normal(
+            (b, s, cfg.frontend_dim)).astype(np.float32)}
+    host = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.family == "vlm":
+        host["image_emb"] = rng.standard_normal(
+            (b, cfg.prefix_len, cfg.frontend_dim)).astype(np.float32)
+    return host
+
+
+def _lm_case(arch: str, kw: dict, host, b: int, s: int):
+    """(config, one-rank parameters on the CPU, torch inputs)."""
     import dataclasses
     import torch
-    from repro_torch.configs import arch_rules, get_config
-    from repro_torch.launch.mesh import (implicit_replication,
-                                         make_local_mesh)
+    from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
-    from repro_torch.models.common import Sharder, init_params
-    from repro_torch.train.step import shard_params
+    from repro_torch.models.common import init_params
 
     cfg = dataclasses.replace(get_config(arch, smoke=True), **kw)
     params = init_params(T.lm_plan(cfg), seed=0, device="cpu")
-    rng = np.random.default_rng(1)
-    tokens = torch.from_numpy(
-        rng.integers(0, cfg.vocab, (b, s)).astype(np.int32))
+    if host is None:
+        host = lm_inputs(cfg, b, s)
+    return cfg, params, {k: torch.from_numpy(v) for k, v in host.items()}
+
+
+def _place_inputs(sh, inputs: dict) -> dict:
+    return {k: sh.place(v, "batch", *(None,) * (v.ndim - 1))
+            for k, v in inputs.items()}
+
+
+def sharded_prefill(arch: str, data: int, model: int, kw: dict,
+                    b: int = 4, s: int = 32, host: dict | None = None,
+                    cache_len: int | None = None):
+    """The prefill of the smoke config ``arch`` (fields ``kw`` replaced)
+    on ``b`` prompts of ``s`` tokens (or the numpy inputs ``host``) into
+    caches of ``cache_len`` (``s``) positions, on one rank and on a
+    (data, model) mesh of this world under the ``prefill_32k`` rules:
+    (rules, last logits one rank, sharded, {cache leaf: (one rank,
+    sharded, its placements)}) from rank 0.  An encoder has no cache:
+    its whole forward's logits stand in for the last ones, as the
+    reference's dry run lowers it."""
+    import torch
+    from repro_torch.configs import arch_rules
+    from repro_torch.launch.mesh import (implicit_replication,
+                                         make_local_mesh)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import Sharder
+    from repro_torch.train.step import shard_params
+
+    cfg, params, inputs = _lm_case(arch, kw, host, b, s)
+    cache_len = cache_len or s
+    encoder = cfg.family == "encoder"
     with torch.no_grad():
-        caches1, last1 = T.prefill(params, cfg, {"tokens": tokens}, s)
+        if encoder:
+            last1, caches1 = T.forward(params, cfg, inputs)[0], {}
+        else:
+            caches1, last1 = T.prefill(params, cfg, inputs, cache_len)
         mesh = make_local_mesh(data, model, device="cpu")
         rules = arch_rules(cfg, "prefill_32k", model_axis=model,
                            data_axis=data)
         sh = Sharder(rules, enabled=True, mesh=mesh)
         with implicit_replication():
-            placed = sh.place(tokens, "batch", None)
-            caches2, last2 = T.prefill(shard_params(params, cfg, rules, mesh),
-                                       cfg, {"tokens": placed}, s,
-                                       sharder=sh)
+            placed = _place_inputs(sh, inputs)
+            sharded = shard_params(params, cfg, rules, mesh)
+            if encoder:
+                last2 = T.forward(sharded, cfg, placed, sharder=sh)[0]
+                caches2 = {}
+            else:
+                caches2, last2 = T.prefill(sharded, cfg, placed, cache_len,
+                                           sharder=sh)
             one, two = _cache_flat(caches1), _cache_flat(caches2)
             last2 = last2.full_tensor()
+    assert one.keys() == two.keys(), sorted(one.keys() ^ two.keys())
     out = (rules, last1.numpy().copy(), last2.numpy().copy(),
            {k: (one[k][0], two[k][0], two[k][1]) for k in one})
     return out if mesh.get_rank() == 0 else None
+
+
+def _greedy(params, cfg, caches, last, pos, steps: int, sharder=None,
+            tokens=None):
+    """``steps`` greedy decode steps from a prefill's caches and last
+    logits (or the given ``tokens``, (steps, B)): (tokens fed, logits of
+    each step, final caches, each step's cache placements)."""
+    import torch
+    from repro_torch.launch.mesh import DTensor
+    from repro_torch.models import transformer as T
+
+    fed, logits, placed = [], [], []
+    tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    for i in range(steps):
+        if tokens is not None:
+            tok = torch.from_numpy(tokens[i][:, None])
+        fed.append(tok[:, 0].numpy().copy())
+        p = torch.tensor(pos + i, dtype=torch.int32)
+        t = tok
+        if sharder is not None:
+            t = sharder.place(tok, "batch", None)
+            p = sharder.place(p)
+        caches, out = T.decode_step(params, cfg, caches, t, p,
+                                    sharder=sharder)
+        if isinstance(out, DTensor):
+            out = out.full_tensor()
+        logits.append(out.numpy().copy())
+        if sharder is not None:
+            placed.append(_cache_placements(caches))
+        tok = torch.argmax(out, dim=-1).to(torch.int32)[:, None]
+    return np.stack(fed), np.stack(logits), caches, placed
+
+
+def sharded_decode(arch: str, shape: str, kw: dict, host: dict,
+                   cache_len: int, steps: int):
+    """Greedy decode of the smoke config ``arch`` (fields ``kw``
+    replaced) from a one-rank prefill of the numpy inputs ``host`` into
+    caches of ``cache_len`` positions: ``steps`` steps on one rank, and
+    the same tokens on the 2 x 2 (data, model) mesh of this world under
+    the rules of the decode shape ``shape``, the prefill's caches placed
+    as ``launch.specs.cache_specs`` places that shape's: from rank 0
+    (rules, tokens fed (steps, B), logits one rank (steps, B, V),
+    sharded, {cache leaf: (one rank, sharded, placements cache_specs
+    gives)}, [{cache leaf: placements} after each sharded step])."""
+    import torch
+    from repro_torch.configs import arch_rules
+    from repro_torch.launch.mesh import (distribute_tensor,
+                                         implicit_replication,
+                                         make_local_mesh)
+    from repro_torch.launch.specs import cache_specs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import Sharder
+    from repro_torch.train.step import shard_params
+
+    cfg, params, inputs = _lm_case(arch, kw, host, 0, 0)
+    pos = host["tokens"].shape[1] + (
+        cfg.prefix_len if cfg.family == "vlm" else 0)
+    mesh = make_local_mesh(2, 2, device="cpu")
+    rules = arch_rules(cfg, shape, model_axis=2, data_axis=2)
+    sh = Sharder(rules, enabled=True, mesh=mesh)
+    with torch.no_grad():
+        caches, last = T.prefill(params, cfg, inputs, cache_len)
+        fed, logits1, caches1, _ = _greedy(params, cfg, caches, last, pos,
+                                           steps)
+        specs = cache_specs(cfg, shape, mesh, rules)
+        with implicit_replication():
+            placed = T.tree_map(
+                lambda t, spec: distribute_tensor(
+                    t, mesh, spec.placements, src_data_rank=None),
+                caches, specs)
+            _, logits2, caches2, after = _greedy(
+                shard_params(params, cfg, rules, mesh), cfg, placed, last,
+                pos, steps, sharder=sh, tokens=fed)
+            one, two = _cache_flat(caches1), _cache_flat(caches2)
+    want = _cache_placements(placed)
+    out = (rules, fed, logits1, logits2,
+           {k: (one[k][0], two[k][0], want[k]) for k in one}, after)
+    return out if mesh.get_rank() == 0 else None
+
+
+def sharded_loss(arch: str, kw: dict, rules: dict, b: int, s: int,
+                 smoke: bool = False):
+    """The loss of the config ``arch`` (fields ``kw`` replaced; its
+    published widths unless ``smoke``) at the seed-0 parameters on the
+    batch ``make_batch(cfg, b, s)``: on one rank (rank 0) and on the
+    2 x 2 (data, model) mesh of this world under ``rules``: (one rank,
+    sharded, one rank in f32 compute) from rank 0."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataState, make_batch
+    from repro_torch.launch.mesh import implicit_replication, make_local_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import Sharder, init_params
+    from repro_torch.train.step import shard_params
+
+    cfg = dataclasses.replace(get_config(arch, smoke=smoke), **kw)
+    params = init_params(T.lm_plan(cfg), seed=0, device="cpu")
+    batch = make_batch(cfg, b, s, DataState(0, 0), device="cpu")
+    mesh = make_local_mesh(2, 2, device="cpu")
+    with torch.no_grad():
+        one = f32 = None
+        if mesh.get_rank() == 0:
+            one = float(T.loss_fn(params, cfg, batch)[0])
+            f32 = float(T.loss_fn(params, dataclasses.replace(
+                cfg, compute_dtype="float32"), batch)[0])
+        sh = Sharder(rules, enabled=True, mesh=mesh)
+        with implicit_replication():
+            placed = {k: sh.place(v, "batch", None) for k, v in batch.items()}
+            two = T.loss_fn(shard_params(params, cfg, rules, mesh), cfg,
+                            placed, sharder=sh)[0]
+            two = float(two.full_tensor())
+    return (one, two, f32) if mesh.get_rank() == 0 else None

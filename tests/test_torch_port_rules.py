@@ -373,6 +373,17 @@ def test_model_entry_points_raise_without_cuda(monkeypatch):
         == "cpu"
 
 
+def test_world_harness_names_its_device(tmp_path):
+    """``launch.mesh.World`` and ``run_world`` have no default device:
+    a caller names the card or the CPU, so that no entry point runs on
+    the CPU unasked.  Both refuse before any rank is spawned."""
+    from repro_torch.launch.mesh import World, run_world
+    with pytest.raises(TypeError, match="device"):
+        World(2, str(tmp_path / "store"))
+    with pytest.raises(TypeError, match="device"):
+        run_world(print, 2, deadline=1.0)
+
+
 def test_sharding_the_models_runs_on_a_mesh_of_one():
     """An enabled ``Sharder`` constrains DTensors (and refuses a plain
     tensor); on a 1 x 1 mesh the sharded forward and the distributed MoE
