@@ -186,8 +186,24 @@ It builds the port's CUDA kernels from the sources in the checkout
      selection``) on 131,072 examples x 3 criteria from
      ``example_criteria``, one dominance launch each, bit for bit the
      same calls with impl='torch', and their times;
+  C. runs the port's example drivers (``repro_torch.examples``), after
+     step P: C1, the curation driver's loop at lm-100m's widths as the
+     example sets it (batch 4 picked from 8 candidates, seq 128, bf16
+     compute, the dominance kernel picking every batch), 100 steps (cut
+     from the example's 300 to keep the script near 900 s):
+     one dominance launch and no sweep launch a step, every step's
+     selection bit for bit ``pareto_select(..., impl='torch')`` on the
+     same criteria, every loss finite, ms a step split into the
+     candidates' forward, the selection and the train step, the first
+     and last loss, peak device memory, and whether the reference's
+     closing ``last < first`` held (printed, not checked); each step's
+     dominance call timed beside its plain version and its bound (they
+     join the dominance row of the kernel record); C2, the other four
+     examples' ``main`` once each on the card at their own sizes, the
+     distributed one on 2 ranks sharing the card, each to its end with
+     its own assertions;
   G. runs the language models (``repro_torch.models``) on the card,
-     after step P: G1, the ten smoke configs on the card against the port
+     after step C: G1, the ten smoke configs on the card against the port
      on the CPU from the same numpy parameters (forward, prefill, one
      decode step), f32 compute at 1e-4 (TF32 off), bf16 with the CPU's
      routing replayed, |card - CPU| at most |CPU bf16 - CPU f32|; G2,
@@ -287,10 +303,10 @@ It builds the port's CUDA kernels from the sources in the checkout
 
 With ``--kernels-only`` it stops after step 3 and prints no result;
 with ``--engine-only`` (``--serve-only``, ``--verify-only``,
-``--mesh-only``, ``--tuning-only``, ``--lm-only``, ``--train-only``,
-``--shard-only``) it runs the build and then the engine step 6c (the
-serve step 6d, step V, step M, steps T, L and P, step G, step R, step
-S) alone, and prints no result either.
+``--mesh-only``, ``--tuning-only``, ``--examples-only``, ``--lm-only``,
+``--train-only``, ``--shard-only``) it runs the build and then the
+engine step 6c (the serve step 6d, step V, step M, steps T, L and P,
+step C, step G, step R, step S) alone, and prints no result either.
 Steps 5 and 6 run the default config, so inserts and ring operations
 write their state in place; each timed or traced rerun works on a fresh
 copy of the state it starts from.  Step 6d holds donation on against
@@ -2667,6 +2683,140 @@ def pareto_phase(tag, kernels) -> None:
           f"{time.perf_counter() - t0:.3f} s")
 
 
+C_STEPS = 100                      # cut from the example's 300 steps:
+                                   # with 300 the script ran 944.5 s on
+                                   # an H100 80GB HBM3 at 700 W
+C_BATCH, C_SEQ = 4, 128            # the example's batch (from 2x) and seq
+C_WORLD = 2                        # ranks of the distributed example
+C_EXAMPLES = (  # module, arguments on the card
+    ("quickstart", []),
+    ("streaming_pareto", []),
+    ("serving_pareto", []),
+    ("distributed_skyline", ["--world", str(C_WORLD)]),
+)
+
+
+def curation_phase(tag, kernels, dev=torch.device("cuda")) -> dict:
+    """Step C1: the curation driver's loop
+    (`repro_torch.examples.train_skyline_curation.train`) at lm-100m's
+    widths, as the example sets it (batch 4 picked from 8 candidates,
+    seq 128, bf16 compute), `C_STEPS` steps: one dominance launch and
+    no sweep launch a step, every step's selection bit for bit
+    `pareto_select(..., impl='torch')` on the same criteria, every loss
+    finite; ms a step
+    split into the candidates' forward, the selection and the train
+    step, the first and last loss, peak device memory and whether the
+    reference's closing ``last < first`` held (printed, not checked: it
+    compares two noisy single-step losses).  Then every step's dominance
+    call is recorded again and timed, kernel and plain version, beside
+    its bound, and three more steps are traced (idle share, top device
+    operations).  Returns the step's launches and the sums of those
+    times, bytes and operations."""
+    from repro_torch.data import selection
+    from repro_torch.examples import train_skyline_curation as tc
+    from repro_torch.kernels.dominance import kernel as dkernel
+    from repro_torch.kernels.dominance import ops as dops
+
+    t0 = time.perf_counter()
+    cfg = tc.model_config(True)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    wall = time.perf_counter()
+    with Launches(*kernels) as run:
+        out = tc.train(cfg, steps=C_STEPS, batch=C_BATCH, seq=C_SEQ,
+                       device=dev)
+    wall = time.perf_counter() - wall
+    peak = torch.cuda.max_memory_allocated()
+    check(run.counts == (0, C_STEPS), f"step C1: launches {run.counts} over "
+          f"{C_STEPS} curated steps, expected (0, {C_STEPS})")
+    check(len(out.losses) == C_STEPS and all(map(math.isfinite, out.losses)),
+          "step C1: a loss is not finite")
+    for i, crit in enumerate(out.criteria):
+        idx, front = selection.pareto_select(crit, C_BATCH, device=dev,
+                                             impl="torch")
+        check(bits_equal(idx, out.indices[i])
+              and bits_equal(front, out.fronts[i]),
+              f"step C1: step {i}'s selection differs from impl='torch'")
+    first, last = out.losses[0], out.losses[-1]
+    ph = {k: v / C_STEPS for k, v in out.phase_ms.items()}
+    print(f"{tag} C1 train_skyline_curation {cfg.name} "
+          f"({cfg.param_count() / 1e6:.1f}M params, {cfg.compute_dtype}) "
+          f"{C_STEPS} steps, batch {C_BATCH} from {2 * C_BATCH} candidates, "
+          f"seq {C_SEQ}: {wall * 1e3 / C_STEPS:.3f} ms a step by the host's "
+          f"clock; by CUDA events a step: candidates' forward "
+          f"{ph['candidates']:.3f} ms, selection {ph['select']:.3f} ms, "
+          f"train step {ph['step']:.3f} ms; loss {first:.4f} -> {last:.4f}; "
+          f"the reference's closing last < first: "
+          f"{'held' if last < first else 'did not hold'} (not checked); "
+          f"peak device memory {peak} B ({peak - base} B beyond what "
+          f"was allocated before the run); launches (sweep, dominance) "
+          f"{run.counts}; every selection bitwise impl='torch''s")
+
+    rec = {"launches": run.counts[1], "ms": 0.0, "plain_ms": 0.0,
+           "bytes": 0, "ops": 0}
+    for crit in out.criteria:
+        (c, r, m, lt), = record_dominance_calls(
+            lambda: selection.pareto_select(crit, C_BATCH, device=dev))
+        got = dkernel.dominated_mask_cuda(c, r, m, lower_tri=lt)
+        want = dops.dominated_mask_torch(c, r, m, lower_tri=lt)
+        check(bits_equal(got, want), "step C1: a recorded dominance call "
+              "differs from the plain version")
+        t_k, _ = time_ms(
+            lambda: dkernel.dominated_mask_cuda(c, r, m, lower_tri=lt))
+        t_p, _ = time_ms(
+            lambda: dops.dominated_mask_torch(c, r, m, lower_tri=lt))
+        nbytes, _, compares = dom_call_cost(c, r, m, lt)
+        rec["ms"] += t_k
+        rec["plain_ms"] += t_p
+        rec["bytes"] += nbytes
+        rec["ops"] += 2 * c.shape[2] * compares
+    t_bytes = rec["bytes"] / MEM_BYTES_PER_S * 1e3
+    t_ops = rec["ops"] / F32_OPS_PER_S * 1e3
+    print(f"{tag} C1 dominated_mask calls of the {C_STEPS} steps (B=1, "
+          f"C=R={2 * C_BATCH}, d=3 each): kernel {rec['ms']:.3f} ms, plain "
+          f"{rec['plain_ms']:.3f} ms (sums of each call's best of 3), bound "
+          f"{max(t_bytes, t_ops):.6f} ms set by "
+          f"{'bytes' if t_bytes >= t_ops else 'operations'} ({rec['bytes']} "
+          f"bytes, {rec['ops']} ops)")
+    # where a curated step's time goes: the device's idle share
+    trace_call(lambda _: tc.train(cfg, steps=3, batch=C_BATCH, seq=C_SEQ,
+                                  device=dev),
+               tag, f"C1 train_skyline_curation.train, 3 steps at C1's "
+               f"shapes (initial parameters included)", lambda: None)
+    print(f"{tag} step C1 {time.perf_counter() - t0:.3f} s")
+    return rec
+
+
+def examples_phase(tag, kernels, dev=torch.device("cuda")) -> None:
+    """Step C2: the other four example drivers' ``main`` once each on the
+    card at their own sizes (`C_EXAMPLES`; the distributed one on
+    `C_WORLD` ranks sharing the card), each to its end with its own
+    assertions; their lines and the launches this process made."""
+    import importlib
+    import io
+
+    t0 = time.perf_counter()
+    cpu = ["--device", "cpu"] if dev.type == "cpu" else []
+    for name, args in C_EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        label = " ".join([name, *args])
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        try:
+            with Launches(*kernels) as run, contextlib.redirect_stdout(buf):
+                mod.main(args + cpu)
+        except Exception as e:  # noqa: BLE001 — reported, then the run fails
+            print(buf.getvalue())
+            fail(f"step C2: {label} raised "
+                 f"{type(e).__name__}: {e}")
+        for line in buf.getvalue().splitlines():
+            print(f"{tag} C2 {name}: {line}")
+        print(f"{tag} C2 {label}: ran to its end in "
+              f"{time.perf_counter() - t1:.3f} s, launches (sweep, "
+              f"dominance) in this process {run.counts}")
+    print(f"{tag} C2: {time.perf_counter() - t0:.3f} s")
+
+
 LM_B, LM_S = 2, 20                 # G1's batch and prompt
 LM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 4e-2)}
 CONSISTENCY_TOL = (3e-2, 4e-2)     # tests/test_models_smoke.py:82-91
@@ -4697,13 +4847,7 @@ def time_dominance_calls(paths, tag):
             grids = time_dom_grids(c, r, m, lt, want)
             b, n, d = c.shape
             nr = r.shape[1]
-            # the mask is read whole, a reference row's coordinates only
-            # where it is valid: a masked row sets no bit.  Shared refs
-            # (batch stride 0) are read once per row valid in some batch.
-            ref_rows = int((m.any(dim=0) if r.stride(0) == 0 else m).sum())
-            nbytes = (4 * b * n * d + b * n + 4 * d * ref_rows
-                      + nr * (1 if m.stride(0) == 0 else b))
-            compares = count_dom_compares(c, r, m, lt)
+            nbytes, ref_rows, compares = dom_call_cost(c, r, m, lt)
             ops_n = 2 * d * compares
             t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
             t_ops = ops_n / F32_OPS_PER_S * 1e3
@@ -4721,6 +4865,19 @@ def time_dominance_calls(paths, tag):
                 record["bytes"] += nbytes
                 record["ops"] += ops_n
     return record
+
+
+def dom_call_cost(c, r, m, lt) -> tuple[int, int, int]:
+    """(bytes, valid reference rows read, compares) of one dominance
+    call on these inputs.  The mask is read whole, a reference row's
+    coordinates only where it is valid: a masked row sets no bit.
+    Shared refs (batch stride 0) are read once per row valid in some
+    batch."""
+    b, n, d = c.shape
+    ref_rows = int((m.any(dim=0) if r.stride(0) == 0 else m).sum())
+    nbytes = (4 * b * n * d + b * n + 4 * d * ref_rows
+              + r.shape[1] * (1 if m.stride(0) == 0 else b))
+    return nbytes, ref_rows, count_dom_compares(c, r, m, lt)
 
 
 def time_dom_grids(c, r, m, lt, want) -> str:
@@ -4916,6 +5073,13 @@ def main() -> None:
         pareto_phase(tag, kernels)
         print(f"--tuning-only: stopped after steps T, L and P; "
               f"chip_smoke.py ran {time.perf_counter() - T_START:.3f} s")
+        return
+    if "--examples-only" in sys.argv[1:]:
+        kernels = (kernel.sfs_sweep_cuda, dkernel.dominated_mask_cuda)
+        curation_phase(tag, kernels)
+        examples_phase(tag, kernels)
+        print(f"--examples-only: stopped after step C; chip_smoke.py ran "
+              f"{time.perf_counter() - T_START:.3f} s")
         return
     if "--lm-only" in sys.argv[1:]:
         lm_phase(tag)
@@ -5140,6 +5304,10 @@ def main() -> None:
     launch_phase(tag, tuning_phase(tag, kernels, data))
     pareto_phase(tag, kernels)
     print(f"{tag} steps T, L and P: {time.perf_counter() - t_tlp:.3f} s")
+    t_c = time.perf_counter()
+    curated = curation_phase(tag, kernels)
+    examples_phase(tag, kernels)
+    print(f"{tag} step C: {time.perf_counter() - t_c:.3f} s")
     del data, oneshot
     s3 = _s3_start()        # on the host, beside steps G and R
     lm_phase(tag)
@@ -5157,14 +5325,17 @@ def main() -> None:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None}
 
+    for key in ("launches", "ms", "plain_ms", "bytes", "ops"):
+        dom[key] += curated[key]
     print(f"{tag} kernel record: sfs_sweep's launches, ms, plain_ms and "
           f"bound_ms are those of one anticorrelated N={N_MAIN} query "
           f"(local + merge calls; launches per query {launches}); "
           f"dominated_mask's are those of one anticorrelated streaming "
           f"insert (pre-filter + evict), one rep_filter='sorted' query "
-          f"(3 calls) and one noseq=True query (1 call) added; library_ms is "
-          f"null: no single PyTorch call computes an SFS sweep or a "
-          f"dominated mask")
+          f"(3 calls), one noseq=True query (1 call) and step C1's "
+          f"{curated['launches']} curated training steps (1 call each) "
+          f"added; library_ms is null: no single PyTorch call computes an "
+          f"SFS sweep or a dominated mask")
     print(f"{tag} chip_smoke.py ran {time.perf_counter() - T_START:.3f} s, "
           f"the kernels' build included")
     print(json.dumps({"kernels": [

@@ -482,3 +482,28 @@ def test_model_state_crosses_with_every_bit():
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     with pytest.raises(TypeError, match="not a cache tree node"):
         convert.caches_from_numpy({"x": 3}, device="cpu")
+
+
+EXAMPLES = ("quickstart", "distributed_skyline", "serving_pareto",
+            "streaming_pareto", "train_skyline_curation")
+
+
+def test_example_modules_are_scanned_for_jax():
+    """The import scan above covers the port's example drivers."""
+    names = {p.name for p in PORT_FILES if p.parent.name == "examples"}
+    assert {f"{n}.py" for n in EXAMPLES} <= names
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_raise_without_cuda(name, monkeypatch):
+    """Each example driver runs on the card unless given ``--device
+    cpu``; without CUDA it raises before any work (the distributed one
+    before it spawns a rank).  The curated training loop likewise."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main([])
+    if name == "train_skyline_curation":
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mod.train(mod.model_config(False), steps=1, batch=1, seq=4)
