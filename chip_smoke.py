@@ -17,15 +17,15 @@ It builds the port's CUDA kernels from the sources in the checkout
      flushes subnormals (.FTZ, from ``--ftz=true``);
   3. holds the SFS sweep kernel against its plain PyTorch version and
      the per-pair oracle, bit for bit, on the card, over ties,
-     antichains, overflow, block 2, d 2..12, -0.0, subnormal
-     coordinates, f32 score ties between dominating rows, and partitions
+     antichains, overflow, block 2, d 2..12 (wider d in step W), -0.0,
+     subnormal coordinates, f32 score ties between dominating rows, and partitions
      longer than the kernel's prefix (overflow in each of its last
      stage's two branches, an antichain its filter cannot thin, an
      all-masked partition), through the entry and through its three
      grids at prefixes of 0, 1 and 3 blocks; and the dominance kernel
      against its plain version and the O(C x R) oracle over the shapes
-     of the JAX package's tests, lower_tri, all-masked refs, d 1..12,
-     ties, -0.0, duplicates, subnormals, a batch axis with shared and
+     of the JAX package's tests, lower_tri, all-masked refs, d 1..12
+     (wider d in step W), ties, -0.0, duplicates, subnormals, a batch axis with shared and
      per-batch refs, bf16 input, references past one tile (compacted on
      the card: a long masked tail, masks scattered per batch over shared
      references with an empty batch, R at the small-R threshold and one
@@ -139,6 +139,30 @@ It builds the port's CUDA kernels from the sources in the checkout
      data);
      runs one pre-filter call under torch.cuda.set_sync_debug_mode
      ("error"), so that a host sync in the entry fails the run;
+  W. runs both kernels at wide attribute counts (their wide variants,
+     which take d at run time past d = 12), after step 7: W1, the sweep
+     at d = 13, 16, 20, 24, 32, 64 and 128 and the dominance test also
+     at d = 256, bit for bit their plain versions and the per-pair /
+     O(C x R) oracles, through the entry and their grids (ties, an
+     antichain overflowing past the prefix, -0.0, subnormals, score
+     ties, graded rows past the prefix, both branches of the last grid,
+     an all-masked partition; the direct and compacted forms, a masked
+     tail, lower_tri over several tiles, a batch with shared references,
+     an all-masked batch), each wide law against the built kernel's
+     numbers, ptxas's registers and spills of each wide kernel, and
+     ``check_args`` refusing past the law; W2, ``parallel_skyline`` at
+     the default config on correlated data at N = 10^5, d = 16,
+     uniform at N = 30,000, d = 16 and correlated at N = 50,000, d = 32
+     (cut from 10^7, 10^6 and 10^6: the skylines hold 15-90% of the
+     rows, and the last grid of the merge's sweep runs on one SM), each
+     at the smallest power-of-two capacity that holds the skyline and
+     the union, 2 sweep launches, bit for bit the plain version's, its
+     membership held by the wide dominance kernel; W3, ten inserts of
+     3,000 of W2's uniform rows into a live state at d = 16, 2 + 2
+     launches each, every snapshot the plain version's, the last W2's
+     one-shot answer; W4, every query and insert timed, each sweep call
+     (with its grids) and dominance call beside its plain version and
+     its bound;
   V. runs the program verifier (``repro_torch.analysis.verifier``) on
      the card, after the serve step: first which of the census's host
      operations raise under set_sync_debug_mode("error") on this card,
@@ -304,9 +328,11 @@ It builds the port's CUDA kernels from the sources in the checkout
 With ``--kernels-only`` it stops after step 3 and prints no result;
 with ``--engine-only`` (``--serve-only``, ``--verify-only``,
 ``--mesh-only``, ``--tuning-only``, ``--examples-only``, ``--lm-only``,
-``--train-only``, ``--shard-only``) it runs the build and then the
-engine step 6c (the serve step 6d, step V, step M, steps T, L and P,
-step C, step G, step R, step S) alone, and prints no result either.
+``--train-only``, ``--shard-only``, ``--wide-only``) it runs the build
+and then the engine step 6c (the serve step 6d, step V, step M, steps
+T, L and P, step C, step G, step R, step S, step W with the d = 4
+query and its sweep calls timed beside it) alone, and prints no result
+either.
 Steps 5 and 6 run the default config, so inserts and ring operations
 write their state in place; each timed or traced rerun works on a fresh
 copy of the state it starts from.  Step 6d holds donation on against
@@ -337,6 +363,9 @@ N_MAIN = 10_000_000
 D_MAIN = 4
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+CMP_PER_S = F32_OPS_PER_S / 2  # f32 instructions a second: the data
+                               # sheet counts an FMA as two operations,
+                               # a compare issues as one instruction
 CHUNK = 1_000_000              # rows per streaming insert
 PLAIN_N = 1_000_000            # rows on which step 6's strategies are held
                                # against the plain version
@@ -424,22 +453,26 @@ def time_ms(fn, reps: int = 3, fresh=None):
 
 def ptxas_report(log: str) -> dict:
     """Registers, static shared memory and spills per (kernel, D)
-    instantiation, from the compiler's ``-Xptxas -v`` report."""
+    instantiation, from the compiler's ``-Xptxas -v`` report; D is 0 for
+    a wide kernel, which takes d at run time."""
     entry = None
     props = {}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            km = re.search(r"([a-z_]+_kernel)ILi(\d+)E((?:Lb[01]E)*)",
-                           m.group(1))
+            km = (re.search(r"([a-z_]+_kernel)ILi(\d+)E((?:Lb[01]E)*)",
+                            m.group(1))
+                  or re.search(r"([a-z_]+_wide_kernel)()(?:I((?:Lb[01]E)*)E)?",
+                               m.group(1)))
             entry = None
             if km:
                 name = km.group(1)
-                flags = re.findall(r"Lb([01])E", km.group(3))
-                if name == "dominance_walk_kernel":   # <D, lower_tri, ring>
+                flags = re.findall(r"Lb([01])E", km.group(3) or "")
+                # <D, lower_tri, ring>, or <lower_tri, ring> when wide
+                if name.startswith("dominance_walk"):
                     name += (f"<{'ring' if flags[1] == '1' else 'direct'}"
                              f"{', lower_tri' if flags[0] == '1' else ''}>")
-                entry = (name, int(km.group(2)))
+                entry = (name, int(km.group(2) or 0))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and entry is not None:
@@ -503,10 +536,13 @@ def case_data(dev, kind, p, n, d, seed):
         x = torch.randint(0, 5, (p, n, d), generator=g, device=dev) / 5
     elif kind == "simplex":
         x = simplex()
-    elif kind == "negzero":
+    elif kind == "negzero":        # the pattern's two columns repeated
         x = torch.tensor([[[-0.0, 0.5], [0.25, 0.25], [0.5, -0.0],
                            [0.75, -1.0], [1.0, 1.0], [0.125, 0.625]]],
-                         device=dev).expand(p, n, d).contiguous()
+                         device=dev).repeat(1, 1, -(-d // 2))[..., :d]
+        x = x.expand(p, n, d).contiguous()
+    elif kind == "graded":         # rows dominate one another at any d
+        x = torch.round((rand(p, n, 1) + 0.25 * rand(p, n, d)) * 16) / 16
     elif kind == "scoretie":       # f32 scores tie between dominating rows
         x = torch.randint(0, 6, (p, n, d), generator=g, device=dev).float()
         x[..., 0] += 1e8
@@ -2765,19 +2801,17 @@ def curation_phase(tag, kernels, dev=torch.device("cuda")) -> dict:
             lambda: dkernel.dominated_mask_cuda(c, r, m, lower_tri=lt))
         t_p, _ = time_ms(
             lambda: dops.dominated_mask_torch(c, r, m, lower_tri=lt))
-        nbytes, _, compares = dom_call_cost(c, r, m, lt)
+        row = dom_row(c, r, m, lt)
         rec["ms"] += t_k
         rec["plain_ms"] += t_p
-        rec["bytes"] += nbytes
-        rec["ops"] += 2 * c.shape[2] * compares
-    t_bytes = rec["bytes"] / MEM_BYTES_PER_S * 1e3
-    t_ops = rec["ops"] / F32_OPS_PER_S * 1e3
+        rec["bytes"] += row["bytes"]
+        rec["ops"] += row["ops"]
+    row = bound_row(rec["bytes"], rec["ops"])
     print(f"{tag} C1 dominated_mask calls of the {C_STEPS} steps (B=1, "
           f"C=R={2 * C_BATCH}, d=3 each): kernel {rec['ms']:.3f} ms, plain "
           f"{rec['plain_ms']:.3f} ms (sums of each call's best of 3), bound "
-          f"{max(t_bytes, t_ops):.6f} ms set by "
-          f"{'bytes' if t_bytes >= t_ops else 'operations'} ({rec['bytes']} "
-          f"bytes, {rec['ops']} ops)")
+          f"{row['bound_ms']:.6f} ms set by {row['bound_by']} ({rec['bytes']} "
+          f"bytes, {rec['ops']} coordinates compared)")
     # where a curated step's time goes: the device's idle share
     trace_call(lambda _: tc.train(cfg, steps=3, batch=C_BATCH, seq=C_SEQ,
                                   device=dev),
@@ -4846,38 +4880,32 @@ def time_dominance_calls(paths, tag):
                 reps=1)
             grids = time_dom_grids(c, r, m, lt, want)
             b, n, d = c.shape
-            nr = r.shape[1]
-            nbytes, ref_rows, compares = dom_call_cost(c, r, m, lt)
-            ops_n = 2 * d * compares
-            t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-            t_ops = ops_n / F32_OPS_PER_S * 1e3
-            bound = max(t_bytes, t_ops)
+            row = dom_row(c, r, m, lt)
             print(f"{tag} dominated_mask {name} call ({dist} {path}: B={b}, "
-                  f"C={n}, R={nr}, d={d}, {ref_rows} valid ref rows "
-                  f"read, lower_tri={lt}): kernel {t_k:.3f} ms, "
-                  f"plain {t_p:.3f} ms, bound {bound:.6f} ms set by "
-                  f"{'bytes' if t_bytes >= t_ops else 'operations'} "
-                  f"({nbytes} bytes -> {t_bytes:.6f} ms; {compares} compares "
-                  f"x 2d = {ops_n} ops -> {t_ops:.6f} ms); {grids}")
+                  f"C={n}, R={r.shape[1]}, d={d}, {row['ref_rows']} valid "
+                  f"ref rows read, lower_tri={lt}): kernel {t_k:.3f} ms, "
+                  f"plain {t_p:.3f} ms, {bound_text(row)}; {grids}")
             if dist == "anticorrelated":
                 record["ms"] += t_k
                 record["plain_ms"] += t_p
-                record["bytes"] += nbytes
-                record["ops"] += ops_n
+                record["bytes"] += row["bytes"]
+                record["ops"] += row["ops"]
     return record
 
 
-def dom_call_cost(c, r, m, lt) -> tuple[int, int, int]:
-    """(bytes, valid reference rows read, compares) of one dominance
-    call on these inputs.  The mask is read whole, a reference row's
-    coordinates only where it is valid: a masked row sets no bit.
-    Shared refs (batch stride 0) are read once per row valid in some
-    batch."""
+def dom_row(c, r, m, lt) -> dict:
+    """The bound of one dominance call on these inputs, with its bytes,
+    compares, coordinates compared and valid reference rows read.  The
+    mask is read whole, a reference row's coordinates only where it is
+    valid: a masked row sets no bit.  Shared refs (batch stride 0) are
+    read once per row valid in some batch."""
     b, n, d = c.shape
     ref_rows = int((m.any(dim=0) if r.stride(0) == 0 else m).sum())
     nbytes = (4 * b * n * d + b * n + 4 * d * ref_rows
               + r.shape[1] * (1 if m.stride(0) == 0 else b))
-    return nbytes, ref_rows, count_dom_compares(c, r, m, lt)
+    compares, coords = count_dom_compares(c, r, m, lt)
+    return dict(bound_row(nbytes, coords), compares=compares,
+                ref_rows=ref_rows)
 
 
 def time_dom_grids(c, r, m, lt, want) -> str:
@@ -4970,8 +4998,10 @@ def print_trace(prof, tag: str, label: str) -> None:
               f"({tot / window:.4f} of the window): {name[:160]}")
 
 
-def count_dom_compares(cands, refs, ref_mask, lower_tri: bool) -> int:
-    """The compares the dominance test needs on these inputs: for every
+def count_dom_compares(cands, refs, ref_mask,
+                       lower_tri: bool) -> tuple[int, int]:
+    """The compares the dominance test needs on these inputs, and the
+    coordinates they compare (:func:`coords_needed`): for every
     candidate, the valid references (with j < i under lower_tri) up to
     and including its first dominator, or all of them when none
     dominates it.  Blocked as the plain version is; the main path never
@@ -4980,7 +5010,7 @@ def count_dom_compares(cands, refs, ref_mask, lower_tri: bool) -> int:
     b, c, d = cands.shape
     r = refs.shape[1]
     if c == 0 or r == 0:
-        return 0
+        return 0, 0
     dev = cands.device
     valid = torch.cat([torch.zeros((b, 1), dtype=torch.int64, device=dev),
                        torch.cumsum(ref_mask.to(torch.int64), dim=1)], 1)
@@ -4989,6 +5019,7 @@ def count_dom_compares(cands, refs, ref_mask, lower_tri: bool) -> int:
     r_end = dops._last_valid_row(ref_mask)
     rb = dops._REF_BLOCK
     cb = max(1, dops._PAIR_BUDGET // (b * rb))
+    coords = torch.zeros((), dtype=torch.int64, device=dev)
     for c0 in range(0, c, cb):
         c1 = min(c0 + cb, c)
         x = cands[:, c0:c1, None, :]
@@ -5001,13 +5032,17 @@ def count_dom_compares(cands, refs, ref_mask, lower_tri: bool) -> int:
             for k in range(1, d):
                 le &= y[..., k] <= x[..., k]
                 lt |= y[..., k] < x[..., k]
-            dom = le & lt & ref_mask[:, None, r0:r1]
+            valid_j = ref_mask[:, None, r0:r1]
+            j = torch.arange(r0, r1, device=dev)
             if lower_tri:
-                j = torch.arange(r0, r1, device=dev)
                 i = torch.arange(c0, c1, device=dev)
-                dom &= j[None, :] < i[:, None]
+                valid_j = valid_j & (j[None, :] < i[:, None])
+            dom = le & lt & valid_j
             idx = dom.to(torch.uint8).argmax(dim=-1) + r0
             f.copy_(torch.where(dom.any(dim=-1) & (f == r), idx, f))
+            # the pairs of this block that the count below takes
+            need = valid_j & (j <= f[..., None])
+            coords += (coords_needed(y, x) * need).sum()
     found = first < r
     upto = valid.gather(1, torch.where(found, first + 1, 0))
     if lower_tri:
@@ -5015,7 +5050,7 @@ def count_dom_compares(cands, refs, ref_mask, lower_tri: bool) -> int:
         none = valid.gather(1, limit)
     else:
         none = valid[:, r:].expand(b, c)
-    return int(torch.where(found, upto, none).sum())
+    return int(torch.where(found, upto, none).sum()), int(coords)
 
 
 T_START = time.perf_counter()
@@ -5059,6 +5094,8 @@ def main() -> None:
         check(bool(props), f"no -Xptxas -v report in the {lib} build log")
         for name, d_inst in sorted(props):
             p = props[name, d_inst]
+            if d_inst == 0:            # the wide variant: its laws in W1
+                continue
             law = ("; " + smem_law(kernel, name, d_inst)
                    if lib == "sfs_sweep"
                    else dom_smem_law(dkernel, name, d_inst))
@@ -5067,6 +5104,13 @@ def main() -> None:
     print(f"{tag} {sass_ftz_report(libs)}")
 
     # a quicker run: the build, then the engine step or the serve step
+    if "--wide-only" in sys.argv[1:]:
+        gen = torch.Generator(device=dev).manual_seed(1002)
+        wide_phase(tag, (kernel.sfs_sweep_cuda, dkernel.dominated_mask_cuda),
+                   d4=datagen.generate("anticorrelated", gen, N_MAIN, D_MAIN))
+        print(f"--wide-only: stopped after step W; chip_smoke.py ran "
+              f"{time.perf_counter() - T_START:.3f} s")
+        return
     if "--tuning-only" in sys.argv[1:]:
         kernels = (kernel.sfs_sweep_cuda, dkernel.dominated_mask_cuda)
         launch_phase(tag, tuning_phase(tag, kernels))
@@ -5271,24 +5315,19 @@ def main() -> None:
                 print(f"{tag} sfs_sweep {call} call ({dist}) "
                       f"{time_stages(pts_p, mask_p, kw, pre, got)}")
             p, npad, d = pts_p.shape
-            nbytes = p * npad * (4 * d + 1) + p * wcap * (4 * d + 1) + 4 * p
-            compares = count_compares(pts_p, mask_p, blk, wcap)
-            ops_n = 2 * d * compares
-            t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-            t_ops = ops_n / F32_OPS_PER_S * 1e3
-            bound = max(t_bytes, t_ops)
+            row = sweep_row(pts_p, mask_p, kw)
             print(f"{tag} sfs_sweep {call} call ({dist} N={N_MAIN}: P={p}, "
                   f"npad={npad}, d={d}, block={blk}, wcap={wcap}): kernel "
-                  f"{t_k:.3f} ms, plain {t_p:.3f} ms, bound {bound:.6f} ms "
-                  f"set by {'bytes' if t_bytes >= t_ops else 'operations'} "
-                  f"({nbytes} bytes -> {t_bytes:.6f} ms; {compares} "
-                  f"compares x 2d = {ops_n} ops -> {t_ops:.6f} ms)")
+                  f"{t_k:.3f} ms, plain {t_p:.3f} ms, {bound_text(row)}")
             if dist == "anticorrelated":
                 record["ms"] += t_k
                 record["plain_ms"] += t_p
-                record["bytes"] += nbytes
-                record["ops"] += ops_n
+                record["bytes"] += row["bytes"]
+                record["ops"] += row["ops"]
     dom = time_dominance_calls(dom_paths, tag)
+
+    # -- W. wide attribute counts, after the d = 4 kernel times above -------
+    wide_phase(tag, kernels)
 
     # -- 6b. the other strategies, windows and the real datasets, after the
     # kernel times above, so that those are taken as in earlier runs
@@ -5316,14 +5355,12 @@ def main() -> None:
 
     # -- 8. the kernel record and the device line ----------------------------
     def entry(name, route, source, replaces, launches_n, err, rec):
-        t_bytes = rec["bytes"] / MEM_BYTES_PER_S * 1e3
-        t_ops = rec["ops"] / F32_OPS_PER_S * 1e3
+        row = bound_row(rec["bytes"], rec["ops"])
         return {"name": name, "route": route, "source": source,
                 "replaces": replaces, "launches": launches_n,
                 "max_abs_err": err, "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"], "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None}
+                "plain_ms": rec["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None}
 
     for key in ("launches", "ms", "plain_ms", "bytes", "ops"):
         dom[key] += curated[key]
@@ -5345,6 +5382,448 @@ def main() -> None:
               dom["launches"], dom_err, dom)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu, "count": torch.cuda.device_count()}}))
+
+
+# -- step W: wide attribute counts (d > 12) --------------------------------
+
+W_DS = (13, 16, 20, 24, 32, 64, 128)       # both kernels, step W1
+W_DOM_DS = W_DS + (256,)                   # the dominance kernel also here
+# per d, the sweep cases beyond the two every d runs (graded rows past the
+# prefix, packed; an antichain past the prefix at capacity << n, which C
+# keeps in its original blocks): the kinds of SWEEP_CASES, spread over d.
+# Blocks of 128 and more: the per-pair oracle's time grows with the
+# number of block pairs
+W_SWEEP_EXTRA = {
+    13: (("ties", 2, 1000, 1000, 256), ("negzero", 1, 6, 6, 2)),
+    16: (("denormal", 2, 2000, 2000, 128), ("masked", 3, 5000, 5000, 256)),
+    20: (("scoretie", 2, 5000, 5000, 256), ("mixed", 2, 5000, 512, 256)),
+    24: (("negzero", 1, 6, 6, 2), ("simplex", 2, 3000, 4096, 512)),
+    32: (("masked", 3, 5000, 5000, 256), ("ties", 2, 1000, 1000, 256)),
+    64: (("scoretie", 2, 5000, 5000, 512), ("denormal", 2, 2000, 2000, 128)),
+    128: (("mixed", 2, 5000, 512, 256), ("masked", 3, 5000, 5000, 256)),
+}
+# W2's cells, cut from the sizes a user would ask for (correlated d = 16
+# at 10^7, uniform d = 16 at 10^6, correlated d = 32 at 10^6) to what
+# fits step W's 90 s: their skylines hold 15-90% of the rows, and the
+# merge sweep's last grid, one CTA on one SM, takes O(rows x skyline)
+# (the correlated 10^7 cell did not end in 900 s)
+W2_CELLS = (("correlated", 16, 200_000), ("uniform", 16, 36_000),
+            ("correlated", 32, 70_000))
+# W3: ten inserts of W2's uniform rows (cut from 10^5 rows an insert)
+W3_D, W3_ROWS, W3_INSERTS = 16, 3_600, 10
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (max(n, 1) - 1).bit_length())
+
+
+def wide_sweep_cases(dev, tag) -> float:
+    """W1, the sweep kernel at each d of W_DS against its plain version and
+    the per-pair oracle, through the entry and through its grids at
+    prefixes of 0, 1 and 3 blocks; both branches of stage C and an
+    all-masked partition.  Returns the largest |difference|."""
+    from repro_torch.core import sfs
+    from repro_torch.core.dominance import SENTINEL
+    from repro_torch.kernels.sfs import kernel, ops
+    err = 0.0
+    branches = set()
+    for d in W_DS:
+        cases = (("graded", 2, 5000, 5000, 256),
+                 ("simplex", 2, 5000, 128, 128)) + W_SWEEP_EXTRA[d]
+        for i, (kind, p, n, cap, blk) in enumerate(cases):
+            x, mask = case_data(dev, kind, p, n, d, seed=100 * d + i)
+            pts_p, mask_p, blk_e, wcap = sfs.sweep_inputs(
+                x, mask, capacity=cap, block=blk)
+            kw = dict(block=blk_e, wcap=wcap, sentinel=SENTINEL)
+            name = f"{kind} P={p} n={n} d={d} capacity={cap} block={blk}"
+            t0 = time.perf_counter()
+            got = ops.sfs_sweep(pts_p, mask_p, spec="cuda", **kw)
+            torch.cuda.synchronize()
+            want = ops.sfs_sweep(pts_p, mask_p, spec="torch", **kw)
+            t1 = time.perf_counter()
+            oracle = ops.sfs_sweep(pts_p, mask_p, spec="perpair", **kw)
+            t_oracle = time.perf_counter() - t1
+            err = max(err, abs_err(got[0], want[0]))
+            check(leaves_equal(got, want),
+                  f"W1: kernel differs from the plain version on {name}")
+            check(leaves_equal(want, oracle),
+                  f"W1: plain version differs from perpair on {name}")
+            if kind == "negzero":
+                check(bool(torch.signbit(got[0][got[1]]).any()),
+                      f"W1: -0.0 member lost its sign on {name}")
+            staged, info = kernel.sweep_stages(pts_p, mask_p, **kw)
+            check(leaves_equal(staged, want),
+                  f"W1: the timed stages differ on {name}")
+            for pre in (0, blk_e, 3 * blk_e):
+                out, _ = kernel.sweep_stages(pts_p, mask_p, prefix=pre, **kw)
+                check(leaves_equal(out, want), f"W1: the kernel with a "
+                      f"prefix of {pre} rows differs on {name}")
+            branch = info["packed"]
+            branches.update(b for b in branch if b is not None)
+            if n > kernel.PREFIX_ROWS:
+                check(None not in branch, f"W1 {name}: B and C did not run")
+            if kind == "simplex" and cap < n:
+                check(not any(branch), f"W1 {name}: C packed under overflow")
+            if kind == "masked":
+                check(info["c_a"][p // 2] == 0
+                      and info["survivors"][p // 2] == 0,
+                      f"W1 {name}: the all-masked partition kept rows")
+            print(f"{tag} W1 sweep {name}: bitwise equal to the plain "
+                  f"version and perpair, also at prefixes 0, {blk_e} and "
+                  f"{3 * blk_e} rows (counts {got[2].tolist()}; c_A "
+                  f"{info['c_a']}, survivors {info['survivors']}, C packed "
+                  f"{branch}; {time.perf_counter() - t0:.3f} s, perpair "
+                  f"{t_oracle:.3f} s)")
+    check(branches == {True, False}, f"W1: stage C took only {branches}")
+    return err
+
+
+def wide_dominance_cases(dev, tag) -> float:
+    """W1, the dominance kernel at each d of W_DOM_DS against its plain
+    version and the O(C x R) oracle, through the entry and its grids:
+    the direct form, the compacted form with a masked tail, lower_tri over
+    several tiles, a batch axis with shared references and per-batch
+    masks, an all-masked batch.  Returns the largest |difference|."""
+    from repro_torch.kernels.dominance import kernel as dkernel
+    from repro_torch.kernels.dominance import ops as dops
+    from repro_torch.kernels.dominance.ref import dominated_mask_ref
+    g = torch.Generator(device=dev).manual_seed(2801)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def pts(*shape):
+        """Half graded rows (a per-row level plus quantised noise, so
+        that rows dominate one another at any d), half three-level ties;
+        -0.0 salted in."""
+        base = rand(*shape[:-1], 1)
+        x = torch.round((base + 0.25 * rand(*shape)) * 16) / 16
+        ties = torch.randint(0, 3, shape, generator=g, device=dev) / 3
+        x = torch.where(rand(*shape[:-1], 1) < 0.5, x, ties)
+        x[rand(*shape) < 0.05] = -0.0
+        return x.float()
+
+    err = 0.0
+    for d in W_DOM_DS:
+        t = dkernel.tile_rows(d)
+        x = pts(1000, d)
+        tail = rand(2000) > 0.3
+        tail[1200:] = False                     # a compacted masked tail
+        m4 = rand(4, 1200) > 0.4
+        m4[2] = False                           # an all-masked batch
+        cases = [
+            (f"direct R={t}", x, pts(t, d), rand(t) > 0.3, False),
+            ("compacted R=2000, masked tail", x, pts(2000, d), tail, False),
+            ("lower_tri C=R=1500", pts(1500, d), None, rand(1500) > 0.2,
+             True),
+            ("B=4 shared refs, per-batch masks", pts(4, 800, d),
+             pts(1200, d).expand(4, 1200, d), m4, False),
+            ("B=2 lower_tri", pts(2, 1000, d), None, rand(2, 1000) > 0.3,
+             True),
+        ]
+        for name, c, r, m, lt in cases:
+            r = c if r is None else r
+            name = f"{name} d={d} (tiles of {t} rows)"
+            got = dops.dominated_mask(c, r, m, lower_tri=lt, impl="cuda")
+            torch.cuda.synchronize()
+            want = dops.dominated_mask(c, r, m, lower_tri=lt, impl="torch")
+            err = max(err, abs_err(got.int(), want.int()))
+            check(bits_equal(got, want),
+                  f"W1: dominance kernel differs from the plain version: "
+                  f"{name}")
+            cb, rb = (c, r) if c.ndim == 3 else (c[None], r[None])
+            mb = (m if m.ndim == 2 else m[None]).expand(cb.shape[0], -1)
+            rb = rb.expand(cb.shape[0], -1, -1)
+            staged, info = dkernel.dominance_stages(cb.contiguous(), rb, mb,
+                                                    lower_tri=lt)
+            check(bits_equal(staged.reshape(got.shape), got),
+                  f"W1: dominance grids differ from the entry: {name}")
+            check(info["compacted"] == dkernel.compacts(rb.shape[1], d),
+                  f"W1 {name}: grid 1 ran {info['compacted']}")
+            ref = torch.stack([dominated_mask_ref(ci, ri, mi, lower_tri=lt)
+                               for ci, ri, mi in zip(cb, rb, mb)])
+            check(bits_equal(got.reshape(ref.shape), ref),
+                  f"W1: dominance kernel differs from the oracle: {name}")
+            if m.ndim == 2 and not bool(m[2 % m.shape[0]].any()):
+                check(not bool(got[2].any()), f"W1 {name}: the all-masked "
+                      f"batch dominated a candidate")
+            print(f"{tag} W1 dominated_mask {name}: bitwise equal to the "
+                  f"plain version and the oracle, grid 1 ran "
+                  f"{info['compacted']} ({int(got.sum())} of {got.numel()} "
+                  f"dominated)")
+    return err
+
+
+def wide_laws(tag) -> None:
+    """W1, each wide law against the built kernel's numbers, the ptxas
+    report of each wide instantiation, and check_args refusing past the
+    law."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dominance import kernel as dkernel
+    from repro_torch.kernels.sfs import kernel
+    for lib in ("sfs_sweep", "dominated_mask"):
+        props = ptxas_report(build.build_log(lib))
+        wide = sorted(k for k in props if k[1] == 0)
+        check(bool(wide), f"W1: no wide instantiation in the {lib} report")
+        for name, _ in wide:
+            p = props[name, 0]
+            print(f"{tag} W1 ptxas {name} (d > {kernel.NARROW_D}, at run "
+                  f"time): {p.get('used', '?')}, {p.get('spills', '?')}")
+    for d in W_DS + (89, 169, 1480):
+        for block in (1, 2, 256, kernel.MAX_BLOCK):
+            law = kernel.sweep_smem_bytes(d, block)
+            built = kernel.kernel_smem_bytes(d, block, 2 ** 31 - 1)
+            check(law == built, f"W1: sweep law {law} differs from the "
+                  f"kernel's {built} at d={d} block={block}")
+            fits = max(law.values()) <= kernel.SMEM_LIMIT
+            check(fits == (block <= kernel.largest_block(d)),
+                  f"W1: d={d} block={block} fits {fits}")
+            if d <= 64 or (d <= 128 and block <= 256):
+                check(fits, f"W1: d={d} block={block} above the limit: "
+                      f"{law}")
+        print(f"{tag} W1 sweep law at d={d}: A/C {law['prefix']} B, B "
+              f"{law['filter']} B at block {kernel.MAX_BLOCK}; resident "
+              f"rows {kernel.resident_rows(d, 256)} at block 256; largest "
+              f"block {kernel.largest_block(d)} (the kernel computes the "
+              f"same)")
+    for d in W_DOM_DS + (604, 605):
+        law = dkernel.dominance_smem_bytes(d)
+        built = dkernel.kernel_smem_bytes(d)
+        check(law == built, f"W1: dominance law {law} differs from the "
+              f"kernel's {built} at d={d}")
+        check((max(law.values()) <= dkernel.SMEM_LIMIT) == (d <= 604),
+              f"W1: dominance law at d={d}: {law}")
+    ring = dkernel.dominance_smem_bytes(256)["ring"]
+    print(f"{tag} W1 dominance law: ring {ring} B at d=256, tile "
+          f"{dkernel.tile_rows(256)} rows; d=604 fits, 605 does not (the "
+          f"kernel computes the same)")
+    dev = torch.device("cuda")
+    for d, block in ((200, 256), (128, 512)):
+        pts = torch.zeros((1, block, d), device=dev)
+        mask = torch.ones((1, block), dtype=torch.bool, device=dev)
+        try:
+            kernel.sfs_sweep_cuda(pts, mask, block=block, wcap=block,
+                                  sentinel=1.7e38)
+        except ValueError as e:
+            check(f"largest block that fits at d={d} is "
+                  f"{kernel.largest_block(d)}" in str(e), f"W1: {e}")
+            print(f"{tag} W1 check_args refuses d={d} block={block}: {e}")
+        else:
+            fail(f"W1: the sweep took d={d} block={block}, past its law")
+    c = torch.zeros((1, 8, 605), device=dev)
+    try:
+        dkernel.dominated_mask_cuda(c, torch.zeros((1, 40, 605), device=dev),
+                                    torch.ones((1, 40), dtype=torch.bool,
+                                               device=dev))
+    except ValueError as e:
+        print(f"{tag} W1 check_args refuses the dominance test at d=605: {e}")
+    else:
+        fail("W1: the dominance test took d=605, past its law")
+
+
+def membership(x, buf, tag, name) -> None:
+    """The full-size answer held by membership with the wide dominance
+    kernel: no member is dominated by any input row, and the rows no
+    member dominates are as many as the members."""
+    from repro_torch.kernels.dominance import ops as dops
+    members = buf.points[buf.mask]
+    t0 = time.perf_counter()
+    over = dops.dominated_mask(members, x, impl="cuda")
+    under = dops.dominated_mask(x, members, impl="cuda")
+    n_free = int((~under).sum())
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    check(not bool(over.any()), f"W2 {name}: {int(over.sum())} members are "
+          f"dominated by an input row")
+    check(n_free == members.shape[0], f"W2 {name}: {n_free} rows no member "
+          f"dominates, {members.shape[0]} members")
+    print(f"{tag} W2 {name}: membership held by the dominance kernel "
+          f"(no member dominated by any of the {x.shape[0]} rows; the "
+          f"{n_free} rows no member dominates are the members), "
+          f"{took:.3f} s")
+
+
+def wide_phase(tag, kernels, dev=torch.device("cuda"), d4=None) -> None:
+    """Step W: the kernel cases and laws at d > 12 (W1), the main path at
+    d = 16 and 32 (W2), a live state at d = 16 (W3) and their times
+    (W4).  ``d4``, when given, is a d = 4 dataset whose query and sweep
+    calls W4 times beside the wide rows."""
+    from repro_torch.core import api, datagen, parallel
+    from repro_torch.kernels.dominance import kernel as dkernel
+    from repro_torch.kernels.dominance import ops as dops
+    from repro_torch.kernels.sfs import kernel, ops
+    t_w = time.perf_counter()
+    err = wide_sweep_cases(dev, tag)
+    t_s = time.perf_counter() - t_w
+    dom_err = wide_dominance_cases(dev, tag)
+    t_d = time.perf_counter() - t_w - t_s
+    wide_laws(tag)
+    print(f"{tag} W1: sweep max_abs_err {err}, dominance max_abs_err "
+          f"{dom_err}; {time.perf_counter() - t_w:.3f} s (sweep cases "
+          f"{t_s:.3f} s, dominance cases {t_d:.3f} s)")
+
+    # -- W2: parallel_skyline at the default config, d = 16 and 32 --------
+    queries = {}
+    for i, (dist, d, n) in enumerate(W2_CELLS):
+        gen = torch.Generator(device=dev).manual_seed(2800 + i)
+        x = datagen.generate(dist, gen, n, d)
+        name = f"{dist} N={n} d={d}"
+        # the smallest power of two that holds the skyline and the union
+        # of the local skylines (the merge truncates the union to the
+        # capacity), so that nothing overflows
+        buf, stats = api.parallel_skyline(x, cfg=parallel.SkyConfig(
+            capacity=_pow2_at_least(n)))
+        cap = _pow2_at_least(max(int(buf.count), int(stats["union_size"])))
+        cfg = parallel.SkyConfig(capacity=cap)
+        with Launches(*kernels) as run:
+            buf, stats = api.parallel_skyline(x, cfg=cfg)
+        check(run.counts == (2, 0), f"W2 {name}: {run.counts} sweep and "
+              f"dominance launches, expected (2, 0)")
+        check(not bool(buf.overflow) and buf.points.shape == (cap, d)
+              and bool(torch.isfinite(buf.points).all()),
+              f"W2 {name}: overflow, wrong shape or not finite")
+        want, wstats = api.parallel_skyline(
+            x, cfg=dataclasses.replace(cfg, impl="torch"))
+        check(leaves_equal(buf, want) and stats_equal(stats, wstats),
+              f"W2 {name}: the answer differs from impl='torch'")
+        print(f"{tag} W2 parallel_skyline {name}: skyline {int(buf.count)}, "
+              f"union {int(stats['union_size'])}, capacity {cap} (the "
+              f"smallest power of two that holds both), {run.counts[0]} "
+              f"sweep launches, no overflow, bitwise equal to impl='torch'")
+        membership(x, buf, tag, name)
+        queries[name] = (x, cfg, buf)
+
+    # -- W3: a live state at d = 16 -------------------------------------------
+    x, cfg, one = queries[f"uniform N={W3_ROWS * W3_INSERTS} d={W3_D}"]
+    plain = dataclasses.replace(cfg, impl="torch")
+    keep = dataclasses.replace(cfg, donate=False)
+    state = api.init_state(cfg, W3_D)
+    pstate = api.init_state(plain, W3_D)
+    insert_ms = []
+    for i in range(W3_INSERTS):
+        chunk = x[i * W3_ROWS:(i + 1) * W3_ROWS]
+        before = clone_tree(state)
+        with Launches(*kernels) as run:
+            state, stats = api.insert_chunk(state, chunk, cfg=cfg)
+        check(run.counts == (2, 2), f"W3 insert {i + 1}: {run.counts} "
+              f"launches, expected (2, 2)")
+        snap = api.finalize(state, cfg=cfg)
+        pstate, pstats = api.insert_chunk(pstate, chunk, cfg=plain)
+        check(leaves_equal(state, pstate) and stats_equal(stats, pstats)
+              and leaves_equal(snap, api.finalize(pstate, cfg=plain)),
+              f"W3 insert {i + 1}: state, stats or snapshot differ from "
+              f"impl='torch'")
+        t_ins, _ = time_ms(lambda s: api.insert_chunk(s, chunk, cfg=cfg),
+                           fresh=lambda: clone_tree(before))
+        insert_ms.append(t_ins)
+        print(f"{tag} W3 insert {i + 1}/{W3_INSERTS} ({W3_ROWS} uniform "
+              f"rows, d={W3_D}): {t_ins:.3f} ms best of 3; skyline "
+              f"{int(state.count)}, launches {run.counts}; state, stats and "
+              f"snapshot bitwise equal to impl='torch'")
+    check(leaves_equal(snap, one), "W3: the last snapshot differs from the "
+          "one-shot answer")
+    print(f"{tag} W3: the last snapshot (skyline {int(snap.count)}) bitwise "
+          f"equal to W2's one-shot answer on the same rows")
+    dom_calls = record_dominance_calls(
+        lambda: api.insert_chunk(before, chunk, cfg=keep))
+
+    # -- W4: times ---------------------------------------------------------------
+    print(f"{tag} W4 times (CUDA events, best of 3 after a warm-up):")
+    dom_calls = [(f"W3 insert {W3_INSERTS} {k}", call) for k, call in
+                 zip(("pre-filter", "evict"), dom_calls)]
+    for name, (x, cfg, buf) in queries.items():
+        e2e, runs = time_ms(lambda: api.parallel_skyline(x, cfg=cfg))
+        print(f"{tag} W4 parallel_skyline {name}: {e2e:.3f} ms "
+              f"({', '.join(f'{t:.3f}' for t in runs)})")
+        calls = record_sweep_calls(lambda: api.parallel_skyline(x, cfg=cfg))
+        for call, (pts_p, mask_p, kw) in zip(("local", "merge"), calls):
+            t_k, _ = time_ms(lambda: kernel.sfs_sweep_cuda(pts_p, mask_p,
+                                                          **kw))
+            t_p, _ = time_ms(lambda: ops.sfs_sweep(pts_p, mask_p,
+                                                   spec="torch", **kw),
+                             reps=1)
+            row = sweep_row(pts_p, mask_p, kw)
+            got = kernel.sfs_sweep_cuda(pts_p, mask_p, **kw)
+            stages = time_stages(pts_p, mask_p, kw, kernel.PREFIX_ROWS, got)
+            print(f"{tag} W4 sfs_sweep {call} call ({name}: P="
+                  f"{pts_p.shape[0]}, npad={pts_p.shape[1]}, block="
+                  f"{kw['block']}, wcap={kw['wcap']}): kernel {t_k:.3f} ms, "
+                  f"plain {t_p:.3f} ms, {bound_text(row)}; {stages}")
+        members = buf.points[buf.mask][None]
+        dom_calls.append((f"W2 {name} membership, rows against members",
+                          (x[None], members,
+                           torch.ones(members.shape[:2], dtype=torch.bool,
+                                      device=dev), False)))
+    print(f"{tag} W4 inserts (W3, d={W3_D}): "
+          f"{', '.join(f'{t:.3f}' for t in insert_ms)} ms")
+    for cname, (c, r, m, lt) in dom_calls:
+        t_k, _ = time_ms(lambda: dkernel.dominated_mask_cuda(c, r, m,
+                                                             lower_tri=lt))
+        t_p, _ = time_ms(lambda: dops.dominated_mask_torch(c, r, m,
+                                                           lower_tri=lt),
+                         reps=1)
+        row = dom_row(c, r, m, lt)
+        grids = time_dom_grids(c, r, m, lt, dops.dominated_mask_torch(
+            c, r, m, lower_tri=lt))
+        print(f"{tag} W4 dominated_mask {cname} call (B={c.shape[0]}, "
+              f"C={c.shape[1]}, R={r.shape[1]}, d={c.shape[2]}, "
+              f"{row['ref_rows']} valid ref rows): kernel {t_k:.3f} ms, "
+              f"plain {t_p:.3f} ms, {bound_text(row)}; {grids}")
+    if d4 is not None:
+        cfg4 = parallel.SkyConfig(capacity=65536)
+        e2e, _ = time_ms(lambda: api.parallel_skyline(d4, cfg=cfg4))
+        ks = []
+        for pts_p, mask_p, kw in record_sweep_calls(
+                lambda: api.parallel_skyline(d4, cfg=cfg4)):
+            ks.append(time_ms(lambda: kernel.sfs_sweep_cuda(pts_p, mask_p,
+                                                           **kw))[0])
+        print(f"{tag} W4 d=4 rows of the same run: parallel_skyline "
+              f"anticorrelated N={d4.shape[0]} d=4 {e2e:.3f} ms; sweep "
+              f"calls local {ks[0]:.3f} ms + merge {ks[1]:.3f} ms = "
+              f"{sum(ks):.3f} ms")
+    print(f"{tag} step W: {time.perf_counter() - t_w:.3f} s")
+
+
+def bound_row(nbytes: int, coords: int) -> dict:
+    """The least time the card could take for a call that must move
+    ``nbytes`` and compare ``coords`` coordinates: bytes over the memory
+    rate or compare instructions over the rate at which they issue,
+    whichever is larger."""
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = coords / CMP_PER_S * 1e3
+    return {"bytes": nbytes, "ops": coords, "t_bytes": t_bytes,
+            "t_ops": t_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def bound_text(row: dict) -> str:
+    return (f"bound {row['bound_ms']:.6f} ms set by {row['bound_by']} "
+            f"({row['bytes']} bytes -> {row['t_bytes']:.6f} ms; "
+            f"{row['compares']} compares, {row['ops']} coordinates "
+            f"compared -> {row['t_ops']:.6f} ms)")
+
+
+def sweep_row(pts_p, mask_p, kw) -> dict:
+    """The bound of one sweep call on these inputs, with its bytes,
+    compares and coordinates compared."""
+    p, npad, d = pts_p.shape
+    wcap = kw["wcap"]
+    nbytes = p * npad * (4 * d + 1) + p * wcap * (4 * d + 1) + 4 * p
+    compares, coords = count_compares(pts_p, mask_p, kw["block"], wcap)
+    return dict(bound_row(nbytes, coords), compares=compares)
+
+
+def coords_needed(rows, cands) -> torch.Tensor:
+    """For every pair that ``rows`` and ``cands`` broadcast to, the
+    coordinates its dominance compare needs: up to and including the
+    first where the row is not <= the candidate, where the compare ends,
+    and all d where there is none (int32)."""
+    le = rows[..., 0] <= cands[..., 0]
+    n = torch.ones(le.shape, dtype=torch.int32, device=le.device)
+    for k in range(1, rows.shape[-1]):
+        n += le
+        le &= rows[..., k] <= cands[..., k]
+    return n
 
 
 PREFIX_TABLE = (1024, 16384, 65536)   # other prefixes timed beside 4096
@@ -5372,8 +5851,10 @@ def time_stages(pts_p, mask_p, kw, prefix: int, want) -> str:
             f"bitwise equal to the entry's output")
 
 
-def count_compares(pts_p, mask_p, block: int, wcap: int) -> int:
-    """The dominance compares the sweep needs on these inputs.
+def count_compares(pts_p, mask_p, block: int,
+                   wcap: int) -> tuple[int, int]:
+    """The dominance compares the sweep needs on these inputs, and the
+    coordinates they compare (:func:`coords_needed`).
 
     Replays the plain sweep.  A valid candidate needs one compare for
     each live window row up to and including its first dominator (all
@@ -5390,6 +5871,7 @@ def count_compares(pts_p, mask_p, block: int, wcap: int) -> int:
     tri = torch.ones((block, block), dtype=torch.bool, device=dev).triu(1)
     rows = torch.arange(block, device=dev)
     total = torch.zeros((), dtype=torch.int64, device=dev)
+    coords = torch.zeros((), dtype=torch.int64, device=dev)
     none = torch.iinfo(torch.int64).max
     for b in range(npad // block):
         x = pts_p[:, b * block:(b + 1) * block]
@@ -5398,9 +5880,16 @@ def count_compares(pts_p, mask_p, block: int, wcap: int) -> int:
         live = int(live_p.max())
         first = torch.full((p, block), none, dtype=torch.int64, device=dev)
         for t0 in range(0, live, 4096):
-            dom = _dominated_by(window[:, t0:min(t0 + 4096, live)], x)
+            t1 = min(t0 + 4096, live)
+            dom = _dominated_by(window[:, t0:t1], x)
             idx = dom.to(torch.uint8).argmax(dim=1) + t0
             first = torch.where(dom.any(dim=1) & (first == none), idx, first)
+            # the pairs of this tile that wcmp counts below
+            j = torch.arange(t0, t1, device=dev)[None, :, None]
+            need = ((j <= first[:, None]) & (j < live_p[:, None, None])
+                    & xm[:, None])
+            coords += (coords_needed(window[:, t0:t1, None],
+                                     x[:, None]) * need).sum()
         domw = first != none
         wcmp = torch.where(domw, first + 1, live_p[:, None])
         dom_s = _dominated_by(x, x) & tri
@@ -5408,12 +5897,17 @@ def count_compares(pts_p, mask_p, block: int, wcap: int) -> int:
         scmp = torch.where(doms, dom_s.to(torch.uint8).argmax(dim=1) + 1,
                            rows)
         total += torch.where(xm, wcmp + torch.where(domw, 0, scmp), 0).sum()
+        # the pairs of the block that scmp counts: rows s < i, up to and
+        # including i's first dominator there
+        need = (tri & (rows[:, None] < scmp[:, None])
+                & (xm & ~domw)[:, None])
+        coords += (coords_needed(x[:, :, None], x[:, None]) * need).sum()
         keep = xm & ~domw & ~doms
         pos = count[:, None] + torch.cumsum(keep, dim=1) - 1
         dest = torch.where(keep & (pos < wcap), pos, wcap)
         window.scatter_(1, dest[..., None].expand(-1, -1, d), x)
         count += keep.sum(dim=1)
-    return int(total)
+    return int(total), int(coords)
 
 
 if __name__ == "__main__":

@@ -29,10 +29,12 @@ import torch
 # the dominance entry the core modules call, and the flush, which lives
 # beside the dominance oracle (the lowest layer that compares
 # coordinates) so that the kernels' plain versions share it
-from repro_torch.kernels.dominance import dominated_mask, flush_subnormal
+from repro_torch.kernels.dominance import (dominance_matrix_ref,
+                                           dominated_mask, flush_subnormal)
 
 __all__ = [
-    "SENTINEL", "flush_subnormal", "dominates", "dominated_mask",
+    "SENTINEL", "flush_subnormal", "dominates", "dominance_matrix",
+    "dominated_mask",
     "region_volume", "reduce_min", "reduce_max",
     "monotone_score", "canonical_order", "apply_sentinel", "sort_key",
     "stable_argsort", "stable_argsort_rows", "topk_order",
@@ -47,6 +49,13 @@ def dominates(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """Scalar predicate: does point t dominate point s?"""
     t, s = flush_subnormal(t), flush_subnormal(s)
     return torch.all(t <= s) & torch.any(t < s)
+
+
+def dominance_matrix(refs: torch.Tensor,
+                     cands: torch.Tensor) -> torch.Tensor:
+    """(R, C) bool: ``out[j, i] = refs[j]`` dominates ``cands[i]`` (small
+    inputs)."""
+    return dominance_matrix_ref(refs, cands)
 
 
 def region_volume(pts: torch.Tensor) -> torch.Tensor:

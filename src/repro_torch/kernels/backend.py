@@ -37,15 +37,19 @@ from repro_torch.kernels.dominance import kernel as _dom_kernel
 from repro_torch.kernels.sfs import kernel as _sfs_kernel
 
 __all__ = ["KernelSpec", "available_backends", "resolve_spec",
-           "resolve_device", "kernel_call",
-           "collective_call", "smem_estimate"]
+           "register_backend", "impl_max_d", "resolve_device",
+           "kernel_call", "collective_call", "smem_estimate"]
 
 _SWEEP_IMPLS = ("cuda", "torch", "perpair")
 _DOMINANCE_IMPLS = ("cuda", "torch")
 
-# widest d each per-family implementation takes (None = unbounded)
-_SWEEP_MAX_D = {"cuda": _sfs_kernel.D_MAX}
-_DOMINANCE_MAX_D = {"cuda": _dom_kernel.D_MAX}
+
+def impl_max_d(impl: str) -> int | None:
+    """Widest ``d`` the per-family implementation string takes: None,
+    unbounded, for every one.  Past their narrow instantiations the CUDA
+    kernels take d at run time, and their footprint laws bound what fits
+    (their check_args say so), as the reference's GPU kernels pad d."""
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +61,7 @@ class KernelSpec:
       sweep: SFS sweep implementation.
       dominance: pairwise dominance implementation.
       max_d: widest attribute dimension the implementations take
-        (None = unbounded); the minimum over both families.
+        (None = unbounded, as for every built-in backend).
     """
     name: str
     sweep: str
@@ -73,18 +77,20 @@ class KernelSpec:
                              f"valid: {_DOMINANCE_IMPLS}")
 
 
-def _spec(name: str, sweep: str, dominance: str) -> KernelSpec:
-    caps = [c for c in (_SWEEP_MAX_D.get(sweep),
-                        _DOMINANCE_MAX_D.get(dominance)) if c is not None]
-    return KernelSpec(name, sweep=sweep, dominance=dominance,
-                      max_d=min(caps) if caps else None)
-
-
 _REGISTRY: dict[str, KernelSpec] = {
-    "cuda": _spec("cuda", sweep="cuda", dominance="cuda"),
-    "torch": _spec("torch", sweep="torch", dominance="torch"),
-    "perpair": _spec("perpair", sweep="perpair", dominance="torch"),
+    "cuda": KernelSpec("cuda", sweep="cuda", dominance="cuda"),
+    "torch": KernelSpec("torch", sweep="torch", dominance="torch"),
+    "perpair": KernelSpec("perpair", sweep="perpair", dominance="torch"),
 }
+
+
+def register_backend(spec: KernelSpec, *, overwrite: bool = False) -> None:
+    """Add a backend under ``spec.name`` (used as the ``impl`` string)."""
+    if spec.name == "auto":
+        raise ValueError("'auto' is reserved for runtime resolution")
+    if spec.name in _REGISTRY and not overwrite:
+        raise ValueError(f"backend {spec.name!r} already registered")
+    _REGISTRY[spec.name] = spec
 
 
 def available_backends() -> tuple[str, ...]:

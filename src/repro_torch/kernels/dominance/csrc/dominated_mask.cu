@@ -84,6 +84,20 @@
 // both from each call's inputs.  The test is comparisons with no product
 // in it, so the tensor cores do not apply.
 //
+// The wide variant.  Every d up to kNarrowD has instantiations of its
+// own, templates over D that hold each candidate and each staged
+// reference row in float[D] registers.  Any wider d runs
+// dominance_compact_wide_kernel and dominance_walk_wide_kernel, which take
+// d at run time and follow the same two grids, forms and CTA shapes.  A
+// candidate keeps its first kChunkD coordinates in registers and reads
+// the rest from its row in device memory; a reference row is copied to
+// shared memory a coordinate at a time.  A compare tests kChunkD
+// coordinates at a time and ends after the first chunk in which the
+// reference exceeds the candidate somewhere.  The result is an OR of a
+// pure predicate, so neither changes a bit.  A tile holds at least 32
+// rows at any d (tile_rows), so the ring's law 4 * (d + 1) * (kLaneRows +
+// kStages * 32) bytes bounds d to 604 on this card.
+//
 // Shared memory (dynamic; dominance_smem_bytes in kernel.py states the
 // same law), d + 1 words per staged row (the (d + 1)-th holds the
 // original index under lower_tri): with grid 1, the head and the ring,
@@ -113,11 +127,15 @@ constexpr int kTileBytes = 16384;     // coordinates of one stage's tile
 constexpr int kCompactPer = 16;       // reference rows per compact thread
 constexpr int kCompactRows = kThreads * kCompactPer;   // rows per chunk
 constexpr int kSmemLimit = 232448;    // per CTA on sm_90
+constexpr int kNarrowD = 12;          // widest d with its own instantiation
+constexpr int kChunkD = 8;            // wide compare: coordinates a step
 constexpr unsigned kFull = 0xffffffffu;
 
-// Rows of one tile: kTileBytes of coordinates, in whole 32-row steps.
+// Rows of one tile: kTileBytes of coordinates, in whole 32-row steps, at
+// least one step.
 __host__ __device__ constexpr int tile_rows(int d) {
-  return kTileBytes / (4 * d) / 32 * 32;
+  return kTileBytes / (4 * d) / 32 * 32 > 32 ? kTileBytes / (4 * d) / 32 * 32
+                                             : 32;
 }
 
 __host__ __device__ constexpr int ceil32(int r) { return (r + 31) / 32 * 32; }
@@ -499,6 +517,280 @@ dominance_walk_kernel(const float* __restrict__ cands,
   if (valid) O[i] = dom;
 }
 
+// -- the wide variant (d > kNarrowD, d at run time) ------------------------
+
+// Does the row at r (its k-th coordinate at r[k * rs]) dominate the
+// candidate whose first kChunkD coordinates are x0 and whose k-th lies
+// at c[k]?  kChunkD coordinates a step; the compare ends after the first
+// step in which the row exceeds the candidate somewhere.  Needs
+// d >= kChunkD.
+__device__ __forceinline__ bool dominates_wide(const float* r, int rs,
+                                               const float (&x0)[kChunkD],
+                                               const float* c, int d) {
+  bool le = true, lt = false;
+#pragma unroll
+  for (int k = 0; k < kChunkD; ++k) {
+    const float w = r[k * rs];
+    le &= w <= x0[k];
+    lt |= w < x0[k];
+  }
+  for (int k0 = kChunkD; le && k0 < d; k0 += kChunkD) {
+#pragma unroll
+    for (int u = 0; u < kChunkD; ++u) {
+      const int k = k0 + u;
+      if (k < d) {
+        const float w = r[k * rs];
+        le &= w <= c[k];
+        lt |= w < c[k];
+      }
+    }
+  }
+  return le && lt;
+}
+
+// Lane form of lane_any at any d, a row a step.
+template <bool LT>
+__device__ __forceinline__ bool lane_any_wide(const float* t, const int* idx,
+                                              int stride, int lo, int hi,
+                                              const float (&x0)[kChunkD],
+                                              const float* c, int d, int i) {
+  for (int j = lo; j < hi; ++j) {
+    if (LT && idx[j] >= i) return false;
+    if (dominates_wide(t + j, stride, x0, c, d)) return true;
+  }
+  return false;
+}
+
+// Warp form of warp_any at any d.
+template <bool LT>
+__device__ __forceinline__ bool warp_any_wide(const float* t, const int* idx,
+                                              int stride, int lo, int hi,
+                                              const float (&y0)[kChunkD],
+                                              const float* c, int d,
+                                              int iy) {
+  const int lane = threadIdx.x & 31;
+  for (int j0 = lo; j0 < hi; j0 += 32 * kWarpUnroll) {
+    if (LT && idx[j0] >= iy) return false;   // no later row counts
+    bool dom = false;
+#pragma unroll
+    for (int u = 0; u < kWarpUnroll; ++u) {
+      if (j0 + 32 * u >= hi) break;          // uniform: the step ends early
+      const int j = j0 + 32 * u + lane;
+      bool ok = j < hi;
+      if (LT) ok = ok && idx[j] < iy;
+      dom |= ok && dominates_wide(t + j, stride, y0, c, d);
+    }
+    if (__any_sync(kFull, dom)) return true;
+  }
+  return false;
+}
+
+// test_tile at any d.  The candidate of lane l of this warp is row
+// i - lane + l of the batch's candidates cb (row-major, d a row).
+template <bool LT>
+__device__ __forceinline__ void test_tile_wide(const float* t, int stride,
+                                               int rows,
+                                               const float (&x0)[kChunkD],
+                                               const float* cb, int d, int i,
+                                               bool& todo, bool& dom) {
+  const int* si = reinterpret_cast<const int*>(t + static_cast<size_t>(d) *
+                                                       stride);
+  const int lane = threadIdx.x & 31;
+  const int lane_end = min(rows, kLaneRows);
+  bool dd = todo && lane_any_wide<LT>(t, si, stride, 0, lane_end, x0,
+                                      cb + static_cast<size_t>(i) * d, d, i);
+  unsigned need = __ballot_sync(
+      kFull, todo && !dd && rows > lane_end && (!LT || si[lane_end] < i));
+  while (need) {
+    const int src = __ffs(need) - 1;
+    need &= need - 1;
+    const int iy = i - lane + src;
+    float y0[kChunkD];
+#pragma unroll
+    for (int e = 0; e < kChunkD; ++e) y0[e] = __shfl_sync(kFull, x0[e], src);
+    if (warp_any_wide<LT>(t, si, stride, lane_end, rows, y0,
+                          cb + static_cast<size_t>(iy) * d, d, iy) &&
+        lane == src)
+      dd = true;
+  }
+  if (dd) {
+    dom = true;
+    todo = false;
+  } else if (LT && todo && si[rows - 1] >= i) {
+    todo = false;   // every later row lies past the candidate
+  }
+}
+
+// Grid 1 at any d: dominance_compact_kernel with d at run time.
+__global__ void __launch_bounds__(kThreads)
+dominance_compact_wide_kernel(const float* __restrict__ refs,
+                              const uint8_t* __restrict__ mask,
+                              long long ref_bstride, long long mask_bstride,
+                              int R, int Rs, int d,
+                              float* __restrict__ dense,
+                              int* __restrict__ count) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kCounts = kCompactPer * kWarps;   // one per (pass, warp)
+  __shared__ int warp_tot[32];
+  __shared__ int counts[kCounts];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long b = blockIdx.y;
+  const int r0 = blockIdx.x * kCompactRows;
+  const float* Rb = refs + b * ref_bstride;
+  const uint8_t* Mb = mask + b * mask_bstride;
+  float* Db = dense + b * (d + 1) * static_cast<long long>(Rs);
+  int* Ib = reinterpret_cast<int*>(Db + static_cast<size_t>(d) * Rs);
+
+  int before;
+  block_exclusive_sum(count_set_share(Mb, r0), warp_tot, &before);
+  unsigned ballots[kCompactPer];
+#pragma unroll
+  for (int e = 0; e < kCompactPer; ++e) {
+    const int row = r0 + e * kThreads + tid;
+    ballots[e] = __ballot_sync(kFull, row < R && Mb[row] != 0);
+    if (lane == 0) counts[e * kWarps + warp] = __popc(ballots[e]);
+  }
+  __syncthreads();
+  if (warp == 0) {   // exclusive scan of the counts, kCounts / 32 a lane
+    constexpr int kEach = kCounts / 32;
+    int v[kEach], sum = 0;
+#pragma unroll
+    for (int q = 0; q < kEach; ++q) sum += v[q] = counts[lane * kEach + q];
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    int run = incl - sum;
+#pragma unroll
+    for (int q = 0; q < kEach; ++q) {
+      counts[lane * kEach + q] = run;
+      run += v[q];
+    }
+    if (lane == 31 && blockIdx.x == gridDim.x - 1) count[b] = before + run;
+  }
+  __syncthreads();
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int e = 0; e < kCompactPer; ++e) {
+    if ((ballots[e] >> lane) & 1u) {
+      const int row = r0 + e * kThreads + tid;
+      const int at = before + counts[e * kWarps + warp] +
+                     __popc(ballots[e] & below);
+      const float* src = Rb + static_cast<size_t>(row) * d;
+      for (int k = 0; k < d; ++k)
+        Db[static_cast<size_t>(k) * Rs + at] = src[k];
+      Ib[at] = row;
+    }
+  }
+}
+
+// Grid 2 at any d: dominance_walk_kernel with d at run time, each
+// candidate's first kChunkD coordinates in registers and the rest read
+// from its row; tiles of tile_rows(d) rows.
+template <bool LT, bool kRing>
+__global__ void __launch_bounds__(kRing ? kRingThreads : kDirectThreads)
+dominance_walk_wide_kernel(const float* __restrict__ cands,
+                           const float* __restrict__ refs,
+                           const uint8_t* __restrict__ mask,
+                           long long ref_bstride, long long mask_bstride,
+                           const float* __restrict__ dense,
+                           long long dense_bstride, int Rs,
+                           const int* __restrict__ count,
+                           uint8_t* __restrict__ out, int batch, int C, int R,
+                           int d) {
+  constexpr int kNT = kRing ? kRingThreads : kDirectThreads;
+  constexpr int kHeld = kRing ? kRingHeld : kDirectHeld;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const long long b = blockIdx.x % batch;
+  const int c0 = static_cast<int>(blockIdx.x / batch) * (kNT / 32) * kHeld;
+  const int i = c0 + (tid >> 5) * kHeld + lane;
+  const bool valid = lane < kHeld && i < C;
+  uint8_t* O = out + b * C;
+  const int n = kRing ? count[dense_bstride ? b : 0] : R;
+
+  if (n == 0) {  // no valid reference: nothing is dominated
+    if (valid) O[i] = 0;
+    return;
+  }
+
+  const float* cb = cands + b * C * d;   // the batch's candidate rows
+  float x0[kChunkD];
+  const float* src = cb + static_cast<size_t>(valid ? i : 0) * d;
+#pragma unroll
+  for (int e = 0; e < kChunkD; ++e) x0[e] = valid ? src[e] : 0.f;
+  bool todo = valid, dom = false;
+
+  if constexpr (!kRing) {
+    // the references themselves, a row a thread, a masked row as NaN in
+    // every coordinate
+    const float* Rb = refs + b * ref_bstride;
+    const uint8_t* Mb = mask + b * mask_bstride;
+    const int T = ceil32(R);
+    const float nan = __int_as_float(0x7fc00000);
+    for (int j = tid; j < R; j += kNT) {
+      const bool m = Mb[j] != 0;
+      for (int k = 0; k < d; ++k)
+        smem[k * T + j] = m ? Rb[static_cast<size_t>(j) * d + k] : nan;
+      if (LT) reinterpret_cast<int*>(smem + d * T)[j] = j;
+    }
+    __syncthreads();
+    test_tile_wide<LT>(smem, T, R, x0, cb, d, i, todo, dom);
+  } else {
+    const int T = tile_rows(d);
+    const int words = LT ? d + 1 : d;   // rows of a staged tile
+    const float* Db = dense + b * dense_bstride;
+    // the head: the first kLaneRows dense rows, one load per word
+    const int pre = min(n, kLaneRows);
+    for (int e = tid; e < words * kLaneRows; e += kNT) {
+      const int k = e / kLaneRows, j = e - k * kLaneRows;
+      if (j < pre) smem[e] = Db[static_cast<size_t>(k) * Rs + j];
+    }
+    __syncthreads();
+    test_tile_wide<LT>(smem, kLaneRows, pre, x0, cb, d, i, todo, dom);
+
+    // the rest through the ring: tile t (rows pre + t * T onwards) goes to
+    // stage t % kStages
+    float* ring = smem + (d + 1) * kLaneRows;
+    const int tiles = (n - pre + T - 1) / T;
+    auto issue = [&](int t) {
+      float* st = ring + static_cast<size_t>(t % kStages) * (d + 1) * T;
+      const int t0 = pre + t * T;
+      const int q = (min(T, n - t0) + 3) >> 2;   // 16-byte copies per row
+      for (int e = tid; e < words * q; e += kNT) {
+        const int k = e / q, c = e - k * q;
+        cp_async16(st + k * T + 4 * c,
+                   Db + static_cast<size_t>(k) * Rs + t0 + 4 * c);
+      }
+    };
+    if (__syncthreads_or(todo) && tiles > 0) {
+      issue(0);
+      cp_async_commit();
+      if (tiles > 1) issue(1);
+      cp_async_commit();
+      for (int t = 0; t < tiles; ++t) {
+        cp_async_wait<kStages - 1>();   // tile t is in; t + 1 may still fly
+        if (!__syncthreads_or(todo)) break;
+        test_tile_wide<LT>(
+            ring + static_cast<size_t>(t % kStages) * (d + 1) * T, T,
+            min(T, n - pre - t * T), x0, cb, d, i, todo, dom);
+        if (t + kStages < tiles) {
+          __syncthreads();   // every thread is done with this stage
+          issue(t + kStages);
+        }
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    }
+  }
+  if (valid) O[i] = dom;
+}
+
 // Lets `kernel` take `bytes` of dynamic shared memory on the current
 // device.  The attribute is set once per device (`done` holds a bit for
 // each of the first 64), not on every launch: the call costs host time.
@@ -575,6 +867,61 @@ cudaError_t launch(const void* cands, const void* refs, const void* mask,
   return cudaGetLastError();
 }
 
+// launch at any d above kNarrowD.  The walk's limit is raised to
+// kSmemLimit once per device (the footprint varies with d; the attribute
+// only permits it), and a call whose law exceeds the limit is refused.
+template <bool LT, bool kRing>
+cudaError_t launch_wide(int d, const void* cands, const void* refs,
+                        const void* mask, void* out, void* scratch, int batch,
+                        int C, int R, long long ref_bstride,
+                        long long mask_bstride, cudaEvent_t ev_mid,
+                        cudaStream_t s) {
+  constexpr int kNT = kRing ? kRingThreads : kDirectThreads;
+  constexpr int kHeld = kRing ? kRingHeld : kDirectHeld;
+  static std::atomic<unsigned long long> smem_allowed{0};
+  const long long smem = walk_smem_bytes(d, R, kRing);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  const bool shared = ref_bstride == 0 && mask_bstride == 0;
+  const int bc = shared ? 1 : batch;
+  const int Rs = (R + 3) / 4 * 4;
+  float* dense = static_cast<float*>(scratch);
+  int* count = kRing ? reinterpret_cast<int*>(
+                           dense + static_cast<size_t>(bc) * (d + 1) * Rs)
+                     : nullptr;
+  cudaError_t err;
+  if constexpr (kRing) {
+    for (int b0 = 0; b0 < bc; b0 += kMaxGridY) {
+      const int n = bc - b0 < kMaxGridY ? bc - b0 : kMaxGridY;
+      const dim3 grid1((R + kCompactRows - 1) / kCompactRows, n);
+      dominance_compact_wide_kernel<<<grid1, kThreads, 0, s>>>(
+          static_cast<const float*>(refs) + b0 * ref_bstride,
+          static_cast<const uint8_t*>(mask) + b0 * mask_bstride,
+          ref_bstride, mask_bstride, R, Rs, d,
+          dense + static_cast<size_t>(b0) * (d + 1) * Rs, count + b0);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+  }
+  if (ev_mid != nullptr) {
+    err = cudaEventRecord(ev_mid, s);
+    if (err != cudaSuccess) return err;
+  }
+  err = allow_smem(dominance_walk_wide_kernel<LT, kRing>, kSmemLimit,
+                   smem_allowed);
+  if (err != cudaSuccess) return err;
+  constexpr int rows = kNT / 32 * kHeld;
+  const long long blocks =
+      static_cast<long long>((C + rows - 1) / rows) * batch;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid2(static_cast<unsigned>(blocks));
+  dominance_walk_wide_kernel<LT, kRing><<<grid2, kNT, smem, s>>>(
+      static_cast<const float*>(cands), static_cast<const float*>(refs),
+      static_cast<const uint8_t*>(mask), ref_bstride, mask_bstride, dense,
+      shared ? 0 : static_cast<long long>(d + 1) * Rs, Rs, count,
+      static_cast<uint8_t*>(out), batch, C, R, d);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches the dominance test on `stream`; returns the cudaError_t of the
@@ -594,7 +941,7 @@ extern "C" int dominated_mask_launch(const void* cands, const void* refs,
                                      void* ev_start, void* ev_mid,
                                      void* stream) {
   if (batch < 1 || C < 1 || R < 0 || ref_bstride < 0 ||
-      mask_bstride < 0 || d < 1 || d > 12 ||
+      mask_bstride < 0 || d < 1 ||
       (scratch == nullptr) != (R <= tile_rows(d)) ||
       (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -623,6 +970,14 @@ extern "C" int dominated_mask_launch(const void* cands, const void* refs,
   case 4 * D + 3:                                        \
     err = launch<D, true, true>(DOM_ARGS);               \
     break;
+  if (d > kNarrowD) {
+    switch (form) {
+      case 0: return static_cast<int>(launch_wide<false, false>(d, DOM_ARGS));
+      case 1: return static_cast<int>(launch_wide<false, true>(d, DOM_ARGS));
+      case 2: return static_cast<int>(launch_wide<true, false>(d, DOM_ARGS));
+      default: return static_cast<int>(launch_wide<true, true>(d, DOM_ARGS));
+    }
+  }
   switch (4 * d + form) {
     DOM_CASE(1) DOM_CASE(2) DOM_CASE(3) DOM_CASE(4) DOM_CASE(5) DOM_CASE(6)
     DOM_CASE(7) DOM_CASE(8) DOM_CASE(9) DOM_CASE(10) DOM_CASE(11) DOM_CASE(12)
@@ -636,9 +991,9 @@ extern "C" int dominated_mask_launch(const void* cands, const void* refs,
 
 // The dynamic shared memory of the walk CTA for a call with R references:
 // the ring when R is longer than one tile, else one stage of the
-// references.  -1 for a d the kernel does not take.
+// references.  -1 for a d below 1 or a negative R.
 extern "C" long long dominated_mask_smem_bytes(int d, int R) {
-  if (d < 1 || d > 12 || R < 0) return -1;
+  if (d < 1 || R < 0) return -1;
   return walk_smem_bytes(d, R, R > tile_rows(d));
 }
 

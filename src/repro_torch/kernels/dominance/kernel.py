@@ -23,6 +23,12 @@ them (the source's header says why the result is exact):
      references themselves when they fit one tile), ending at the
      batch's own count.
 
+Every d up to :data:`NARROW_D` runs the kernel's instantiations for that
+d; any wider d runs its wide variant, which takes d at run time (the
+source's header says how).  What bounds d is the footprint law
+(:func:`dominance_smem_bytes`): a tile holds at least 32 rows, so the
+ring fits the card's limit up to d = 604.
+
 ``dominated_mask_cuda.launches`` counts entry calls, not grids, so a run
 can show that its main path went through the kernel.
 :func:`dominance_stages` runs the same grids with CUDA events around
@@ -40,9 +46,9 @@ from repro_torch.kernels import build
 
 __all__ = ["dominated_mask_cuda", "dominance_stages", "check_args",
            "dominance_smem_bytes", "tile_rows", "compacts", "scratch_words",
-           "D_MAX", "MAX_BATCH", "TILE_BYTES", "SMEM_LIMIT"]
+           "NARROW_D", "MAX_BATCH", "TILE_BYTES", "SMEM_LIMIT"]
 
-D_MAX = 12            # widest d the kernel is instantiated for
+NARROW_D = 12         # widest d with instantiations of its own
 MAX_BATCH = 2 ** 31 - 1  # grid 1 takes the batches on y in slices of
 #                          65,535; grid 2's 1-D grid holds every block
 TILE_BYTES = 16_384   # coordinates of one tile (kTileBytes)
@@ -80,8 +86,8 @@ def _lib() -> ctypes.CDLL:
 
 def tile_rows(d: int) -> int:
     """Reference rows of one tile: ``TILE_BYTES`` of coordinates, in whole
-    32-row steps (``tile_rows`` in the source)."""
-    return TILE_BYTES // (4 * d) // 32 * 32
+    32-row steps, at least one (``tile_rows`` in the source)."""
+    return max(32, TILE_BYTES // (4 * d) // 32 * 32)
 
 
 def compacts(r: int, d: int) -> bool:
@@ -133,9 +139,8 @@ def check_args(cands: torch.Tensor, refs: torch.Tensor,
     if refs.shape != (b, r, d) or ref_mask.shape != (b, r):
         raise ValueError(f"shapes disagree: {tuple(cands.shape)}/"
                          f"{tuple(refs.shape)}/{tuple(ref_mask.shape)}")
-    if not 1 <= d <= D_MAX:
-        raise ValueError(f"dominated_mask_cuda takes 1 <= d <= {D_MAX}, "
-                         f"got {d}")
+    if d < 1:
+        raise ValueError(f"dominated_mask_cuda takes d >= 1, got {d}")
     if c >= 2 ** 31 or r >= 2 ** 31:
         raise ValueError(f"C={c} or R={r} out of range")
     threads, held = _WALK_SHAPE["ring" if compacts(r, d) else "direct"]
@@ -154,7 +159,8 @@ def check_args(cands: torch.Tensor, refs: torch.Tensor,
     form = "ring" if compacts(r, d) else "direct"
     if smem[form] > SMEM_LIMIT:
         raise ValueError(f"dominated_mask_cuda would take {smem[form]} bytes "
-                         f"of shared memory per CTA, above {SMEM_LIMIT}")
+                         f"of shared memory per CTA at d={d} ({form} form), "
+                         f"above {SMEM_LIMIT}")
 
 
 def _check_device(cands, refs, ref_mask):

@@ -148,9 +148,6 @@ def dominated_mask(cands: torch.Tensor, refs: torch.Tensor,
         if cands.device.type != "cuda":
             raise ValueError(f"impl 'cuda' runs on CUDA tensors only; got "
                              f"data on {cands.device}")
-        if d > _kernel.D_MAX:
-            raise ValueError(f"d={d} > {_kernel.D_MAX} not supported by the "
-                             f"'cuda' dominance kernel; use impl='torch'")
         # the kernel reads rows in place, with any batch stride; other
         # layouts are copied first
         if refs.stride(-1) != 1 or (d > 1 and refs.stride(-2) != d):

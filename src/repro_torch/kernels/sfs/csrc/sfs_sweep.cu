@@ -67,11 +67,30 @@
 // sequential per partition and run on P SMs; B, which sees all but K
 // blocks of every partition, runs on all of them.
 //
+// The wide variant.  Every d up to kNarrowD has instantiations of its
+// own, templates over D that hold candidates in float[D] registers.
+// Any wider d runs sweep_seq_wide_kernel and sweep_filter_wide_kernel,
+// which take d at run time and follow the same schedule, grids and
+// launch shapes.  They hold no candidate in a register array: A and C
+// read it from the candidate block they already stage in shared memory,
+// and B keeps its first kChunkD coordinates in registers and reads the
+// rest from the points in device memory.  A compare tests kChunkD
+// coordinates at a time and ends after the first chunk in which the
+// window row exceeds the candidate somewhere: on skyline data most
+// window rows fail within the first chunk.  The test is a pure
+// predicate, so neither the chunking nor where a compare ends changes a
+// bit.
+//
 // Shared memory (dynamic; sweep_smem_bytes in kernel.py states the same
 // law): A and C use 4*d*block (candidates) + 4*kQueueCap (queue)
 // + 4*32 (warp sums) + 4*kSeqThreads (pending flags)
-// + 4*d*resident_rows(d); B uses 4*d*tile rows, the tile being the
-// smaller of filter_tile_rows(d) and the prefix window.
+// + 4*d*resident_rows(d, block); B uses 4*d*tile rows, the tile being
+// the smaller of filter_tile_rows(d) and the prefix window.  Up to
+// kNarrowD the resident window takes kResidentBytes.  Past it, the
+// resident rows take what the candidate block leaves of kSmemLimit, at
+// most kResidentBytes and at least kLaneRows rows; a (d, block) for
+// which even kLaneRows rows do not fit is refused.  B's tile is at least
+// kLaneRows rows at any d.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,17 +110,39 @@ constexpr int kFilterRows = kFilterThreads * kFilterPer;
 constexpr int kFilterTileBytes = 32768;          // W_A rows staged per tile
 constexpr int kSmemLimit = 232448;               // per CTA on sm_90
 constexpr int kMaxGridY = 65535;                 // a grid's y extent
+constexpr int kNarrowD = 12;           // widest d with its own instantiation
+constexpr int kChunkD = 8;             // wide compare: coordinates a step
+
+// A and C's shared memory apart from the candidates and resident rows
+constexpr long long kSeqFixedBytes =
+    4LL * kQueueCap + 4LL * 32 + 4LL * kSeqThreads;
 
 __host__ __device__ constexpr int resident_rows(int d) {
   return kResidentBytes / (4 * d);
 }
+
+// The resident window rows of the wide variant at (d, block): what the
+// candidate block leaves of the limit, at most kResidentBytes, and at
+// least kLaneRows rows (which may not fit; seq_smem_bytes then exceeds
+// the limit and the launch is refused).
+long long resident_rows_wide(int d, int block) {
+  const long long room =
+      (kSmemLimit - kSeqFixedBytes - 4LL * d * block) / (4LL * d);
+  const long long cap = kResidentBytes / (4LL * d);
+  const long long rows = room < cap ? room : cap;
+  return rows > kLaneRows ? rows : kLaneRows;
+}
+
+// B's tile: kFilterTileBytes of coordinates, at least kLaneRows rows.
 __host__ __device__ constexpr int filter_tile_rows(int d) {
-  return kFilterTileBytes / (4 * d);
+  return kFilterTileBytes / (4 * d) > kLaneRows ? kFilterTileBytes / (4 * d)
+                                                : kLaneRows;
 }
 
 long long seq_smem_bytes(int d, int block) {
-  return 4LL * d * block + 4LL * kQueueCap + 4LL * 32 + 4LL * kSeqThreads +
-         4LL * d * resident_rows(d);
+  const long long res =
+      d <= kNarrowD ? resident_rows(d) : resident_rows_wide(d, block);
+  return 4LL * d * block + kSeqFixedBytes + 4LL * d * res;
 }
 
 // W_A rows one B tile holds: at most the prefix window, min(prefix, wcap)
@@ -460,6 +501,300 @@ sweep_filter_kernel(const float* __restrict__ pts,
   if ((tid & 31) == 0 && n) atomicAdd(survivors + p, (int)n);
 }
 
+// -- the wide variant (d > kNarrowD, d at run time) ------------------------
+
+// Does the row at r (its k-th coordinate at r[k * rs]) dominate the
+// candidate whose first kChunkD coordinates are x0 and whose k-th lies
+// at c[k * cs]?  kChunkD coordinates a step; the compare ends after the
+// first step in which the row exceeds the candidate somewhere.  Needs
+// d >= kChunkD.
+__device__ __forceinline__ bool dominates_wide(const float* r, int rs,
+                                               const float (&x0)[kChunkD],
+                                               const float* c, int cs,
+                                               int d) {
+  bool le = true, lt = false;
+#pragma unroll
+  for (int k = 0; k < kChunkD; ++k) {
+    const float w = r[k * rs];
+    le &= w <= x0[k];
+    lt |= w < x0[k];
+  }
+  for (int k0 = kChunkD; le && k0 < d; k0 += kChunkD) {
+#pragma unroll
+    for (int u = 0; u < kChunkD; ++u) {
+      const int k = k0 + u;
+      if (k < d) {
+        const float w = r[k * rs];
+        const float v = c[static_cast<size_t>(k) * cs];
+        le &= w <= v;
+        lt |= w < v;
+      }
+    }
+  }
+  return le && lt;
+}
+
+// Lane form: does one of rows [lo, hi) of the table t dominate the
+// candidate (x0, c, cs)?
+__device__ __forceinline__ bool lane_any_wide(const float* t, int stride,
+                                              int lo, int hi,
+                                              const float (&x0)[kChunkD],
+                                              const float* c, int cs,
+                                              int d) {
+  for (int j = lo; j < hi; ++j)
+    if (dominates_wide(t + j, stride, x0, c, cs, d)) return true;
+  return false;
+}
+
+// Warp form (every lane calls it with the same candidate): rows [lo, hi)
+// of the table t, 32 * kWarpUnroll per vote.
+__device__ __forceinline__ bool warp_any_wide(const float* t, int stride,
+                                              int lo, int hi,
+                                              const float (&y0)[kChunkD],
+                                              const float* c, int cs,
+                                              int d) {
+  const int lane = threadIdx.x & 31;
+  for (int j0 = lo; j0 < hi; j0 += 32 * kWarpUnroll) {
+    bool dom = false;
+#pragma unroll
+    for (int u = 0; u < kWarpUnroll; ++u) {
+      const int j = j0 + 32 * u + lane;
+      dom |= j < hi && dominates_wide(t + j, stride, y0, c, cs, d);
+    }
+    if (__any_sync(0xffffffffu, dom)) return true;
+  }
+  return false;
+}
+
+// Warp form over row-major rows [lo, hi) in device memory.
+__device__ __forceinline__ bool warp_any_rows_wide(
+    const float* w, int lo, int hi, const float (&y0)[kChunkD],
+    const float* c, int cs, int d) {
+  const int lane = threadIdx.x & 31;
+  for (int j0 = lo; j0 < hi; j0 += 32 * kWarpUnroll) {
+    bool dom = false;
+#pragma unroll
+    for (int u = 0; u < kWarpUnroll; ++u) {
+      const int j = j0 + 32 * u + lane;
+      dom |= j < hi &&
+             dominates_wide(w + static_cast<size_t>(j) * d, 1, y0, c, cs, d);
+    }
+    if (__any_sync(0xffffffffu, dom)) return true;
+  }
+  return false;
+}
+
+// Stages A and C at any d: sweep_seq_kernel's schedule, with the
+// candidates read from the staged candidate block (coordinate k of
+// candidate t at cand[k * block + t]) and res_rows resident window rows.
+__global__ void __launch_bounds__(kSeqThreads)
+sweep_seq_wide_kernel(const float* __restrict__ pts,
+                      const uint8_t* __restrict__ flags,
+                      long long flag_stride, int r0, int r1, int npad,
+                      float* win, uint8_t* __restrict__ wmask,
+                      const int* __restrict__ count_in,
+                      const int* __restrict__ survivors,
+                      int* __restrict__ count_out, int block, int wcap,
+                      int d, int res_rows) {
+  extern __shared__ float smem[];
+  float* cand = smem;                                          // d x block
+  float* res = cand + static_cast<size_t>(block) * d;          // d x res_rows
+  int* queue =
+      reinterpret_cast<int*>(res + static_cast<size_t>(res_rows) * d);
+  int* warp_tot = queue + kQueueCap;                           // 32
+  int* pend = warp_tot + 32;                                   // kSeqThreads
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  constexpr int kWarps = kSeqThreads / 32;
+  const int p = blockIdx.x;
+  const float* P = pts + (size_t)p * npad * d;
+  const uint8_t* F = flags + (size_t)p * flag_stride;
+  float* W = win + (size_t)p * wcap * d;
+  uint8_t* WM = wmask + (size_t)p * wcap;
+
+  int count = count_in ? count_in[p] : 0;  // the same in every thread
+  const int skip = min(count, wcap);       // window rows B tested
+  const bool packed =
+      count_in && (long long)count + survivors[p] <= (long long)wcap;
+  const int n = r1 - r0;
+
+  uint32_t w[4];
+  load_flags(F, tid * kFlagsPerThread, n, w);
+  int qlen = 0;  // row indices waiting in the queue
+  for (int c0 = 0; c0 < n; c0 += kChunk) {
+    const int off = c0 + tid * kFlagsPerThread;
+    int set = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      w[q] = __vcmpne4(w[q], 0u);  // 0xff per set byte
+      set += __popc(w[q]) >> 3;
+    }
+    uint32_t mine_w[4] = {w[0], w[1], w[2], w[3]};
+    if (c0 + kChunk < n) load_flags(F, off + kChunk, n, w);  // the next
+    int total;
+    int slot = qlen + block_exclusive_sum(set, warp_tot, &total);
+#pragma unroll
+    for (int k = 0; k < kFlagsPerThread; ++k)
+      if ((mine_w[k >> 2] >> (8 * (k & 3))) & 1u)
+        queue[slot++] = r0 + off + k;
+    qlen += total;
+    __syncthreads();
+    const bool last = c0 + kChunk >= n;
+    if (total == 0 && !last) continue;
+    const long long read_end = (long long)r0 + min(c0 + kChunk, n);
+
+    int s = 0;  // the next queued row
+    while (s < qlen) {
+      const int first = queue[s];
+      const int lim = min(block, qlen - s);
+      const int nb = packed ? lim
+                            : __syncthreads_count(
+                                  tid < lim && queue[s + tid] / block ==
+                                                   first / block);
+      const bool ready =
+          packed ? (nb == block || last)
+                 : (s + nb < qlen || last ||
+                    ((long long)(first / block) + 1) * block <= read_end);
+      if (!ready) break;  // the block goes on in the next chunk
+
+      const bool mine = tid < nb;
+      float x0[kChunkD];
+      if (mine) {
+        const float* src = P + (size_t)queue[s + tid] * d;
+        for (int k = 0; k < d; ++k) cand[k * block + tid] = src[k];
+#pragma unroll
+        for (int k = 0; k < kChunkD; ++k) x0[k] = cand[k * block + tid];
+      }
+      const int live = min(count, wcap);
+      const int res_end = min(live, skip + res_rows);
+      const int lane_end = min(res_end, skip + kLaneRows);
+      // (a) each thread: its candidate against the first window rows
+      if (mine)
+        pend[tid] = !lane_any_wide(res, res_rows, 0, lane_end - skip, x0,
+                                   cand + tid, block, d);
+      __syncthreads();
+      // (b) each warp in turn: the candidates still pending against the
+      // rest of the window and the earlier rows of the block
+      for (int c = warp; c < nb; c += kWarps) {
+        if (!pend[c]) continue;
+        float y0[kChunkD];
+#pragma unroll
+        for (int k = 0; k < kChunkD; ++k) y0[k] = cand[k * block + c];
+        const float* yc = cand + c;
+        const bool dom =
+            warp_any_wide(res, res_rows, lane_end - skip, res_end - skip, y0,
+                          yc, block, d) ||
+            warp_any_rows_wide(W, res_end, live, y0, yc, block, d) ||
+            warp_any_wide(cand, block, 0, c, y0, yc, block, d);
+        if (dom && lane == 0) pend[c] = 0;
+      }
+      __syncthreads();
+      // (c) append at count + prefix; keeps past wcap are counted only
+      const bool alive = mine && pend[tid];
+      int kept;
+      const int prefix = block_exclusive_sum(alive ? 1 : 0, warp_tot, &kept);
+      if (alive && count + prefix < wcap) {
+        const int at = count + prefix;
+        for (int k = 0; k < d; ++k) W[(size_t)at * d + k] = cand[k * block + tid];
+        WM[at] = 1;
+        if (at - skip < res_rows) {
+          for (int k = 0; k < d; ++k)
+            res[k * res_rows + at - skip] = cand[k * block + tid];
+        }
+      }
+      count += kept;
+      s += nb;
+      __syncthreads();
+    }
+
+    // carry the rows of an unfinished block to the front of the queue
+    const int rest = qlen - s;
+    if (s > 0 && rest > 0) {
+      const int v = tid < rest ? queue[s + tid] : 0;
+      __syncthreads();
+      if (tid < rest) queue[tid] = v;
+      __syncthreads();
+    }
+    qlen = rest;
+  }
+  if (tid == 0) count_out[p] = count;
+}
+
+// Stage B at any d: sweep_filter_kernel's schedule, each candidate's
+// first kChunkD coordinates in registers and the rest read from its row.
+__global__ void __launch_bounds__(kFilterThreads)
+sweep_filter_wide_kernel(const float* __restrict__ pts,
+                         const uint8_t* __restrict__ mask,
+                         const float* __restrict__ win,
+                         const int* __restrict__ count,
+                         uint8_t* __restrict__ alive, long long alive_stride,
+                         int* __restrict__ survivors, int npad, int r0,
+                         int wcap, int tile_rows, int d) {
+  extern __shared__ float tile[];  // d x tile_rows
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int p = blockIdx.y;
+  const int c0 = r0 + blockIdx.x * kFilterRows;
+  const float* P = pts + (size_t)p * npad * d;
+  const uint8_t* M = mask + (size_t)p * npad;
+  const float* W = win + (size_t)p * wcap * d;
+  const int live = min(count[p], wcap);
+
+  float x0[kFilterPer][kChunkD];
+  unsigned todo = 0;  // bit k: candidate k is valid and not yet dominated
+#pragma unroll
+  for (int k = 0; k < kFilterPer; ++k) {
+    const int row = c0 + tid + k * kFilterThreads;
+    const bool valid = row < npad && M[row] != 0;
+    const float* src = P + (size_t)(valid ? row : 0) * d;
+#pragma unroll
+    for (int e = 0; e < kChunkD; ++e) x0[k][e] = valid ? src[e] : 0.f;
+    todo |= valid ? 1u << k : 0u;
+  }
+
+  for (int t0 = 0; t0 < live; t0 += tile_rows) {
+    if (!__syncthreads_or(todo != 0)) break;
+    const int rows = min(tile_rows, live - t0);
+    for (int e = tid; e < rows * d; e += kFilterThreads)
+      tile[(e % d) * tile_rows + e / d] = W[(size_t)t0 * d + e];
+    __syncthreads();
+    const int lane_end = min(rows, kLaneRows);
+#pragma unroll
+    for (int k = 0; k < kFilterPer; ++k) {
+      const int row = c0 + tid + k * kFilterThreads;
+      bool a = (todo >> k) & 1u;
+      if (a)
+        a = !lane_any_wide(tile, tile_rows, 0, lane_end, x0[k],
+                           P + (size_t)row * d, 1, d);
+      unsigned need = __ballot_sync(0xffffffffu, a && rows > lane_end);
+      while (need) {
+        const int src = __ffs(need) - 1;
+        need &= need - 1;
+        float y0[kChunkD];
+#pragma unroll
+        for (int e = 0; e < kChunkD; ++e)
+          y0[e] = __shfl_sync(0xffffffffu, x0[k][e], src);
+        const float* yc = P + (size_t)(row - lane + src) * d;
+        if (warp_any_wide(tile, tile_rows, lane_end, rows, y0, yc, 1, d) &&
+            lane == src)
+          a = false;
+      }
+      todo = a ? todo : todo & ~(1u << k);
+    }
+  }
+
+  uint8_t* A = alive + (size_t)p * alive_stride;
+#pragma unroll
+  for (int k = 0; k < kFilterPer; ++k) {
+    const int row = c0 + tid + k * kFilterThreads;
+    if (row < npad) A[row - r0] = (todo >> k) & 1u;
+  }
+  const unsigned n = __reduce_add_sync(0xffffffffu, __popc(todo));
+  if ((tid & 31) == 0 && n) atomicAdd(survivors + p, (int)n);
+}
+
 template <int D>
 cudaError_t launch_seq(const void* pts, const void* flags,
                        long long flag_stride, int r0, int r1, int npad,
@@ -512,6 +847,56 @@ cudaError_t launch_filter(const void* pts, const void* mask, const void* win,
   return cudaSuccess;
 }
 
+cudaError_t launch_seq_wide(int d, const void* pts, const void* flags,
+                            long long flag_stride, int r0, int r1, int npad,
+                            void* win, void* wmask, const void* count_in,
+                            const void* survivors, void* count_out,
+                            int parts, int block, int wcap,
+                            cudaStream_t stream) {
+  const long long smem = seq_smem_bytes(d, block);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      sweep_seq_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  sweep_seq_wide_kernel<<<parts, kSeqThreads, smem, stream>>>(
+      static_cast<const float*>(pts), static_cast<const uint8_t*>(flags),
+      flag_stride, r0, r1, npad, static_cast<float*>(win),
+      static_cast<uint8_t*>(wmask), static_cast<const int*>(count_in),
+      static_cast<const int*>(survivors), static_cast<int*>(count_out),
+      block, wcap, d, static_cast<int>(resident_rows_wide(d, block)));
+  return cudaGetLastError();
+}
+
+cudaError_t launch_filter_wide(int d, const void* pts, const void* mask,
+                               const void* win, const void* count,
+                               void* alive, long long alive_stride,
+                               void* survivors, int parts, int npad, int r0,
+                               int wcap, cudaStream_t stream) {
+  const int rows = filter_rows(d, r0, wcap);
+  const long long smem = 4LL * d * rows;
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      sweep_filter_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  for (int p0 = 0; p0 < parts; p0 += kMaxGridY) {
+    const int n = parts - p0 < kMaxGridY ? parts - p0 : kMaxGridY;
+    const dim3 grid((npad - r0 + kFilterRows - 1) / kFilterRows, n);
+    sweep_filter_wide_kernel<<<grid, kFilterThreads, smem, stream>>>(
+        static_cast<const float*>(pts) + (size_t)p0 * npad * d,
+        static_cast<const uint8_t*>(mask) + (size_t)p0 * npad,
+        static_cast<const float*>(win) + (size_t)p0 * wcap * d,
+        static_cast<const int*>(count) + p0,
+        static_cast<uint8_t*>(alive) + (size_t)p0 * alive_stride,
+        alive_stride, static_cast<int*>(survivors) + p0, npad, r0, wcap,
+        rows, d);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 #define SFS_DISPATCH(CALL)                                              \
@@ -548,6 +933,10 @@ extern "C" int sfs_sweep_seq_launch(const void* pts, const void* flags,
       (count_in == nullptr) != (survivors == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > kNarrowD)
+    return static_cast<int>(launch_seq_wide(
+        d, pts, flags, flag_stride, r0, r1, npad, win, wmask, count_in,
+        survivors, count_out, parts, block, wcap, s));
 #define SFS_SEQ(D)                                                        \
   launch_seq<D>(pts, flags, flag_stride, r0, r1, npad, win, wmask,       \
                 count_in, survivors, count_out, parts, block, wcap, s)
@@ -566,6 +955,10 @@ extern "C" int sfs_sweep_filter_launch(const void* pts, const void* mask,
       alive_stride < npad - r0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > kNarrowD)
+    return static_cast<int>(launch_filter_wide(
+        d, pts, mask, win, count, alive, alive_stride, survivors, parts,
+        npad, r0, wcap, s));
 #define SFS_FILTER(D)                                                    \
   launch_filter<D>(pts, mask, win, count, alive, alive_stride, survivors, \
                    parts, npad, r0, wcap, s)

@@ -21,7 +21,12 @@ between them (the source's header says why the schedule is exact):
   C. the sequential sweep of the rows B left alive.
 
 When the prefix covers a partition, A is the whole sweep and one grid
-runs.  ``sfs_sweep_cuda.launches`` counts entry calls, not grids, so a
+runs.  Every d up to :data:`NARROW_D` runs the kernel's instantiation for
+that d; any wider d runs its wide variant, which takes d at run time
+(the source's header says how).  What bounds d is the footprint law
+(:func:`sweep_smem_bytes`): :func:`check_args` refuses a (d, block)
+whose CTA would take more than :data:`SMEM_LIMIT` bytes, and names the
+largest block that fits.  ``sfs_sweep_cuda.launches`` counts entry calls, not grids, so a
 run can show that its main path went through the kernel.
 :func:`sweep_stages` runs the same grids with CUDA events between them,
 for measurement only.
@@ -37,10 +42,11 @@ import torch
 from repro_torch.kernels import build
 
 __all__ = ["sfs_sweep_cuda", "sweep_stages", "check_args",
-           "sweep_smem_bytes", "prefix_rows", "D_MAX", "MAX_BLOCK",
+           "sweep_smem_bytes", "resident_rows", "filter_tile_rows",
+           "largest_block", "prefix_rows", "NARROW_D", "MAX_BLOCK",
            "MAX_PARTS", "PREFIX_ROWS", "SMEM_LIMIT"]
 
-D_MAX = 12           # widest d the kernel is instantiated for
+NARROW_D = 12        # widest d with an instantiation of its own
 MAX_BLOCK = 512      # one thread per candidate row of a block
 MAX_PARTS = 2 ** 31 - 1  # A and C take the partitions on x; B on y, in
 #                          slices of 65,535
@@ -52,6 +58,10 @@ _SEQ_THREADS = 512
 _QUEUE_CAP = _SEQ_THREADS * 16 + _SEQ_THREADS   # kQueueCap
 _RESIDENT_BYTES = 131_072                       # kResidentBytes
 _FILTER_TILE_BYTES = 32_768                     # kFilterTileBytes
+_LANE_ROWS = 32                                 # kLaneRows
+# A and C's bytes apart from the candidates and resident rows: the queue,
+# the warp sums and the pending flags (kSeqFixedBytes)
+_SEQ_FIXED = 4 * _QUEUE_CAP + 4 * 32 + 4 * _SEQ_THREADS
 
 
 @functools.cache
@@ -79,6 +89,28 @@ def prefix_rows(npad: int, block: int, rows: int = PREFIX_ROWS) -> int:
     return min(npad, -(-rows // block) * block)
 
 
+def resident_rows(d: int, block: int) -> int:
+    """Window rows stages A and C keep in shared memory at (d, block).
+
+    Up to :data:`NARROW_D`, ``kResidentBytes`` of them.  Past it, what
+    the candidate block leaves of :data:`SMEM_LIMIT`, at most
+    ``kResidentBytes`` and at least ``kLaneRows`` rows (which may then
+    not fit: the law exceeds the limit).  The source's
+    ``resident_rows`` / ``resident_rows_wide``."""
+    cap = _RESIDENT_BYTES // (4 * d)
+    if d <= NARROW_D:
+        return cap
+    # a negative room is below kLaneRows however it is rounded
+    room = (SMEM_LIMIT - _SEQ_FIXED - 4 * d * block) // (4 * d)
+    return max(_LANE_ROWS, min(room, cap))
+
+
+def filter_tile_rows(d: int) -> int:
+    """Stage B's tile: ``kFilterTileBytes`` of coordinates, at least
+    ``kLaneRows`` rows (the source's ``filter_tile_rows``)."""
+    return max(_LANE_ROWS, _FILTER_TILE_BYTES // (4 * d))
+
+
 def sweep_smem_bytes(d: int, block: int,
                      wcap: int = 2 ** 31 - 1) -> dict[str, int]:
     """The footprint law: the shared memory (all of it dynamic) that one
@@ -86,16 +118,23 @@ def sweep_smem_bytes(d: int, block: int,
 
     Stages A and C (the sequential sweep): the candidate block, the row
     queue (a chunk of flags plus a partial block), the warp sums, one
-    pending flag per thread and the resident window rows.  Stage B: one
-    tile of the prefix window, at most the prefix's ``min(prefix rows,
-    wcap)`` rows.  Counterpart of
+    pending flag per thread and the :func:`resident_rows` window rows.
+    Stage B: one tile of the prefix window, :func:`filter_tile_rows` and
+    at most the prefix's ``min(prefix rows, wcap)`` rows.  Counterpart of
     ``repro.kernels.sfs.kernel.sweep_vmem_bytes``; the kernel's
     ``sfs_sweep_smem_bytes`` computes the same numbers."""
-    seq = (4 * d * block + 4 * _QUEUE_CAP + 4 * 32 + 4 * _SEQ_THREADS
-           + 4 * d * (_RESIDENT_BYTES // (4 * d)))
-    tile = min(_FILTER_TILE_BYTES // (4 * d), prefix_rows(2 ** 31 - 1, block),
-               wcap)
+    seq = 4 * d * block + _SEQ_FIXED + 4 * d * resident_rows(d, block)
+    tile = min(filter_tile_rows(d), prefix_rows(2 ** 31 - 1, block), wcap)
     return {"prefix": seq, "filter": 4 * d * tile, "survivors": seq}
+
+
+def largest_block(d: int, wcap: int = 2 ** 31 - 1) -> int:
+    """The largest block up to :data:`MAX_BLOCK` whose law fits
+    :data:`SMEM_LIMIT` at ``d``; 0 when none does."""
+    for block in range(MAX_BLOCK, 0, -1):
+        if max(sweep_smem_bytes(d, block, wcap).values()) <= SMEM_LIMIT:
+            return block
+    return 0
 
 
 def check_args(pts_s: torch.Tensor, mask_s: torch.Tensor, block: int,
@@ -109,8 +148,8 @@ def check_args(pts_s: torch.Tensor, mask_s: torch.Tensor, block: int,
         raise ValueError(f"expected (P, npad, d)/(P, npad), got "
                          f"{tuple(pts_s.shape)}/{tuple(mask_s.shape)}")
     p, npad, d = pts_s.shape
-    if not 1 <= d <= D_MAX:
-        raise ValueError(f"sfs_sweep_cuda takes 1 <= d <= {D_MAX}, got {d}")
+    if d < 1:
+        raise ValueError(f"sfs_sweep_cuda takes d >= 1, got {d}")
     if not 1 <= block <= MAX_BLOCK:
         raise ValueError(f"sfs_sweep_cuda takes 1 <= block <= {MAX_BLOCK}, "
                          f"got {block}")
@@ -125,8 +164,12 @@ def check_args(pts_s: torch.Tensor, mask_s: torch.Tensor, block: int,
     smem = sweep_smem_bytes(d, block, wcap)
     over = {k: v for k, v in smem.items() if v > SMEM_LIMIT}
     if over:
+        most = largest_block(d, wcap)
+        fits = (f"the largest block that fits at d={d} is {most}" if most
+                else f"no block fits at d={d}")
         raise ValueError(f"sfs_sweep_cuda would take {over} bytes of shared "
-                         f"memory per CTA, above {SMEM_LIMIT}")
+                         f"memory per CTA at d={d}, block={block}, above "
+                         f"{SMEM_LIMIT}; {fits}")
 
 
 def _launch(pts_s, mask_s, block, wcap, sentinel, prefix, events=None):

@@ -133,10 +133,6 @@ def sfs_sweep(pts_s: torch.Tensor, mask_s: torch.Tensor, *, block: int,
         raise ValueError(f"npad={pts_s.shape[1]} not a multiple of "
                          f"block={block}")
     spec = resolve_spec(spec, pts_s.device)
-    d = pts_s.shape[2]
-    if spec.max_d is not None and d > spec.max_d:
-        raise ValueError(f"d={d} > {spec.max_d} not supported by the "
-                         f"{spec.name!r} backend; use impl='torch'")
     wtile = _normalize_wtile(wtile, wcap, block)
     kw = dict(block=block, wcap=wcap, sentinel=sentinel)
     if spec.sweep == "cuda":

@@ -222,22 +222,25 @@ def _sweep_candidates(blocks: Sequence[int], capacity: int,
     return out
 
 
-def block_fits(sweep: str, block: int) -> bool:
-    """Whether the sweep implementation ``sweep`` takes ``block``: the
-    CUDA kernel takes 1..``MAX_BLOCK``, the others any positive block."""
+def block_fits(sweep: str, block: int, d: int) -> bool:
+    """Whether the sweep implementation ``sweep`` takes ``block`` at
+    ``d``: the CUDA kernel takes 1..``MAX_BLOCK`` where its footprint law
+    fits the card's per-CTA limit, the others any positive block."""
     if sweep == "cuda":
-        from repro_torch.kernels.sfs.kernel import MAX_BLOCK
-        return 1 <= block <= MAX_BLOCK
+        from repro_torch.kernels.sfs.kernel import (MAX_BLOCK, SMEM_LIMIT,
+                                                    sweep_smem_bytes)
+        return 1 <= block <= MAX_BLOCK and \
+            max(sweep_smem_bytes(d, block).values()) <= SMEM_LIMIT
     return block >= 1
 
 
-def sweep_candidates(sweep: str, blocks: Sequence[int],
-                     capacity: int) -> list[tuple[int, int]]:
+def sweep_candidates(sweep: str, blocks: Sequence[int], capacity: int,
+                     d: int) -> list[tuple[int, int]]:
     """The (block, wtile) candidates of the resolved sweep ``sweep``:
-    ``(b, 0)`` for each block the CUDA kernel takes under ``'cuda'``
-    (``wtile`` does not reach it), the reference's grid otherwise."""
+    ``(b, 0)`` for each block the CUDA kernel takes under ``'cuda'`` at
+    ``d`` (``wtile`` does not reach it), the reference's grid otherwise."""
     if sweep == "cuda":
-        return [(b, 0) for b in blocks if block_fits(sweep, b)]
+        return [(b, 0) for b in blocks if block_fits(sweep, b, d)]
     return _sweep_candidates(blocks, capacity)
 
 
@@ -301,8 +304,6 @@ def calibrate_kernels(engine=None, *,
 
     psz = _ceil_to(max(n // max(p, 1), 1), max(blocks))
     for d in ds:
-        if spec.max_d is not None and d > spec.max_d:
-            continue
         for dtype in dtypes:
             rng = np.random.default_rng(d * 1000 + 17)
             # quantised coordinates: dense dominance ties, where the
@@ -313,7 +314,7 @@ def calibrate_kernels(engine=None, *,
             mask = torch.ones((p, psz), dtype=torch.bool, device=dev)
 
             # --- sweep family: (block, wtile) candidates ---------------
-            cands = sweep_candidates(spec.sweep, blocks, capacity)
+            cands = sweep_candidates(spec.sweep, blocks, capacity, d)
             thunks = {
                 f"b{b}/t{t}": (lambda b=b, t=t: local_skyline_batch(
                     pts, mask, capacity=capacity, block=b,
@@ -338,7 +339,9 @@ def calibrate_kernels(engine=None, *,
                 "times_us": {k: round(v * 1e6, 2) for k, v in times.items()},
                 "bitwise_ok": ok}
             valid = [k for k in times if ok[k]]
-            if not valid:
+            if not cands:
+                pass              # no block's law fits at this d
+            elif not valid:
                 report["divergent"].append(key)
             else:
                 win = min(valid, key=times.get)

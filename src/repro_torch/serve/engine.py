@@ -357,9 +357,9 @@ class SkylineEngine:
         and ``cfg.wtile`` unset (a pinned tile always wins); the entry
         for ``sweep/d/dtype`` must have passed its bitwise check.  One
         addition: an entry whose block the resolved sweep cannot take
-        (above the CUDA kernel's ``MAX_BLOCK`` when it resolves to
-        ``'cuda'``, as from a table written for another device) is not
-        applied.  SkyConfig is value-equal, so two requests tuned to the
+        at the stream's ``d`` (above the CUDA kernel's ``MAX_BLOCK``, as
+        from a table written for another device, or past its footprint
+        law when it resolves to ``'cuda'``) is not applied.  SkyConfig is value-equal, so two requests tuned to the
         same geometry share one config."""
         cfg = self.cfg
         if impl is not None and impl != cfg.impl:
@@ -374,7 +374,8 @@ class SkylineEngine:
                 entry = table.entries.get(
                     tuning_key("sweep", d, dtype or "float32"))
                 if entry is not None and entry.bitwise_ok \
-                        and block_fits(self.kernel_spec.sweep, entry.block):
+                        and block_fits(self.kernel_spec.sweep, entry.block,
+                                       d):
                     cfg = dataclasses.replace(cfg, block=entry.block,
                                               wtile=entry.wtile)
         return cfg

@@ -678,8 +678,10 @@ def test_stream_cell_without_donation_fails_the_in_place_check(
 
 
 def test_a_d_above_the_shared_memory_law_fails_the_cap(monkeypatch):
+    # d = 128 at block 512: the candidate block leaves the resident window
+    # fewer than 32 rows (d = 64 at block 512 fits since the wide variant)
     monkeypatch.setitem(VERIFIER_EXTRA_CELLS, "sweep_wide", dict(
-        kind="sweep", n=256, d=64, p=4, capacity=512, block=512))
+        kind="sweep", n=256, d=128, p=4, capacity=512, block=512))
     report, errors = verify_programs(["sweep_wide"], device="cpu")
     assert report["cells"]["sweep_wide"]["smem"]["sweep"] > \
         report["smem_cap"]

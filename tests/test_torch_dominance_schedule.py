@@ -52,8 +52,9 @@ CHUNK = kernel._THREADS * kernel._COMPACT_PER   # reference rows per chunk
 
 def _tile_rows(d, tile_bytes):
     """The kernel's tile law at any tile size: the model runs smaller
-    tiles than the kernel's so that small inputs span many of them."""
-    return tile_bytes // (4 * d) // 32 * 32
+    tiles than the kernel's so that small inputs span many of them.  At
+    least one 32-row step at any d."""
+    return max(32, tile_bytes // (4 * d) // 32 * 32)
 
 
 def _pairs(rows, x):
@@ -228,6 +229,14 @@ def _tie_heavy(rng, shape, levels=4):
     return torch.from_numpy(x)
 
 
+def _graded(rng, shape):
+    """A per-row level plus quantised noise: rows dominate one another at
+    any d, with ties and duplicates."""
+    base = rng.random(shape[:-1] + (1,))
+    x = np.round((base + 0.25 * rng.random(shape)) * 16) / 16
+    return torch.from_numpy(x.astype(np.float32))
+
+
 def _uniform(rng, shape):
     return torch.from_numpy(rng.random(shape).astype(np.float32))
 
@@ -257,17 +266,24 @@ def test_compaction_keeps_order_shared_and_per_batch():
     assert per[0].shape[0] == 3 and per[2].tolist() == mask.sum(1).tolist()
 
 
-@pytest.mark.parametrize("d", range(1, 13))
+WIDE_D = (13, 16, 20, 32, 64, 128, 256)
+
+
+@pytest.mark.parametrize("d", list(range(1, 13)) + list(WIDE_D))
 def test_ties_negative_zero_duplicates_each_d(d):
     """Tie-heavy data with -0.0 and duplicated rows, compacted (R past one
-    tile) and direct, with and without lower_tri."""
+    tile) and direct, with and without lower_tri; past d = 12 half the
+    candidates graded, so that rows still dominate one another."""
     rng = np.random.default_rng(d)
     tb = 32 * 4 * d          # one 32-row tile: several tiles at small R
     cands = _tie_heavy(rng, (2, 150, d))
+    if d > kernel.NARROW_D:
+        cands[:, 75:] = _graded(rng, (2, 75, d))
     refs = torch.cat([_tie_heavy(rng, (2, 100, d)), cands[:, :60]], 1)
     mask = torch.from_numpy(rng.random((2, 160)) > 0.3)
     assert _check(cands, refs, mask, tile_bytes=tb)["compacted"]
-    assert not _check(cands, refs, mask)["compacted"]
+    n = min(160, kernel.tile_rows(d))        # one of the kernel's tiles
+    assert not _check(cands, refs[:, :n], mask[:, :n])["compacted"]
     x = cands
     m = torch.from_numpy(rng.random((2, 150)) > 0.2)
     _check(x, x, m, lower_tri=True, tile_bytes=tb)
@@ -339,7 +355,7 @@ def test_all_masked_batch_among_live_ones():
     assert not trace["compacted"]
 
 
-@pytest.mark.parametrize("d", [1, 4, 12])
+@pytest.mark.parametrize("d", [1, 4, 12, 13, 64, 129, 256])
 @pytest.mark.parametrize("extra", [0, 1])
 def test_r_at_the_small_r_threshold(d, extra):
     """R = tile_rows(d) takes the direct path, one more row grid 1."""
@@ -428,22 +444,42 @@ def test_law_mirrors_the_source():
     assert c["kLaneUnroll"] == kernel._LANE_UNROLL
     assert c["kCompactPer"] == kernel._COMPACT_PER
     assert c["kSmemLimit"] == kernel.SMEM_LIMIT
+    assert c["kNarrowD"] == kernel.NARROW_D
 
 
-@pytest.mark.parametrize("d", range(1, 13))
+@pytest.mark.parametrize("d", list(range(1, 13)) + list(WIDE_D) + [604])
 def test_law_within_the_limit(d):
-    """At every d each form's CTA fits the 232,448 bytes one CTA may
-    take, and a tile holds whole 32-row steps, at least one."""
-    t = kernel.TILE_BYTES // (4 * d) // 32 * 32
+    """At every d up to 604 each form's CTA fits the 232,448 bytes one
+    CTA may take, and a tile holds whole 32-row steps, at least one (the
+    only size past d = 128)."""
+    t = max(32, kernel.TILE_BYTES // (4 * d) // 32 * 32)
     assert kernel.tile_rows(d) == _tile_rows(d, kernel.TILE_BYTES) == t
     assert t % 32 == 0 and t >= 32
     law = kernel.dominance_smem_bytes(d)
     assert law == {"ring": 4 * (d + 1) * (32 + 2 * t),
                    "direct": 4 * (d + 1) * t}
     assert all(0 < v <= kernel.SMEM_LIMIT for v in law.values()), law
-    assert kernel.dominance_smem_bytes(d, r=33)["direct"] == 4 * (d + 1) * 64
+    if t > 32:
+        assert kernel.dominance_smem_bytes(d, r=33)["direct"] == \
+            4 * (d + 1) * 64
     assert kernel.dominance_smem_bytes(d, r=0)["direct"] == 0
     assert kernel.tile_rows(4) == 1024
+    assert kernel.dominance_smem_bytes(256)["ring"] == 98_688
+
+
+def test_check_args_refuses_past_the_law():
+    """d = 605 puts the ring past the limit; the direct form, one
+    32-row tile, still fits; d = 0 is refused."""
+    assert kernel.dominance_smem_bytes(605)["ring"] > kernel.SMEM_LIMIT
+    cands = torch.rand(1, 8, 605)
+    with pytest.raises(ValueError, match="d=605 \\(ring form\\)"):
+        kernel.check_args(cands, torch.rand(1, 33, 605),
+                          torch.ones(1, 33, dtype=torch.bool))
+    kernel.check_args(cands, torch.rand(1, 32, 605),
+                      torch.ones(1, 32, dtype=torch.bool))
+    with pytest.raises(ValueError, match="d >= 1"):
+        kernel.check_args(torch.rand(1, 8, 0), torch.rand(1, 4, 0),
+                          torch.ones(1, 4, dtype=torch.bool))
 
 
 def test_scratch_words():

@@ -122,11 +122,14 @@ def test_calibrate_applies_to_an_engine(tmp_path):
     ((64, 128), 256), ((128, 256, 512), 4096), ((64,), 100), ((96,), 500),
     ((256,), 64)])
 def test_sweep_candidates_match_the_reference(blocks, capacity):
-    assert sweep_candidates("torch", blocks, capacity) == \
+    assert sweep_candidates("torch", blocks, capacity, 4) == \
         jtuning._sweep_candidates(blocks, capacity)
     # the CUDA sweep takes no tile: one candidate per block it takes
-    assert sweep_candidates("cuda", blocks + (1024,), capacity) == \
+    assert sweep_candidates("cuda", blocks + (1024,), capacity, 4) == \
         [(b, 0) for b in blocks if b <= sfs_kernel.MAX_BLOCK]
+    # at d = 128 its footprint law refuses blocks above 349
+    assert sweep_candidates("cuda", blocks, capacity, 128) == \
+        [(b, 0) for b in blocks if b <= 349]
 
 
 def test_tables_cross_between_the_packages(tmp_path):
@@ -283,3 +286,29 @@ def test_wave_time_falls_back_in_the_reference_order():
     tl._ewma = 0.0
     assert [tl._wave_time(k) for k in keys] == \
         [0.002, 250.0 * 1e-6, 40.0 * 1e-6, 0.0, 0.0]
+
+
+def test_cuda_sweep_skips_blocks_past_its_law_at_the_streams_d():
+    """Past d = 12 the CUDA sweep's footprint law bounds the block: at
+    d = 128 the largest is 349, so a tuned block of 512 is not applied
+    there, while at d = 64 it is.  Nothing is launched."""
+    eng = _engine()
+    eng.kernel_spec = backend.resolve_spec("auto", torch.device("cuda"))
+    entry = TuneEntry(block=512, wtile=0, time_us=1.0, impl="cuda")
+    eng.kernel_tuning = TuningTable(entries={
+        tuning_key("sweep", d, torch.float32): entry for d in (64, 128)})
+    assert sfs_kernel.largest_block(128) == 349
+    assert eng._cfg_for(None, 128, "float32") == eng.cfg
+    assert eng._cfg_for(None, 64, "float32").block == 512
+
+
+def test_calibration_takes_a_wide_d():
+    """calibrate_kernels skips no d: at d = 13 both families get an entry,
+    each checked bit for bit against its oracle."""
+    rep = calibrate_kernels(None, ds=(13,), n=256, p=2, capacity=128,
+                            blocks=(64,), repeat=1, apply=False,
+                            device="cpu")
+    assert sorted(rep["table"].entries) == [
+        tuning_key("dominance", 13, torch.float32),
+        tuning_key("sweep", 13, torch.float32)]
+    assert rep["divergent"] == []

@@ -88,15 +88,15 @@ def test_auto_follows_the_data():
 
 def test_dominance_family_in_the_registry():
     """'cuda' -> 'cuda', 'torch' -> 'torch', 'perpair' -> 'torch' (the
-    reference maps it to 'jnp'); max_d is the minimum over both
-    families."""
+    reference maps it to 'jnp'); max_d is None for every backend, the
+    CUDA kernels' included (their wide variants take any d that their
+    footprint laws fit, as the reference's 'gpu' backend takes any d)."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert backend.resolve_spec("auto", cuda).dominance == "cuda"
     assert backend.resolve_spec("auto", cpu).dominance == "torch"
     assert backend.resolve_spec("torch", cuda).dominance == "torch"
     assert backend.resolve_spec("perpair", cpu).dominance == "torch"
-    assert backend.resolve_spec("cuda", cuda).max_d == min(
-        kernel.D_MAX, dkernel.D_MAX)
+    assert backend.resolve_spec("cuda", cuda).max_d is None
     assert backend.resolve_spec("torch", cpu).max_d is None
     with pytest.raises(ValueError, match="unknown dominance impl"):
         backend.KernelSpec("x", sweep="torch", dominance="jnp")
@@ -142,7 +142,8 @@ def test_cuda_dominance_on_cpu_tensor_raises():
     dict(mask=torch.ones(2, 39, dtype=torch.bool)),               # shape
     dict(refs=torch.rand(3, 40, 3)),
     dict(cands=torch.rand(64, 3)),                                # rank
-    dict(cands=torch.rand(2, 64, 13), refs=torch.rand(2, 40, 13)),  # d > 12
+    dict(cands=torch.rand(2, 64, 700), refs=torch.rand(2, 40, 700)),  # law
+    dict(cands=torch.rand(2, 64, 0), refs=torch.rand(2, 40, 0)),  # d = 0
     dict(cands=torch.rand(0, 64, 3), refs=torch.rand(0, 40, 3),
          mask=torch.ones(0, 40, dtype=torch.bool)),               # B = 0
 ])
@@ -179,7 +180,8 @@ def test_dominance_entry_argument_checks():
     dict(mask=torch.ones(2, 64, dtype=torch.uint8)),              # mask dtype
     dict(pts=torch.rand(2, 3, 64).transpose(1, 2)),               # layout
     dict(mask=torch.ones(2, 63, dtype=torch.bool)),               # shape
-    dict(pts=torch.rand(2, 64, 13)),                              # d > 12
+    dict(pts=torch.rand(2, 64, 1000)),                            # law
+    dict(pts=torch.rand(2, 64, 0)),                               # d = 0
     dict(block=513),                                              # block
     dict(block=0),
     dict(block=48),                                               # npad % block

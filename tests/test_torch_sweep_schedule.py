@@ -8,8 +8,13 @@ dense blocks when ``c_A + survivors <= wcap`` and kept in their original
 blocks otherwise.  ``staged_sweep`` below models those stages as the
 kernel runs them: flags read a chunk of rows at a time into a queue,
 blocks taken off the queue where they end, a block that goes on past
-the chunk carried over, and C testing only the window rows appended
-after B.  It lives here and not in the package: the package's plain
+the chunk carried over, C testing only the window rows appended after
+B (the first ``resident`` of them from shared memory, the rest from the
+output window), and B testing each CTA's rows against A's window in
+tiles of ``tile`` rows, stopping when none is alive.  ``resident`` and
+``tile`` default to the kernel's law at (d, block), which past d = 12
+(the wide variant) shrinks the resident rows as the candidate block
+grows.  It lives here and not in the package: the package's plain
 version stays the straightforward sweep.  Tolerance: zero (every leaf
 through its bits, so -0.0 must stay -0.0).
 
@@ -36,6 +41,7 @@ from repro_torch.kernels.sfs import ops as tops
 
 SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
           / "kernels" / "sfs" / "csrc" / "sfs_sweep.cu")
+FILTER_ROWS = 256 * 2        # stage B's rows a CTA (kFilterRows)
 
 
 def _pairs(refs, x):
@@ -51,9 +57,11 @@ def _dominated(refs, x):
 
 
 def _seq(pts, flags, r0, r1, win, wmask, count, skip, packed, block, wcap,
-         chunk):
+         chunk, resident):
     """Stage A or C on one partition: the set rows of [r0, r1), read
-    ``chunk`` flags at a time; returns the count."""
+    ``chunk`` flags at a time; returns the count.  The window rows after
+    ``skip`` are tested in two parts, the ``resident`` rows kept in shared
+    memory and the rest read from the window."""
     queue = []
     n = r1 - r0
     for c0 in range(0, n, chunk):
@@ -77,7 +85,9 @@ def _seq(pts, flags, r0, r1, win, wmask, count, skip, packed, block, wcap,
                 break
             x = pts[queue[s:s + nb]]
             live = min(count, wcap)
-            dom = _dominated(win[skip:live], x)
+            res_end = min(live, skip + resident)
+            dom = _dominated(win[skip:res_end], x)
+            dom |= _dominated(win[res_end:live], x)
             dom |= (_pairs(x, x) & torch.ones(nb, nb, dtype=torch.bool)
                     .triu(1)).any(0)
             for i in range(nb):
@@ -91,14 +101,33 @@ def _seq(pts, flags, r0, r1, win, wmask, count, skip, packed, block, wcap,
     return count
 
 
+def _filter(x, mask, w, tile):
+    """Stage B on one partition's rows ``x``: each CTA of
+    ``FILTER_ROWS`` rows against the window ``w`` a tile at a time, until
+    none of its rows is alive."""
+    alive = mask.clone()
+    for c0 in range(0, x.shape[0], FILTER_ROWS):
+        a = alive[c0:c0 + FILTER_ROWS]
+        for t0 in range(0, w.shape[0], tile):
+            if not bool(a.any()):
+                break
+            a &= ~_dominated(w[t0:t0 + tile], x[c0:c0 + FILTER_ROWS])
+    return alive
+
+
 def staged_sweep(pts_s, mask_s, *, block, wcap, sentinel, k, chunk=8192,
-                 guard=True):
+                 guard=True, resident=None, tile=None):
     """The kernel's schedule with a prefix of ``k`` blocks.  Returns the
     sweep's three outputs and, per partition, stage A's count ``c_a``,
     B's ``survivors`` and the ``branch`` C took (None where A covered
     the sweep).  ``guard=False`` packs whatever the count: that is wrong
-    under overflow."""
+    under overflow.  ``resident`` (A and C's resident window rows) and
+    ``tile`` (B's tile rows) default to the kernel's law."""
     p, npad, d = pts_s.shape
+    if resident is None:
+        resident = kernel.resident_rows(d, block)
+    if tile is None:
+        tile = kernel.filter_tile_rows(d)
     r0 = min(npad, k * block)
     window = torch.full((p, wcap, d), sentinel, dtype=pts_s.dtype)
     wmask = torch.zeros((p, wcap), dtype=torch.bool)
@@ -106,16 +135,19 @@ def staged_sweep(pts_s, mask_s, *, block, wcap, sentinel, k, chunk=8192,
     info = {"c_a": [], "survivors": [], "branch": []}
     for i in range(p):
         x, w, wm = pts_s[i], window[i], wmask[i]
-        c = _seq(x, mask_s[i], 0, r0, w, wm, 0, 0, False, block, wcap, chunk)
+        c = _seq(x, mask_s[i], 0, r0, w, wm, 0, 0, False, block, wcap, chunk,
+                 resident)
         info["c_a"].append(c)
         b, n_alive = None, 0
         if r0 < npad:
-            alive = mask_s[i, r0:] & ~_dominated(w[:min(c, wcap)], x[r0:])
+            t = min(tile, r0, wcap)         # at most the prefix window
+            alive = _filter(x[r0:], mask_s[i, r0:], w[:min(c, wcap)],
+                            max(t, 1))
             n_alive = int(alive.sum())
             packed = c + n_alive <= wcap or not guard
             b = "packed" if packed else "original"
             c = _seq(x, alive, r0, npad, w, wm, c, min(c, wcap), packed,
-                     block, wcap, chunk)
+                     block, wcap, chunk, resident)
         count[i] = c
         info["survivors"].append(n_alive)
         info["branch"].append(b)
@@ -133,11 +165,12 @@ def _assert_leaves_equal(got, want, ctx):
                                       err_msg=f"{name} differs {ctx}")
 
 
-def _check(pts_s, mask_s, *, block, wcap, k, chunk=8192):
+def _check(pts_s, mask_s, *, block, wcap, k, chunk=8192, **sizes):
     """The staged model against the plain sweep and JAX's per-pair sweep;
-    returns the model's branches."""
+    returns the model's branches.  ``sizes``: the model's ``resident``
+    and ``tile``, when not the law's."""
     kw = dict(block=block, wcap=wcap, sentinel=SENTINEL)
-    got, info = staged_sweep(pts_s, mask_s, k=k, chunk=chunk, **kw)
+    got, info = staged_sweep(pts_s, mask_s, k=k, chunk=chunk, **sizes, **kw)
     got = [t.numpy() for t in got]
     want = [t.numpy() for t in tops.sfs_sweep_torch(pts_s, mask_s, **kw)]
     ctx = f"(k={k}, chunk={chunk}, block={block}, wcap={wcap})"
@@ -298,6 +331,32 @@ def test_antichain_filter_drops_nothing():
         assert info["survivors"] == [168, 168]           # all 200 - 32
 
 
+@pytest.mark.parametrize("d", [16, 64])
+def test_wide_d_at_the_laws_sizes(d):
+    """The wide variant's sizes at d = 16 and 64, block 512: an antichain
+    whose window outgrows the resident rows (251 at d = 64; at d = 16,
+    whose 2,048 rows it does not reach, also a resident window of 40
+    rows), B's tiles of filter_tile_rows(d) rows over a prefix window of
+    512, and overflow; then tie-heavy rows with -0.0."""
+    rng = np.random.default_rng(d)
+    x = rng.random((2, 800, d)).astype(np.float32) + 1e-3
+    x /= x.sum(-1, keepdims=True)                     # an antichain
+    mask = rng.random((2, 800)) > 0.05
+    pts_p, mask_p, block, wcap = _sorted(x, mask, 800, 512)
+    assert kernel.resident_rows(d, block) == {16: 2048, 64: 251}[d]
+    assert kernel.filter_tile_rows(d) == 32_768 // (4 * d)
+    for sizes in ({}, dict(resident=40)):
+        assert _check(pts_p, mask_p, block=block, wcap=wcap, k=1,
+                      **sizes) == ["packed"] * 2
+        assert _check(pts_p, mask_p, block=block, wcap=512, k=1,
+                      **sizes) == ["original"] * 2
+    t = (rng.integers(0, 3, (2, 600, d)) / 3).astype(np.float32)
+    t[rng.random(t.shape) < 0.05] = -0.0
+    pts_p, mask_p, block, wcap = _sorted(t, mask[:, :600], 600, 256)
+    for k in (1, 2):
+        _check(pts_p, mask_p, block=block, wcap=wcap, k=k, chunk=300)
+
+
 @settings(max_examples=25, deadline=None, database=None)
 @given(st.integers(1, 3), st.integers(0, 70), st.integers(1, 5),
        st.integers(0, 4), st.sampled_from([1, 2, 3, 8, 16]),
@@ -340,31 +399,75 @@ def _source_constants():
 def test_law_mirrors_the_source():
     """The law's constants are the CUDA source's."""
     c = _source_constants()
+    src = SOURCE.read_text()
     assert c["kSeqThreads"] == kernel.MAX_BLOCK == kernel._SEQ_THREADS
     assert kernel._QUEUE_CAP == c["kSeqThreads"] * c["kFlagsPerThread"] + \
         c["kSeqThreads"]
     assert c["kResidentBytes"] == kernel._RESIDENT_BYTES
     assert c["kFilterTileBytes"] == kernel._FILTER_TILE_BYTES
     assert c["kSmemLimit"] == kernel.SMEM_LIMIT
+    assert c["kNarrowD"] == kernel.NARROW_D
+    assert c["kLaneRows"] == kernel._LANE_ROWS
+    assert c["kFilterThreads"] * c["kFilterPer"] == FILTER_ROWS
+    assert re.search(r"kSeqFixedBytes =\s+4LL \* kQueueCap \+ 4LL \* 32 \+ "
+                     r"4LL \* kSeqThreads;", src)
+    assert kernel._SEQ_FIXED == (4 * kernel._QUEUE_CAP + 4 * 32
+                                 + 4 * kernel._SEQ_THREADS)
 
 
-@pytest.mark.parametrize("d", range(1, 13))
+WIDE_D = (13, 16, 20, 24, 32, 48, 64, 96, 128)
+
+
+@pytest.mark.parametrize("d", list(range(1, 13)) + list(WIDE_D))
 def test_law_within_the_limit(d):
-    """At every d and the largest block, each stage's CTA fits the
-    232,448 bytes one CTA may take on sm_90."""
-    for block in (1, 2, 256, kernel.MAX_BLOCK):
+    """At every d up to 128 and every block up to 256, and at every d
+    up to 64 and the largest block, each stage's CTA fits the 232,448
+    bytes one CTA may take on sm_90.  Up to d = 12 the resident window is
+    kResidentBytes; past it, what the candidate block leaves of the
+    limit, at most kResidentBytes and at least kLaneRows rows."""
+    blocks = (1, 2, 255, 256) + ((kernel.MAX_BLOCK,) if d <= 64 else ())
+    for block in blocks:
         law = kernel.sweep_smem_bytes(d, block)
         assert set(law) == {"prefix", "filter", "survivors"}
         assert all(0 < v <= kernel.SMEM_LIMIT for v in law.values()), law
-    law = kernel.sweep_smem_bytes(d, kernel.MAX_BLOCK)
-    resident = 131_072 // (4 * d)
-    assert law["prefix"] == law["survivors"] == (
-        4 * d * 512 + 4 * (512 * 16 + 512) + 4 * 32 + 4 * 512
-        + 4 * d * resident)
-    assert law["filter"] == 4 * d * min(32_768 // (4 * d), 4096)
+        cap = 131_072 // (4 * d)
+        room = (kernel.SMEM_LIMIT - 4 * (512 * 16 + 512) - 4 * 32 - 4 * 512
+                - 4 * d * block) // (4 * d)
+        resident = cap if d <= 12 else min(cap, room)
+        assert resident >= 32
+        assert kernel.resident_rows(d, block) == resident
+        assert law["prefix"] == law["survivors"] == (
+            4 * d * block + 4 * (512 * 16 + 512) + 4 * 32 + 4 * 512
+            + 4 * d * resident)
+        tile = max(32, 32_768 // (4 * d))
+        assert law["filter"] == 4 * d * min(
+            tile, kernel.prefix_rows(2 ** 31 - 1, block))
     # the filter tile is at most the prefix window
     assert kernel.sweep_smem_bytes(d, 256, wcap=10)["filter"] == 40 * d
     assert kernel.sweep_smem_bytes(d, 256, wcap=0)["filter"] == 0
+    assert kernel.largest_block(d) >= (512 if d <= 64 else 256)
+
+
+@pytest.mark.parametrize("d,block", [(128, 350), (200, 256), (90, 512),
+                                     (1481, 1)])
+def test_check_args_refuses_past_the_law(d, block):
+    """check_args refuses exactly where the law exceeds the limit, and
+    names the largest block that fits (a block of one does not fit past
+    d = 1,480)."""
+    most = kernel.largest_block(d)
+    assert most == {128: 349, 200: 212, 90: 510, 1481: 0}[d]
+    assert max(kernel.sweep_smem_bytes(d, block).values()) > kernel.SMEM_LIMIT
+    pts = torch.rand(1, block, d)
+    mask = torch.ones(1, block, dtype=torch.bool)
+    fits = (f"the largest block that fits at d={d} is {most}" if most
+            else f"no block fits at d={d}")
+    with pytest.raises(ValueError, match=fits):
+        kernel.check_args(pts, mask, block, 64)
+    if most:
+        assert max(kernel.sweep_smem_bytes(d, most).values()) <= \
+            kernel.SMEM_LIMIT
+        kernel.check_args(torch.rand(1, most, d),
+                          torch.ones(1, most, dtype=torch.bool), most, 64)
 
 
 def test_check_args_raises_above_the_limit(monkeypatch):
