@@ -145,24 +145,28 @@ It builds the port's CUDA kernels from the sources in the checkout
      at d = 256, bit for bit their plain versions and the per-pair /
      O(C x R) oracles, through the entry and their grids (ties, an
      antichain overflowing past the prefix, -0.0, subnormals, score
-     ties, graded rows past the prefix, both branches of the last grid,
-     an all-masked partition; the direct and compacted forms, a masked
-     tail, lower_tri over several tiles, a batch with shared references,
-     an all-masked batch), each wide law against the built kernel's
-     numbers, ptxas's registers and spills of each wide kernel, and
-     ``check_args`` refusing past the law; W2, ``parallel_skyline`` at
-     the default config on correlated data at N = 10^5, d = 16,
-     uniform at N = 30,000, d = 16 and correlated at N = 50,000, d = 32
-     (cut from 10^7, 10^6 and 10^6: the skylines hold 15-90% of the
-     rows, and the last grid of the merge's sweep runs on one SM), each
-     at the smallest power-of-two capacity that holds the skyline and
-     the union, 2 sweep launches, bit for bit the plain version's, its
-     membership held by the wide dominance kernel; W3, ten inserts of
-     3,000 of W2's uniform rows into a live state at d = 16, 2 + 2
-     launches each, every snapshot the plain version's, the last W2's
-     one-shot answer; W4, every query and insert timed, each sweep call
-     (with its grids) and dominance call beside its plain version and
-     its bound;
+     ties, graded rows past the prefix, an all-masked partition; at
+     every d both branches, the packed one on the grids R, Q and S and
+     the original one on C, and c_A + survivors at wcap and wcap + 1;
+     65,537 partitions at d = 13 across the grid-y slices; the direct
+     and compacted forms, a masked tail, lower_tri over several tiles, a
+     batch with shared references, an all-masked batch), each wide law
+     against the built kernel's numbers, ptxas's registers and spills
+     of each wide kernel (none in R, Q, S), and ``check_args`` refusing
+     past the law; W2, ``parallel_skyline`` at the default config on
+     correlated data at N = 10^7, d = 16, uniform at 10^6, d = 16 and
+     correlated at 10^6, d = 32, each at the smallest power-of-two
+     capacity that holds the skyline and the union, 2 sweep launches,
+     its answer held by membership with the wide dominance kernel and,
+     on its first 2^15-2^17 rows, bit for bit against the plain
+     version, its query and merge call's grids timed; W3, ten inserts
+     of 10^5 of W2's uniform rows into a live state at d = 16, 2 + 2
+     launches each, the first against the plain version, the last
+     snapshot W2's one-shot answer; W4, at sizes where the plain
+     versions and the bounds' replays run (200,000, 36,000 and 70,000
+     rows; ten inserts of 3,600), every query and insert timed and held
+     bit for bit against the plain version, each sweep call (with its
+     grids) and dominance call beside its plain version and its bound;
   V. runs the program verifier (``repro_torch.analysis.verifier``) on
      the card, after the serve step: first which of the census's host
      operations raise under set_sync_debug_mode("error") on this card,
@@ -472,6 +476,10 @@ def ptxas_report(log: str) -> dict:
                 if name.startswith("dominance_walk"):
                     name += (f"<{'ring' if flags[1] == '1' else 'direct'}"
                              f"{', lower_tri' if flags[0] == '1' else ''}>")
+                # the two passes of the sweep's grids R and S
+                if name in ("sweep_rank_wide_kernel",
+                            "sweep_append_wide_kernel"):
+                    name += f"<{'scatter' if flags[0] == '1' else 'count'}>"
                 entry = (name, int(km.group(2) or 0))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -5387,6 +5395,10 @@ def main() -> None:
 # -- step W: wide attribute counts (d > 12) --------------------------------
 
 W_DS = (13, 16, 20, 24, 32, 64, 128)       # both kernels, step W1
+PACKED_GRIDS = ("sweep_rank_wide_kernel<count>",    # the sweep's packed
+                "sweep_rank_wide_kernel<scatter>",  # branch past d = 12
+                "sweep_pairs_wide_kernel", "sweep_append_wide_kernel<count>",
+                "sweep_append_wide_kernel<scatter>")
 W_DOM_DS = W_DS + (256,)                   # the dominance kernel also here
 # per d, the sweep cases beyond the two every d runs (graded rows past the
 # prefix, packed; an antichain past the prefix at capacity << n, which C
@@ -5402,32 +5414,48 @@ W_SWEEP_EXTRA = {
     64: (("scoretie", 2, 5000, 5000, 512), ("denormal", 2, 2000, 2000, 128)),
     128: (("mixed", 2, 5000, 512, 256), ("masked", 3, 5000, 5000, 256)),
 }
-# W2's cells, cut from the sizes a user would ask for (correlated d = 16
-# at 10^7, uniform d = 16 at 10^6, correlated d = 32 at 10^6) to what
-# fits step W's 90 s: their skylines hold 15-90% of the rows, and the
-# merge sweep's last grid, one CTA on one SM, takes O(rows x skyline)
-# (the correlated 10^7 cell did not end in 900 s)
-W2_CELLS = (("correlated", 16, 200_000), ("uniform", 16, 36_000),
+# W2's cells at the sizes users ask for (correlated d = 16 at 10^7 rows,
+# uniform d = 16 at 10^6, correlated d = 32 at 10^6): each answer held by
+# membership at full size and against impl='torch' on its first
+# W2_PLAIN_N rows (the plain sweep is O(rows x skyline) on these
+# skylines of 15-90% of the rows)
+W2_CELLS = (("correlated", 16, 10_000_000), ("uniform", 16, 1_000_000),
+            ("correlated", 32, 1_000_000))
+W2_PLAIN_N = {("correlated", 16): 1 << 17, ("uniform", 16): 1 << 15,
+              ("correlated", 32): 1 << 16}
+# W3: ten inserts of W2's uniform rows, 10^5 rows each
+W3_D, W3_ROWS, W3_INSERTS = 16, 100_000, 10
+# W4 times the calls at smaller sizes, where the bounds' replays
+# (count_compares, count_dom_compares) and the plain versions run: each
+# whole answer, sweep call and insert held against its plain version
+W4_CELLS = (("correlated", 16, 200_000), ("uniform", 16, 36_000),
             ("correlated", 32, 70_000))
-# W3: ten inserts of W2's uniform rows (cut from 10^5 rows an insert)
-W3_D, W3_ROWS, W3_INSERTS = 16, 3_600, 10
+W4_INSERT_ROWS = 3_600
 
 
 def _pow2_at_least(n: int) -> int:
     return 1 << max(0, (max(n, 1) - 1).bit_length())
 
 
+def grids_text(info) -> str:
+    """The ms of each grid of one sweep_stages call: R, Q and S run the
+    packed partitions past d = 12, C the original ones."""
+    return ", ".join(f"{g} {info[k]:.3f}" for g, k in STAGE_KEYS) + " ms"
+
+
 def wide_sweep_cases(dev, tag) -> float:
     """W1, the sweep kernel at each d of W_DS against its plain version and
     the per-pair oracle, through the entry and through its grids at
-    prefixes of 0, 1 and 3 blocks; both branches of stage C and an
-    all-masked partition.  Returns the largest |difference|."""
+    prefixes of 0, 1 and 3 blocks; at every d both branches (grids R, Q
+    and S where a partition packs, C where it would overflow), the wcap
+    edge and an all-masked partition; then 65,537 partitions at d = 13.
+    Returns the largest |difference|."""
     from repro_torch.core import sfs
     from repro_torch.core.dominance import SENTINEL
     from repro_torch.kernels.sfs import kernel, ops
     err = 0.0
-    branches = set()
     for d in W_DS:
+        branches = set()
         cases = (("graded", 2, 5000, 5000, 256),
                  ("simplex", 2, 5000, 128, 128)) + W_SWEEP_EXTRA[d]
         for i, (kind, p, n, cap, blk) in enumerate(cases):
@@ -5460,10 +5488,10 @@ def wide_sweep_cases(dev, tag) -> float:
                       f"prefix of {pre} rows differs on {name}")
             branch = info["packed"]
             branches.update(b for b in branch if b is not None)
-            if n > kernel.PREFIX_ROWS:
+            if info["prefix_rows"] < pts_p.shape[1]:
                 check(None not in branch, f"W1 {name}: B and C did not run")
             if kind == "simplex" and cap < n:
-                check(not any(branch), f"W1 {name}: C packed under overflow")
+                check(not any(branch), f"W1 {name}: packed under overflow")
             if kind == "masked":
                 check(info["c_a"][p // 2] == 0
                       and info["survivors"][p // 2] == 0,
@@ -5471,11 +5499,87 @@ def wide_sweep_cases(dev, tag) -> float:
             print(f"{tag} W1 sweep {name}: bitwise equal to the plain "
                   f"version and perpair, also at prefixes 0, {blk_e} and "
                   f"{3 * blk_e} rows (counts {got[2].tolist()}; c_A "
-                  f"{info['c_a']}, survivors {info['survivors']}, C packed "
-                  f"{branch}; {time.perf_counter() - t0:.3f} s, perpair "
+                  f"{info['c_a']}, survivors {info['survivors']}, packed "
+                  f"{branch}; grids {grids_text(info)}; "
+                  f"{time.perf_counter() - t0:.3f} s, perpair "
                   f"{t_oracle:.3f} s)")
-    check(branches == {True, False}, f"W1: stage C took only {branches}")
-    return err
+        branches |= wide_wcap_edges(dev, tag, d)
+        check(branches == {True, False},
+              f"W1 d={d}: only the branches {branches} ran")
+    return max(err, wide_many_parts(dev, tag))
+
+
+def wide_wcap_edges(dev, tag, d) -> set:
+    """W1 at one d: uniform rows whose c_A + survivors lands on wcap (the
+    packed branch, grids R, Q and S) and on wcap + 1 (the original
+    blocks, grid C), each bit for bit against the plain version and
+    perpair.  Returns the branches seen."""
+    from repro_torch.core import sfs
+    from repro_torch.core.dominance import SENTINEL
+    from repro_torch.kernels.sfs import kernel, ops
+    x, mask = case_data(dev, "uniform", 1, 2000, d, seed=2900 + d)
+    pts_p, mask_p, blk, _ = sfs.sweep_inputs(x, mask, capacity=2000,
+                                             block=256)
+    _, info = kernel.sweep_stages(pts_p, mask_p, block=blk, wcap=2000,
+                                  sentinel=SENTINEL)
+    edge = info["c_a"][0] + info["survivors"][0]
+    check(info["survivors"][0] > 1, f"W1 d={d}: no survivors at the edge")
+    seen = set()
+    for wcap, packed in ((edge, True), (edge - 1, False)):
+        kw = dict(block=blk, wcap=wcap, sentinel=SENTINEL)
+        got = ops.sfs_sweep(pts_p, mask_p, spec="cuda", **kw)
+        want = ops.sfs_sweep(pts_p, mask_p, spec="torch", **kw)
+        oracle = ops.sfs_sweep(pts_p, mask_p, spec="perpair", **kw)
+        out, info = kernel.sweep_stages(pts_p, mask_p, **kw)
+        check(leaves_equal(got, want) and leaves_equal(want, oracle)
+              and leaves_equal(out, want) and info["packed"] == [packed],
+              f"W1 d={d} wcap={wcap}: differs or took {info['packed']}")
+        seen.add(packed)
+        print(f"{tag} W1 sweep wcap edge d={d}: c_A {info['c_a'][0]} + "
+              f"survivors {info['survivors'][0]} = {edge}, wcap {wcap}: "
+              f"{'packed' if packed else 'original'}, bitwise equal to the "
+              f"plain version and perpair (count {int(got[2][0])}; grids "
+              f"{grids_text(info)})")
+    return seen
+
+
+def wide_many_parts(dev, tag) -> float:
+    """W1: 65,537 partitions at d = 13 through sweep_stages(prefix=0), so
+    every grid past A crosses the grid-y slicing: every third partition
+    an antichain with more valid rows than wcap (the original branch),
+    the rest with fewer (packed), the last slice holding one of each.
+    Returns the largest |difference| from the plain version."""
+    from repro_torch.core import sfs
+    from repro_torch.core.dominance import SENTINEL
+    from repro_torch.kernels.sfs import kernel, ops
+    p, n, d = 65_537, 80, 13
+    g = torch.Generator(device=dev).manual_seed(2913)
+    x = torch.round((torch.rand((p, n, 1), generator=g, device=dev) + 0.25
+                     * torch.rand((p, n, d), generator=g, device=dev))
+                    * 16) / 16
+    anti = torch.rand((len(range(0, p, 3)), n, d), generator=g,
+                      device=dev) + 1e-3
+    x[::3] = anti / anti.sum(-1, keepdim=True)
+    m = torch.rand((p, n), generator=g, device=dev) > 0.5
+    m[::3] = True
+    pts_p, mask_p, blk, wcap = sfs.sweep_inputs(x, m, capacity=64, block=16)
+    del x, m, anti
+    kw = dict(block=blk, wcap=wcap, sentinel=SENTINEL)
+    out, info = kernel.sweep_stages(pts_p, mask_p, prefix=0, **kw)
+    got = ops.sfs_sweep(pts_p, mask_p, spec="cuda", **kw)
+    want = ops.sfs_sweep(pts_p, mask_p, spec="torch", **kw)
+    packed = info["packed"]
+    check(leaves_equal(out, want) and leaves_equal(got, want),
+          f"W1 P={p} d={d}: the kernel differs from the plain version")
+    check(packed[65_535:] == [False, True] and not any(packed[::3])
+          and all(b for i, b in enumerate(packed) if i % 3),
+          f"W1 P={p} d={d}: branches {packed[65_535:]} in the last slice")
+    print(f"{tag} W1 sweep P={p} npad={pts_p.shape[1]} d={d} block={blk} "
+          f"wcap={wcap}, prefix 0: bitwise equal to the plain version "
+          f"through sweep_stages and the entry; {sum(packed)} partitions "
+          f"packed, {p - sum(packed)} original, the last slice of y "
+          f"[original, packed] (grids {grids_text(info)})")
+    return abs_err(got[0], want[0])
 
 
 def wide_dominance_cases(dev, tag) -> float:
@@ -5569,6 +5673,13 @@ def wide_laws(tag) -> None:
             p = props[name, 0]
             print(f"{tag} W1 ptxas {name} (d > {kernel.NARROW_D}, at run "
                   f"time): {p.get('used', '?')}, {p.get('spills', '?')}")
+    props = ptxas_report(build.build_log("sfs_sweep"))
+    for name in PACKED_GRIDS:
+        check(props.get((name, 0), {}).get("spills")
+              == "0 B spill stores, 0 B spill loads",
+              f"W1: {name} spills or is missing: {props.get((name, 0))}")
+    print(f"{tag} W1 ptxas: no spill in the packed branch's grids "
+          f"{', '.join(PACKED_GRIDS)}")
     for d in W_DS + (89, 169, 1480):
         for block in (1, 2, 256, kernel.MAX_BLOCK):
             law = kernel.sweep_smem_bytes(d, block)
@@ -5582,7 +5693,8 @@ def wide_laws(tag) -> None:
                 check(fits, f"W1: d={d} block={block} above the limit: "
                       f"{law}")
         print(f"{tag} W1 sweep law at d={d}: A/C {law['prefix']} B, B "
-              f"{law['filter']} B at block {kernel.MAX_BLOCK}; resident "
+              f"{law['filter']} B, R/S {law['rank']} B, Q {law['pairs']} B "
+              f"at block {kernel.MAX_BLOCK}; resident "
               f"rows {kernel.resident_rows(d, 256)} at block 256; largest "
               f"block {kernel.largest_block(d)} (the kernel computes the "
               f"same)")
@@ -5621,26 +5733,79 @@ def wide_laws(tag) -> None:
         fail("W1: the dominance test took d=605, past its law")
 
 
+def row_hash(x) -> torch.Tensor:
+    """One int64 per row of ``x`` (d <= 64) from its coordinates' bits:
+    their sum weighted by random 26-bit factors, which cannot overflow."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64)
+    g = torch.Generator(device=x.device).manual_seed(2900)
+    mult = torch.randint(1, 2 ** 26, (x.shape[-1],), generator=g,
+                         device=x.device)
+    return (bits * mult).sum(-1)
+
+
 def membership(x, buf, tag, name) -> None:
-    """The full-size answer held by membership with the wide dominance
-    kernel: no member is dominated by any input row, and the rows no
-    member dominates are as many as the members."""
+    """The full-size answer held by membership, with the wide dominance
+    kernel: the rows of ``x`` that no member dominates are the members,
+    as multisets of their bits' hashes.  Then no member dominates
+    another, every other row is dominated by a member, and no row
+    dominates a member (its dominator would be a member, or be dominated
+    by one), which is the skyline."""
     from repro_torch.kernels.dominance import ops as dops
     members = buf.points[buf.mask]
     t0 = time.perf_counter()
-    over = dops.dominated_mask(members, x, impl="cuda")
     under = dops.dominated_mask(x, members, impl="cuda")
-    n_free = int((~under).sum())
-    torch.cuda.synchronize()
+    free = torch.sort(row_hash(x[~under])).values
+    same = torch.equal(free, torch.sort(row_hash(members)).values)
     took = time.perf_counter() - t0
-    check(not bool(over.any()), f"W2 {name}: {int(over.sum())} members are "
-          f"dominated by an input row")
-    check(n_free == members.shape[0], f"W2 {name}: {n_free} rows no member "
-          f"dominates, {members.shape[0]} members")
-    print(f"{tag} W2 {name}: membership held by the dominance kernel "
-          f"(no member dominated by any of the {x.shape[0]} rows; the "
-          f"{n_free} rows no member dominates are the members), "
-          f"{took:.3f} s")
+    check(same, f"W2 {name}: the {free.shape[0]} rows no member dominates "
+          f"are not the {members.shape[0]} members")
+    print(f"{tag} W2 {name}: membership held by the dominance kernel (the "
+          f"{free.shape[0]} of {x.shape[0]} rows no member dominates are "
+          f"the members, bit for bit), {took:.3f} s")
+
+
+def wide_query(x, tag, name, kernels, step="W2"):
+    """The query of one cell of step W at the smallest capacity that
+    holds it, its launches, shape and overflow checked.  Returns the
+    config, the answer and its stats."""
+    from repro_torch.core import api, parallel
+    # the smallest power of two that holds the skyline and the union of
+    # the local skylines (the merge truncates the union to the capacity),
+    # so that nothing overflows
+    n, d = x.shape
+    buf, stats = api.parallel_skyline(x, cfg=parallel.SkyConfig(
+        capacity=_pow2_at_least(n)))
+    cap = _pow2_at_least(max(int(buf.count), int(stats["union_size"])))
+    cfg = parallel.SkyConfig(capacity=cap)
+    with Launches(*kernels) as run:
+        buf, stats = api.parallel_skyline(x, cfg=cfg)
+    check(run.counts == (2, 0), f"{step} {name}: {run.counts} sweep and "
+          f"dominance launches, expected (2, 0)")
+    check(not bool(buf.overflow) and buf.points.shape == (cap, d)
+          and bool(torch.isfinite(buf.points).all()),
+          f"{step} {name}: overflow, wrong shape or not finite")
+    print(f"{tag} {step} parallel_skyline {name}: skyline {int(buf.count)}, "
+          f"union {int(stats['union_size'])}, capacity {cap} (the smallest "
+          f"power of two that holds both), {run.counts[0]} sweep launches, "
+          f"no overflow")
+    return cfg, buf, stats
+
+
+def wide_prefix_check(x, cfg, tag, name, rows) -> None:
+    """W2: the query on the first ``rows`` rows, bitwise against
+    impl='torch'."""
+    from repro_torch.core import api
+    xp = x[:rows]
+    t0 = time.perf_counter()
+    got, gstats = api.parallel_skyline(xp, cfg=cfg)
+    want, wstats = api.parallel_skyline(
+        xp, cfg=dataclasses.replace(cfg, impl="torch"))
+    check(leaves_equal(got, want) and stats_equal(gstats, wstats),
+          f"W2 {name}: the answer on the first {rows} rows differs from "
+          f"impl='torch'")
+    print(f"{tag} W2 {name}: the query on the first {rows} rows (skyline "
+          f"{int(got.count)}) bitwise equal to impl='torch', "
+          f"{time.perf_counter() - t0:.3f} s")
 
 
 def wide_phase(tag, kernels, dev=torch.device("cuda"), d4=None) -> None:
@@ -5665,73 +5830,51 @@ def wide_phase(tag, kernels, dev=torch.device("cuda"), d4=None) -> None:
     # -- W2: parallel_skyline at the default config, d = 16 and 32 --------
     queries = {}
     for i, (dist, d, n) in enumerate(W2_CELLS):
+        t_c = time.perf_counter()
         gen = torch.Generator(device=dev).manual_seed(2800 + i)
         x = datagen.generate(dist, gen, n, d)
         name = f"{dist} N={n} d={d}"
-        # the smallest power of two that holds the skyline and the union
-        # of the local skylines (the merge truncates the union to the
-        # capacity), so that nothing overflows
-        buf, stats = api.parallel_skyline(x, cfg=parallel.SkyConfig(
-            capacity=_pow2_at_least(n)))
-        cap = _pow2_at_least(max(int(buf.count), int(stats["union_size"])))
-        cfg = parallel.SkyConfig(capacity=cap)
-        with Launches(*kernels) as run:
-            buf, stats = api.parallel_skyline(x, cfg=cfg)
-        check(run.counts == (2, 0), f"W2 {name}: {run.counts} sweep and "
-              f"dominance launches, expected (2, 0)")
-        check(not bool(buf.overflow) and buf.points.shape == (cap, d)
-              and bool(torch.isfinite(buf.points).all()),
-              f"W2 {name}: overflow, wrong shape or not finite")
-        want, wstats = api.parallel_skyline(
-            x, cfg=dataclasses.replace(cfg, impl="torch"))
-        check(leaves_equal(buf, want) and stats_equal(stats, wstats),
-              f"W2 {name}: the answer differs from impl='torch'")
-        print(f"{tag} W2 parallel_skyline {name}: skyline {int(buf.count)}, "
-              f"union {int(stats['union_size'])}, capacity {cap} (the "
-              f"smallest power of two that holds both), {run.counts[0]} "
-              f"sweep launches, no overflow, bitwise equal to impl='torch'")
+        cfg, buf, _ = wide_query(x, tag, name, kernels)
+        wide_prefix_check(x, cfg, tag, name, W2_PLAIN_N[dist, d])
         membership(x, buf, tag, name)
+        e2e, runs = time_ms(lambda: api.parallel_skyline(x, cfg=cfg), reps=1)
+        calls = record_sweep_calls(lambda: api.parallel_skyline(x, cfg=cfg))
+        pts_p, mask_p, kw = calls[1]
+        got = kernel.sfs_sweep_cuda(pts_p, mask_p, **kw)
+        stages = time_stages(pts_p, mask_p, kw, None, got, reps=1)
+        print(f"{tag} W2 parallel_skyline {name}: {e2e:.3f} ms a query "
+              f"(one run after a warm-up); merge call (npad="
+              f"{pts_p.shape[1]}, wcap={kw['wcap']}, scratch of R, Q and S "
+              f"{wide_scratch_bytes(pts_p, kw)} bytes): {stages}; "
+              f"cell {time.perf_counter() - t_c:.3f} s")
         queries[name] = (x, cfg, buf)
 
     # -- W3: a live state at d = 16 -------------------------------------------
     x, cfg, one = queries[f"uniform N={W3_ROWS * W3_INSERTS} d={W3_D}"]
-    plain = dataclasses.replace(cfg, impl="torch")
-    keep = dataclasses.replace(cfg, donate=False)
-    state = api.init_state(cfg, W3_D)
-    pstate = api.init_state(plain, W3_D)
-    insert_ms = []
-    for i in range(W3_INSERTS):
-        chunk = x[i * W3_ROWS:(i + 1) * W3_ROWS]
-        before = clone_tree(state)
-        with Launches(*kernels) as run:
-            state, stats = api.insert_chunk(state, chunk, cfg=cfg)
-        check(run.counts == (2, 2), f"W3 insert {i + 1}: {run.counts} "
-              f"launches, expected (2, 2)")
-        snap = api.finalize(state, cfg=cfg)
-        pstate, pstats = api.insert_chunk(pstate, chunk, cfg=plain)
-        check(leaves_equal(state, pstate) and stats_equal(stats, pstats)
-              and leaves_equal(snap, api.finalize(pstate, cfg=plain)),
-              f"W3 insert {i + 1}: state, stats or snapshot differ from "
-              f"impl='torch'")
-        t_ins, _ = time_ms(lambda s: api.insert_chunk(s, chunk, cfg=cfg),
-                           fresh=lambda: clone_tree(before))
-        insert_ms.append(t_ins)
-        print(f"{tag} W3 insert {i + 1}/{W3_INSERTS} ({W3_ROWS} uniform "
-              f"rows, d={W3_D}): {t_ins:.3f} ms best of 3; skyline "
-              f"{int(state.count)}, launches {run.counts}; state, stats and "
-              f"snapshot bitwise equal to impl='torch'")
-    check(leaves_equal(snap, one), "W3: the last snapshot differs from the "
-          "one-shot answer")
-    print(f"{tag} W3: the last snapshot (skyline {int(snap.count)}) bitwise "
-          f"equal to W2's one-shot answer on the same rows")
-    dom_calls = record_dominance_calls(
-        lambda: api.insert_chunk(before, chunk, cfg=keep))
+    insert_ms = wide_inserts(x, cfg, one, W3_ROWS, tag, "W3", kernels,
+                             plain_inserts=1)
+    print(f"{tag} W3 inserts ({W3_ROWS} uniform rows each, d={W3_D}, one "
+          f"run each, CUDA events): "
+          f"{', '.join(f'{t:.3f}' for t in insert_ms)} ms")
 
-    # -- W4: times ---------------------------------------------------------------
-    print(f"{tag} W4 times (CUDA events, best of 3 after a warm-up):")
-    dom_calls = [(f"W3 insert {W3_INSERTS} {k}", call) for k, call in
-                 zip(("pre-filter", "evict"), dom_calls)]
-    for name, (x, cfg, buf) in queries.items():
+    # -- W4: times at smaller sizes, beside the bounds --------------------
+    print(f"{tag} W4 times (CUDA events, best of 3 after a warm-up), at "
+          f"the sizes where the plain versions and the bounds' replays "
+          f"run:")
+    dom_calls = []
+    for i, (dist, d, n) in enumerate(W4_CELLS):
+        gen = torch.Generator(device=dev).manual_seed(2800 + i)
+        x = datagen.generate(dist, gen, n, d)
+        name = f"{dist} N={n} d={d}"
+        cfg, buf, stats = wide_query(x, tag, name, kernels, step="W4")
+        t0 = time.perf_counter()
+        want, wstats = api.parallel_skyline(
+            x, cfg=dataclasses.replace(cfg, impl="torch"))
+        check(leaves_equal(buf, want) and stats_equal(stats, wstats),
+              f"W4 {name}: the answer or its stats differ from impl='torch'")
+        print(f"{tag} W4 {name}: the answer and its stats bitwise equal to "
+              f"impl='torch' on the whole input, "
+              f"{time.perf_counter() - t0:.3f} s")
         e2e, runs = time_ms(lambda: api.parallel_skyline(x, cfg=cfg))
         print(f"{tag} W4 parallel_skyline {name}: {e2e:.3f} ms "
               f"({', '.join(f'{t:.3f}' for t in runs)})")
@@ -5739,23 +5882,42 @@ def wide_phase(tag, kernels, dev=torch.device("cuda"), d4=None) -> None:
         for call, (pts_p, mask_p, kw) in zip(("local", "merge"), calls):
             t_k, _ = time_ms(lambda: kernel.sfs_sweep_cuda(pts_p, mask_p,
                                                           **kw))
-            t_p, _ = time_ms(lambda: ops.sfs_sweep(pts_p, mask_p,
-                                                   spec="torch", **kw),
-                             reps=1)
+            plain = []
+            t_p, _ = time_ms(lambda: plain.append(ops.sfs_sweep(
+                pts_p, mask_p, spec="torch", **kw)), reps=1)
             row = sweep_row(pts_p, mask_p, kw)
             got = kernel.sfs_sweep_cuda(pts_p, mask_p, **kw)
-            stages = time_stages(pts_p, mask_p, kw, kernel.PREFIX_ROWS, got)
+            check(leaves_equal(got, plain[-1]), f"W4 {name}: the {call} "
+                  f"sweep call differs from its plain version")
+            stages = time_stages(pts_p, mask_p, kw, None, got)
             print(f"{tag} W4 sfs_sweep {call} call ({name}: P="
                   f"{pts_p.shape[0]}, npad={pts_p.shape[1]}, block="
                   f"{kw['block']}, wcap={kw['wcap']}): kernel {t_k:.3f} ms, "
-                  f"plain {t_p:.3f} ms, {bound_text(row)}; {stages}")
+                  f"plain {t_p:.3f} ms, {bound_text(row)}; {stages}; "
+                  f"kernel and plain outputs bitwise equal")
+        if (dist, d) == ("uniform", W3_D):
+            insert_ms = wide_inserts(x, cfg, buf, W4_INSERT_ROWS, tag, "W4",
+                                     kernels)
+            print(f"{tag} W4 inserts ({W4_INSERT_ROWS} uniform rows each, "
+                  f"d={d}, one run each): "
+                  f"{', '.join(f'{t:.3f}' for t in insert_ms)} ms")
+            keep = dataclasses.replace(cfg, donate=False)
+            state = api.init_state(keep, d)
+            for j in range(n // W4_INSERT_ROWS - 1):
+                state, _ = api.insert_chunk(
+                    state, x[j * W4_INSERT_ROWS:(j + 1) * W4_INSERT_ROWS],
+                    cfg=keep)
+            last = x[n - W4_INSERT_ROWS:]
+            dom_calls += [(f"W4 insert {n // W4_INSERT_ROWS} {k}", call)
+                          for k, call in zip(("pre-filter", "evict"),
+                                             record_dominance_calls(
+                              lambda: api.insert_chunk(state, last,
+                                                       cfg=keep)))]
         members = buf.points[buf.mask][None]
-        dom_calls.append((f"W2 {name} membership, rows against members",
+        dom_calls.append((f"W4 {name} membership, rows against members",
                           (x[None], members,
                            torch.ones(members.shape[:2], dtype=torch.bool,
                                       device=dev), False)))
-    print(f"{tag} W4 inserts (W3, d={W3_D}): "
-          f"{', '.join(f'{t:.3f}' for t in insert_ms)} ms")
     for cname, (c, r, m, lt) in dom_calls:
         t_k, _ = time_ms(lambda: dkernel.dominated_mask_cuda(c, r, m,
                                                              lower_tri=lt))
@@ -5782,6 +5944,63 @@ def wide_phase(tag, kernels, dev=torch.device("cuda"), d4=None) -> None:
               f"calls local {ks[0]:.3f} ms + merge {ks[1]:.3f} ms = "
               f"{sum(ks):.3f} ms")
     print(f"{tag} step W: {time.perf_counter() - t_w:.3f} s")
+
+
+def wide_scratch_bytes(pts_p, kw) -> int:
+    """The bytes the packed branch's scratch takes on one sweep call: the
+    survivors by coordinate, their dominated bytes and the tile counts of
+    R and S (kernel._launch allocates them beside B's alive bytes)."""
+    from repro_torch.kernels.sfs import kernel
+    p, npad, d = pts_p.shape
+    rest = npad - kernel.prefix_rows(npad, kw["block"],
+                                     kernel.entry_prefix(npad, d))
+    stride = -(-rest // 16) * 16
+    return p * (4 * d * stride + stride
+                + 4 * -(-rest // kernel._RANK_ROWS)) if rest > 0 else 0
+
+
+def wide_inserts(x, cfg, one, rows, tag, step, kernels,
+                 plain_inserts=None) -> list:
+    """Ten or more inserts of ``rows`` rows of ``x`` into a fresh state,
+    each with its launches counted (2 + 2) and timed by CUDA events (one
+    run); the first ``plain_inserts`` (all when None) also against
+    impl='torch': state, stats and snapshot.  The last snapshot must
+    equal the one-shot answer ``one`` bit for bit.  Returns the ms of
+    each insert."""
+    from repro_torch.core import api
+    plain = dataclasses.replace(cfg, impl="torch")
+    n_ins = x.shape[0] // rows
+    held = n_ins if plain_inserts is None else plain_inserts
+    state = api.init_state(cfg, x.shape[1])
+    pstate = api.init_state(plain, x.shape[1])
+    insert_ms = []
+    for i in range(n_ins):
+        chunk = x[i * rows:(i + 1) * rows]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with Launches(*kernels) as run:
+            start.record()
+            state, stats = api.insert_chunk(state, chunk, cfg=cfg)
+            end.record()
+        insert_ms.append(start.elapsed_time(end))
+        check(run.counts == (2, 2), f"{step} insert {i + 1}: {run.counts} "
+              f"launches, expected (2, 2)")
+        if i < held:
+            pstate, pstats = api.insert_chunk(pstate, chunk, cfg=plain)
+            check(leaves_equal(state, pstate) and stats_equal(stats, pstats)
+                  and leaves_equal(api.finalize(state, cfg=cfg),
+                                   api.finalize(pstate, cfg=plain)),
+                  f"{step} insert {i + 1}: state, stats or snapshot differ "
+                  f"from impl='torch'")
+    snap = api.finalize(state, cfg=cfg)
+    check(leaves_equal(snap, one), f"{step}: the last snapshot differs from "
+          f"the one-shot answer")
+    print(f"{tag} {step}: {n_ins} inserts of {rows} rows, 2 + 2 launches "
+          f"each; state, stats and snapshot of the first {held} bitwise "
+          f"equal to impl='torch'; the last snapshot (skyline "
+          f"{int(snap.count)}) bitwise equal to the one-shot answer on the "
+          f"same rows")
+    return insert_ms
 
 
 def bound_row(nbytes: int, coords: int) -> dict:
@@ -5829,26 +6048,34 @@ def coords_needed(rows, cands) -> torch.Tensor:
 PREFIX_TABLE = (1024, 16384, 65536)   # other prefixes timed beside 4096
 
 
-def time_stages(pts_p, mask_p, kw, prefix: int, want) -> str:
-    """The sweep's three grids timed by CUDA events (best of 3 after a
-    warm-up, per grid), with stage A's count, B's survivors and C's
-    branch per partition; the output must equal ``want`` bit for bit."""
+STAGE_KEYS = (("A", "a_ms"), ("B", "b_ms"), ("R", "rank_ms"),
+              ("Q", "pairs_ms"), ("S", "append_ms"), ("C", "c_ms"))
+
+
+def time_stages(pts_p, mask_p, kw, prefix, want, reps: int = 3) -> str:
+    """The sweep's grids timed by CUDA events (best of ``reps`` after a
+    warm-up, per grid; R, Q and S, the packed branch past d = 12, only
+    where they run), with stage A's count, B's survivors and each
+    partition's branch (packed or original); the output must equal
+    ``want`` bit for bit.  ``prefix`` None is the entry's."""
     from repro_torch.kernels.sfs import kernel
     runs = [kernel.sweep_stages(pts_p, mask_p, prefix=prefix, **kw)
-            for _ in range(4)][1:]
+            for _ in range(reps + 1)][1:]
     for out, _ in runs:
         check(leaves_equal(out, want), f"the sweep with a prefix of {prefix} "
               f"rows differs from the entry's output")
     info = runs[0][1]
-    best = {k: min(r[1][k] for r in runs) for k in ("a_ms", "b_ms", "c_ms")}
-    total = min(r[1]["a_ms"] + r[1]["b_ms"] + r[1]["c_ms"] for r in runs)
+    keys = [(g, k) for g, k in STAGE_KEYS
+            if g not in "RQS" or pts_p.shape[2] > kernel.NARROW_D]
+    best = {k: min(r[1][k] for r in runs) for _, k in keys}
+    total = min(sum(r[1][k] for _, k in keys) for r in runs)
     branch = ["packed" if b else "original" if b is not None else "A only"
               for b in info["packed"]]
-    return (f"stages at a prefix of {info['prefix_rows']} rows: A "
-            f"{best['a_ms']:.3f} ms, B {best['b_ms']:.3f} ms, C "
-            f"{best['c_ms']:.3f} ms (sum {total:.3f} ms, best of 3); c_A "
-            f"{info['c_a']}, survivors {info['survivors']}, C {branch}; "
-            f"bitwise equal to the entry's output")
+    grids = ", ".join(f"{g} {best[k]:.3f} ms" for g, k in keys)
+    return (f"stages at a prefix of {info['prefix_rows']} rows: {grids} "
+            f"(sum {total:.3f} ms, best of {reps}); c_A {info['c_a']}, "
+            f"survivors {info['survivors']}, branch {branch}; bitwise equal "
+            f"to the entry's output")
 
 
 def count_compares(pts_p, mask_p, block: int,

@@ -21,9 +21,11 @@
 // comparison, while loads and stores move the rows' bits unchanged.
 //
 // Design.  One call runs three grids on one stream (kernel.py launches
-// them; nothing synchronises the host between them):
+// them; nothing synchronises the host between them; past kNarrowD three
+// more run between B and C, below):
 //   A. sweep_seq_kernel over the first K blocks (the wrapper's
-//      PREFIX_ROWS rounded up to whole blocks), one CTA per partition:
+//      entry_prefix rows rounded up to whole blocks), one CTA per
+//      partition:
 //      the sweep as the reference runs it.  It leaves the prefix window
 //      W_A and its count c_A.
 //   B. sweep_filter_kernel over every later row, a grid of (row tiles x
@@ -70,16 +72,50 @@
 // The wide variant.  Every d up to kNarrowD has instantiations of its
 // own, templates over D that hold candidates in float[D] registers.
 // Any wider d runs sweep_seq_wide_kernel and sweep_filter_wide_kernel,
-// which take d at run time and follow the same schedule, grids and
-// launch shapes.  They hold no candidate in a register array: A and C
-// read it from the candidate block they already stage in shared memory,
-// and B keeps its first kChunkD coordinates in registers and reads the
-// rest from the points in device memory.  A compare tests kChunkD
-// coordinates at a time and ends after the first chunk in which the
-// window row exceeds the candidate somewhere: on skyline data most
-// window rows fail within the first chunk.  The test is a pure
-// predicate, so neither the chunking nor where a compare ends changes a
-// bit.
+// which take d at run time and follow the same schedule for A and B.
+// They hold no candidate in a register array: A and C read it from the
+// candidate block they already stage in shared memory, and B keeps its
+// first kChunkD coordinates in registers and reads the rest from the
+// points in device memory.  A compare tests kChunkD coordinates at a
+// time and ends after the first chunk in which the window row exceeds
+// the candidate somewhere: on skyline data most window rows fail within
+// the first chunk.  The test is a pure predicate, so neither the
+// chunking nor where a compare ends changes a bit.
+//
+// Past kNarrowD skylines hold most of the rows, so C's one CTA a
+// partition would walk a window of survivors x skyline on one SM.  The
+// wide variant therefore runs the packed branch on three more grids
+// that spread it over the card; C keeps only the original branch.  In
+// the packed branch row i is kept iff no earlier survivor dominates it
+// (the argument above), so:
+//   R. sweep_rank_wide_kernel: an exclusive scan of B's alive bytes, in
+//      tiles of kRankRows (a count pass, then a pass that adds the
+//      counts of the earlier tiles), gives each survivor its rank and
+//      writes the survivors coordinate-major into a scratch buffer (row
+//      s's k-th coordinate at sv[k * stride + s]).
+//   Q. sweep_pairs_wide_kernel: the lower-triangular pair test of the
+//      survivors.  Candidate tiles of kPairRows survivors (kPairPer a
+//      thread, first kChunkD coordinates in registers), each against the
+//      survivors before its end, split into chunks of kPairRows/g
+//      references (g, at most kPairMaxSplit, chosen on the card from the
+//      survivor count so that the items are at least as many as the
+//      CTAs); a persistent grid of kPairWaves CTAs a multiprocessor for
+//      each of up to kPairParts partitions walks each partition's items in
+//      order, so the references nearest the start of the score order,
+//      where most dominators are, come first.  A CTA stages
+//      its chunk in tiles, coordinate-major as B does, and each lane walks
+//      a tile for all its candidates at once (tile_walk_wide); a reference
+//      counts only when it comes before the candidate.  A dominated
+//      candidate gets a 1 in its byte of `dom` (only ever set to 1, so
+//      plain stores from several CTAs agree), and a candidate already
+//      marked when an item starts is skipped.
+//   S. sweep_append_wide_kernel: an exclusive scan of the undominated
+//      survivors, the same two passes as R, writes each kept row at
+//      window[count_in + rank] with plain stores, sets its mask and
+//      writes count_out.  The packed branch never passes wcap.
+// Every CTA of R, Q, S and C reads the branch of its partition
+// (count_in + survivors <= wcap) and returns at once where the other
+// branch runs, so the host chooses nothing and reads nothing back.
 //
 // Shared memory (dynamic; sweep_smem_bytes in kernel.py states the same
 // law): A and C use 4*d*block (candidates) + 4*kQueueCap (queue)
@@ -90,7 +126,9 @@
 // resident rows take what the candidate block leaves of kSmemLimit, at
 // most kResidentBytes and at least kLaneRows rows; a (d, block) for
 // which even kLaneRows rows do not fit is refused.  B's tile is at least
-// kLaneRows rows at any d.
+// kLaneRows rows at any d.  R and S use 4*kRankRows (a tile's ranks)
+// + 4*32 (warp sums); Q uses 4*d*filter_tile_rows(d), at most 189,440
+// bytes at d = 1,480, the widest d any block takes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,6 +150,13 @@ constexpr int kSmemLimit = 232448;               // per CTA on sm_90
 constexpr int kMaxGridY = 65535;                 // a grid's y extent
 constexpr int kNarrowD = 12;           // widest d with its own instantiation
 constexpr int kChunkD = 8;             // wide compare: coordinates a step
+constexpr int kRankThreads = 256;      // grids R and S
+constexpr int kRankRows = kRankThreads * kFlagsPerThread;  // flags a CTA
+constexpr int kPairPer = 4;            // grid Q: candidates per thread
+constexpr int kPairRows = kFilterThreads * kPairPer;  // Q's candidate tile
+constexpr int kPairWaves = 4;          // grid Q: CTAs per multiprocessor
+constexpr int kPairParts = 8;          // grid Q: partitions that share a wave
+constexpr int kPairMaxSplit = 8;       // grid Q: reference chunks a tile
 
 // A and C's shared memory apart from the candidates and resident rows
 constexpr long long kSeqFixedBytes =
@@ -584,9 +629,18 @@ __device__ __forceinline__ bool warp_any_rows_wide(
   return false;
 }
 
-// Stages A and C at any d: sweep_seq_kernel's schedule, with the
-// candidates read from the staged candidate block (coordinate k of
-// candidate t at cand[k * block + t]) and res_rows resident window rows.
+// The branch of stage C: does partition p's count stay within wcap?
+__device__ __forceinline__ bool packed_branch(const int* count_in,
+                                              const int* survivors, int p,
+                                              int wcap) {
+  return (long long)count_in[p] + survivors[p] <= (long long)wcap;
+}
+
+// Stages A and C at any d: sweep_seq_kernel's schedule in the original
+// blocks, with the candidates read from the staged candidate block
+// (coordinate k of candidate t at cand[k * block + t]) and res_rows
+// resident window rows.  As C it returns where the partition packs: the
+// grids R, Q and S run that branch.
 __global__ void __launch_bounds__(kSeqThreads)
 sweep_seq_wide_kernel(const float* __restrict__ pts,
                       const uint8_t* __restrict__ flags,
@@ -609,6 +663,7 @@ sweep_seq_wide_kernel(const float* __restrict__ pts,
   const int warp = tid >> 5;
   constexpr int kWarps = kSeqThreads / 32;
   const int p = blockIdx.x;
+  if (count_in && packed_branch(count_in, survivors, p, wcap)) return;
   const float* P = pts + (size_t)p * npad * d;
   const uint8_t* F = flags + (size_t)p * flag_stride;
   float* W = win + (size_t)p * wcap * d;
@@ -616,8 +671,6 @@ sweep_seq_wide_kernel(const float* __restrict__ pts,
 
   int count = count_in ? count_in[p] : 0;  // the same in every thread
   const int skip = min(count, wcap);       // window rows B tested
-  const bool packed =
-      count_in && (long long)count + survivors[p] <= (long long)wcap;
   const int n = r1 - r0;
 
   uint32_t w[4];
@@ -647,16 +700,14 @@ sweep_seq_wide_kernel(const float* __restrict__ pts,
 
     int s = 0;  // the next queued row
     while (s < qlen) {
+      // the queued rows of the first row's original block
       const int first = queue[s];
       const int lim = min(block, qlen - s);
-      const int nb = packed ? lim
-                            : __syncthreads_count(
-                                  tid < lim && queue[s + tid] / block ==
-                                                   first / block);
+      const int nb = __syncthreads_count(
+          tid < lim && queue[s + tid] / block == first / block);
       const bool ready =
-          packed ? (nb == block || last)
-                 : (s + nb < qlen || last ||
-                    ((long long)(first / block) + 1) * block <= read_end);
+          s + nb < qlen || last ||
+          ((long long)(first / block) + 1) * block <= read_end;
       if (!ready) break;  // the block goes on in the next chunk
 
       const bool mine = tid < nb;
@@ -720,6 +771,53 @@ sweep_seq_wide_kernel(const float* __restrict__ pts,
     qlen = rest;
   }
   if (tid == 0) count_out[p] = count;
+}
+
+// Grid Q's test: each lane walks the staged rows of the table t (stride
+// ts) for all kPairPer candidates it holds at once, loading a row's first
+// kChunkD coordinates once for all of them.  Candidate k, its first
+// kChunkD coordinates in x0[k] and its e-th at c[k][e * cs], meets rows
+// [0, lim[k]) and leaves the walk at its first dominator.  Returns todo
+// less the bits of the candidates found dominated.  Unlike B's rows, few
+// survivors are dominated past d = 12, so nearly every lane walks the
+// whole tile and the lanes of a warp stay together.
+__device__ __forceinline__ unsigned tile_walk_wide(
+    const float* t, int ts, const float (&x0)[kPairPer][kChunkD],
+    const float* const (&c)[kPairPer], int cs, const int (&lim)[kPairPer],
+    unsigned todo, int d) {
+  int hi = 0;
+#pragma unroll
+  for (int k = 0; k < kPairPer; ++k)
+    hi = (todo >> k) & 1u ? max(hi, lim[k]) : hi;
+  for (int j = 0; j < hi && todo; ++j) {
+    float w[kChunkD];
+#pragma unroll
+    for (int e = 0; e < kChunkD; ++e) w[e] = t[e * ts + j];
+#pragma unroll
+    for (int k = 0; k < kPairPer; ++k) {
+      if (!((todo >> k) & 1u) || j >= lim[k]) continue;
+      bool le = true, lt = false;
+#pragma unroll
+      for (int e = 0; e < kChunkD; ++e) {
+        le &= w[e] <= x0[k][e];
+        lt |= w[e] < x0[k][e];
+      }
+      for (int k0 = kChunkD; le && k0 < d; k0 += kChunkD) {
+#pragma unroll
+        for (int u = 0; u < kChunkD; ++u) {
+          const int e = k0 + u;
+          if (e < d) {
+            const float r = t[e * ts + j];
+            const float v = c[k][static_cast<size_t>(e) * cs];
+            le &= r <= v;
+            lt |= r < v;
+          }
+        }
+      }
+      if (le && lt) todo &= ~(1u << k);
+    }
+  }
+  return todo;
 }
 
 // Stage B at any d: sweep_filter_kernel's schedule, each candidate's
@@ -793,6 +891,207 @@ sweep_filter_wide_kernel(const float* __restrict__ pts,
   }
   const unsigned n = __reduce_add_sync(0xffffffffu, __popc(todo));
   if ((tid & 31) == 0 && n) atomicAdd(survivors + p, (int)n);
+}
+
+// -- the packed branch past kNarrowD: grids R, Q and S ----------------------
+
+// Bit b: entry off + b of F is below n and set (its byte nonzero), or,
+// with `unset`, below n and zero.
+__device__ __forceinline__ uint32_t flag_bits(const uint8_t* F, int off,
+                                              int n, bool unset) {
+  uint32_t w[4];
+  load_flags(F, off, n, w);
+  uint32_t bits = 0;
+#pragma unroll
+  for (int b = 0; b < kFlagsPerThread; ++b) {
+    const bool set = ((w[b >> 2] >> (8 * (b & 3))) & 0xffu) != 0;
+    bits |= uint32_t((set != unset) && off + b < n) << b;
+  }
+  return bits;
+}
+
+// The sum of tc[0 .. t) over the CTA.  The caller synchronises between
+// two calls (warp_tot).
+__device__ __forceinline__ int sum_before(const int* tc, int t,
+                                          int* warp_tot) {
+  int s = 0;
+  for (int u = threadIdx.x; u < t; u += blockDim.x) s += tc[u];
+  int total;
+  block_exclusive_sum(s, warp_tot, &total);
+  return total;
+}
+
+// Puts the entries whose bit is set, off + b for bit b, at
+// queue[slot ...] in order.
+__device__ __forceinline__ void enqueue_bits(uint32_t bits, int off,
+                                             int slot, int* queue) {
+  for (; bits; bits &= bits - 1) queue[slot++] = off + __ffs(bits) - 1;
+}
+
+// Grid R over the alive bytes of partition p (rows r0 + [0, npad - r0)),
+// one CTA a tile of kRankRows.  The count pass writes the tile's
+// survivors to tiles[t]; the scatter pass writes survivor s (rank
+// tiles[0 .. t) + its rank in the tile) to sv[k * stride + s] for each
+// coordinate k and clears its byte of dom.
+template <bool kScatter>
+__global__ void __launch_bounds__(kRankThreads)
+sweep_rank_wide_kernel(const float* __restrict__ pts,
+                       const uint8_t* __restrict__ alive, long long stride,
+                       const int* __restrict__ count_in,
+                       const int* __restrict__ survivors,
+                       int* __restrict__ tiles, int ntiles,
+                       float* __restrict__ sv, uint8_t* __restrict__ dom,
+                       int npad, int r0, int wcap, int d) {
+  extern __shared__ int ranks[];  // kRankRows + 32 warp sums
+  int* warp_tot = ranks + kRankRows;
+  const int tid = threadIdx.x;
+  const int p = blockIdx.y;
+  const int t = blockIdx.x;
+  if (!packed_branch(count_in, survivors, p, wcap)) return;
+  const int off = t * kRankRows + tid * kFlagsPerThread;
+  const uint32_t bits =
+      flag_bits(alive + (size_t)p * stride, off, npad - r0, false);
+  int cnt;
+  const int slot = block_exclusive_sum(__popc(bits), warp_tot, &cnt);
+  int* T = tiles + (size_t)p * ntiles;
+  if (!kScatter) {
+    if (tid == 0) T[t] = cnt;
+    return;
+  }
+  enqueue_bits(bits, off, slot, ranks);
+  __syncthreads();
+  const int base = sum_before(T, t, warp_tot);
+  const float* P = pts + ((size_t)p * npad + r0) * d;
+  float* V = sv + (size_t)p * d * stride + base;
+  for (int k = 0; k < d; ++k)
+    for (int q = tid; q < cnt; q += kRankThreads)
+      V[(size_t)k * stride + q] = P[(size_t)ranks[q] * d + k];
+  for (int q = tid; q < cnt; q += kRankThreads)
+    dom[(size_t)p * stride + base + q] = 0;
+}
+
+// Grid Q: dom[s] = 1 where an earlier survivor dominates survivor s, for
+// the survivors of partition p, coordinate-major in sv.  A persistent
+// grid: each CTA takes the items blockIdx.x, blockIdx.x + gridDim.x, ...
+// Item w is (candidate tile c, chunk h): the candidates
+// [c * kPairRows, +kPairRows) against the references
+// [h * chunk, +chunk), chunk = kPairRows / g, before the tile's end;
+// tile c has (c + 1) * g items, so items are numbered along the lower
+// triangle.
+__global__ void __launch_bounds__(kFilterThreads)
+sweep_pairs_wide_kernel(const float* __restrict__ sv, uint8_t* dom,
+                        long long stride, const int* __restrict__ count_in,
+                        const int* __restrict__ survivors, int wcap,
+                        int tile_rows, int d) {
+  extern __shared__ float tile[];  // d x tile_rows
+  const int tid = threadIdx.x;
+  const int p = blockIdx.y;
+  const int n = survivors[p];
+  if (!packed_branch(count_in, survivors, p, wcap) || n < 2) return;
+  const float* V = sv + (size_t)p * d * stride;
+  uint8_t* Dm = dom + (size_t)p * stride;
+  const long long tiles = (n + kPairRows - 1) / kPairRows;
+  const long long tri = tiles * (tiles + 1) / 2;
+  int g = 1;
+  while (g < kPairMaxSplit && g * tri < gridDim.x) g *= 2;
+  const int chunk = kPairRows / g;
+
+  for (long long w = blockIdx.x; w < g * tri; w += gridDim.x) {
+    // c: the largest with c (c + 1) / 2 <= w / g
+    const long long u = w / g;
+    long long c = (long long)((sqrt(8.0 * (double)u + 1.0) - 1.0) * 0.5);
+    while (c * (c + 1) / 2 > u) --c;
+    while ((c + 1) * (c + 2) / 2 <= u) ++c;
+    const int c0 = (int)c * kPairRows;
+    const int lo = (int)(w - g * (c * (c + 1) / 2)) * chunk;
+    const int hi = min(min(lo + chunk, c0 + kPairRows), n);
+    if (lo >= hi) continue;  // past the last survivor: the same in the CTA
+
+    float x0[kPairPer][kChunkD];
+    const float* cp[kPairPer];
+    unsigned todo = 0;  // bit k: candidate k has references and no mark
+#pragma unroll
+    for (int k = 0; k < kPairPer; ++k) {
+      const int i = c0 + tid + k * kFilterThreads;
+      const bool open =
+          i < n && i > lo && *reinterpret_cast<volatile const uint8_t*>(
+                                 Dm + i) == 0;
+      cp[k] = V + (open ? i : 0);
+#pragma unroll
+      for (int e = 0; e < kChunkD; ++e)
+        x0[k][e] = open ? cp[k][(size_t)e * stride] : 0.f;
+      todo |= open ? 1u << k : 0u;
+    }
+    const unsigned opened = todo;
+
+    for (int t0 = lo; t0 < hi; t0 += tile_rows) {
+      if (!__syncthreads_or(todo != 0)) break;
+      const int rows = min(tile_rows, hi - t0);
+      for (int e = tid; e < rows * d; e += kFilterThreads) {
+        const int k = e / rows;
+        const int r = e - k * rows;
+        tile[k * tile_rows + r] = V[(size_t)k * stride + t0 + r];
+      }
+      __syncthreads();
+      int lim[kPairPer];  // only references before the candidate
+#pragma unroll
+      for (int k = 0; k < kPairPer; ++k)
+        lim[k] = max(0, min(rows, c0 + tid + k * kFilterThreads - t0));
+      todo = tile_walk_wide(tile, tile_rows, x0, cp, (int)stride, lim, todo,
+                            d);
+    }
+#pragma unroll
+    for (int k = 0; k < kPairPer; ++k)
+      if ((opened & ~todo) >> k & 1u) Dm[c0 + tid + k * kFilterThreads] = 1;
+  }
+}
+
+// Grid S over the survivors of partition p, tiles of kRankRows as in R:
+// the count pass writes the tile's undominated survivors to tiles[t];
+// the scatter pass copies each to window row count_in + its rank, sets
+// its mask, and tile 0 writes count_out.
+template <bool kScatter>
+__global__ void __launch_bounds__(kRankThreads)
+sweep_append_wide_kernel(const float* __restrict__ sv,
+                         const uint8_t* __restrict__ dom, long long stride,
+                         const int* __restrict__ count_in,
+                         const int* __restrict__ survivors,
+                         int* __restrict__ tiles, int ntiles, float* win,
+                         uint8_t* __restrict__ wmask,
+                         int* __restrict__ count_out, int wcap, int d) {
+  extern __shared__ int ranks[];  // kRankRows + 32 warp sums
+  int* warp_tot = ranks + kRankRows;
+  const int tid = threadIdx.x;
+  const int p = blockIdx.y;
+  const int t = blockIdx.x;
+  if (!packed_branch(count_in, survivors, p, wcap)) return;
+  const int off = t * kRankRows + tid * kFlagsPerThread;
+  const uint32_t bits =
+      flag_bits(dom + (size_t)p * stride, off, survivors[p], true);
+  int cnt;
+  const int slot = block_exclusive_sum(__popc(bits), warp_tot, &cnt);
+  int* T = tiles + (size_t)p * ntiles;
+  if (!kScatter) {
+    if (tid == 0) T[t] = cnt;
+    return;
+  }
+  enqueue_bits(bits, off, slot, ranks);
+  __syncthreads();
+  const int c_in = count_in[p];
+  const int base = sum_before(T, t, warp_tot);
+  if (t == 0) {
+    __syncthreads();
+    const int kept = sum_before(T, ntiles, warp_tot);
+    if (tid == 0) count_out[p] = c_in + kept;
+  }
+  const float* V = sv + (size_t)p * d * stride;
+  const size_t at = (size_t)p * wcap + c_in + base;
+  float* W = win + at * d;  // cnt rows, row-major: one coalesced run
+  for (int e = tid; e < cnt * d; e += kRankThreads) {
+    const int q = e / d;
+    W[e] = V[(size_t)(e - q * d) * stride + ranks[q]];
+  }
+  for (int q = tid; q < cnt; q += kRankThreads) wmask[at + q] = 1;
 }
 
 template <int D>
@@ -897,6 +1196,83 @@ cudaError_t launch_filter_wide(int d, const void* pts, const void* mask,
   return cudaSuccess;
 }
 
+// Grids R and S: a tile's ranks and the warp sums
+constexpr long long kRankSmemBytes = 4LL * kRankRows + 4LL * 32;
+
+// Grid Q: one tile of filter_tile_rows(d) survivors
+long long pairs_smem_bytes(int d) { return 4LL * d * filter_tile_rows(d); }
+
+// Grid R (grid 0, both passes), Q (1) or S (2, both passes) of the packed
+// branch over the rows [r0, npad) of every partition, in slices of
+// kMaxGridY partitions on y.  sv holds d x stride floats a partition,
+// dom stride bytes, tiles one int per kRankRows rows.
+cudaError_t launch_packed_wide(int grid, int d, const void* pts,
+                               const void* alive, long long stride,
+                               void* sv, void* dom, void* tiles,
+                               const void* count_in, const void* survivors,
+                               void* win, void* wmask, void* count_out,
+                               int parts, int npad, int r0, int wcap,
+                               cudaStream_t stream) {
+  const int ntiles = (npad - r0 + kRankRows - 1) / kRankRows;
+  const long long pair_smem = pairs_smem_bytes(d);
+  if (pair_smem > kSmemLimit) return cudaErrorInvalidValue;
+  // grid Q: kPairWaves CTAs a multiprocessor for each partition of up to
+  // kPairParts, so that one partition's items can take the whole card
+  // while the others wait in the queue; past that, the partitions share
+  // kPairParts waves
+  int gx = 1;
+  if (grid == 1) {
+    cudaError_t err = cudaFuncSetAttribute(
+        sweep_pairs_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)pair_smem);
+    int dev = 0, sms = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    const long long ctas = (long long)sms * kPairWaves *
+                           (parts < kPairParts ? parts : kPairParts);
+    gx = (int)((ctas + parts - 1) / parts);
+  }
+  for (int p0 = 0; p0 < parts; p0 += kMaxGridY) {
+    const int n = parts - p0 < kMaxGridY ? parts - p0 : kMaxGridY;
+    const size_t q = p0;
+    const float* P = static_cast<const float*>(pts) + q * npad * d;
+    const uint8_t* A = static_cast<const uint8_t*>(alive) + q * stride;
+    float* V = static_cast<float*>(sv) + q * d * stride;
+    uint8_t* Dm = static_cast<uint8_t*>(dom) + q * stride;
+    int* T = static_cast<int*>(tiles) + q * ntiles;
+    const int* C = static_cast<const int*>(count_in) + q;
+    const int* S = static_cast<const int*>(survivors) + q;
+    const dim3 by_tile(ntiles, n);
+    if (grid == 0) {
+      sweep_rank_wide_kernel<false>
+          <<<by_tile, kRankThreads, kRankSmemBytes, stream>>>(
+              P, A, stride, C, S, T, ntiles, V, Dm, npad, r0, wcap, d);
+      sweep_rank_wide_kernel<true>
+          <<<by_tile, kRankThreads, kRankSmemBytes, stream>>>(
+              P, A, stride, C, S, T, ntiles, V, Dm, npad, r0, wcap, d);
+    } else if (grid == 1) {
+      sweep_pairs_wide_kernel<<<dim3(gx, n), kFilterThreads, pair_smem,
+                                stream>>>(V, Dm, stride, C, S, wcap,
+                                          filter_tile_rows(d), d);
+    } else {
+      float* W = static_cast<float*>(win) + q * wcap * d;
+      uint8_t* WM = static_cast<uint8_t*>(wmask) + q * wcap;
+      int* out = static_cast<int*>(count_out) + q;
+      sweep_append_wide_kernel<false>
+          <<<by_tile, kRankThreads, kRankSmemBytes, stream>>>(
+              V, Dm, stride, C, S, T, ntiles, W, WM, out, wcap, d);
+      sweep_append_wide_kernel<true>
+          <<<by_tile, kRankThreads, kRankSmemBytes, stream>>>(
+              V, Dm, stride, C, S, T, ntiles, W, WM, out, wcap, d);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 #define SFS_DISPATCH(CALL)                                              \
@@ -968,13 +1344,39 @@ extern "C" int sfs_sweep_filter_launch(const void* pts, const void* mask,
 
 #undef SFS_DISPATCH
 
+// Grid R (grid 0), Q (1) or S (2) of the packed branch, d > kNarrowD, on
+// `stream`, after B and before C.  sv, dom and tiles are the scratch
+// launch_packed_wide describes; stride is B's alive stride.
+extern "C" int sfs_sweep_packed_launch(int grid, const void* pts,
+                                       const void* alive, long long stride,
+                                       void* sv, void* dom, void* tiles,
+                                       const void* count_in,
+                                       const void* survivors, void* win,
+                                       void* wmask, void* count_out,
+                                       int parts, int npad, int d, int r0,
+                                       int wcap, void* stream) {
+  if (grid < 0 || grid > 2 || d <= kNarrowD || parts < 1 || r0 < 0 ||
+      r0 >= npad || wcap < 0 || stride < npad - r0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_packed_wide(
+      grid, d, pts, alive, stride, sv, dom, tiles, count_in, survivors, win,
+      wmask, count_out, parts, npad, r0, wcap,
+      static_cast<cudaStream_t>(stream)));
+}
+
 // The dynamic shared memory a CTA of each grid takes: stage 0 is A and C
-// (sweep_seq_kernel), stage 1 is B with a prefix of `prefix` rows.
+// (sweep_seq_kernel), stage 1 is B with a prefix of `prefix` rows, stage
+// 2 the grids R and S, stage 3 the grid Q (the last two run past
+// kNarrowD only).
 extern "C" long long sfs_sweep_smem_bytes(int stage, int d, int block,
                                           int prefix, int wcap) {
   if (d < 1) return -1;
-  return stage == 0 ? seq_smem_bytes(d, block)
-                    : 4LL * d * filter_rows(d, prefix, wcap);
+  switch (stage) {
+    case 0: return seq_smem_bytes(d, block);
+    case 1: return 4LL * d * filter_rows(d, prefix, wcap);
+    case 2: return kRankSmemBytes;
+    default: return pairs_smem_bytes(d);
+  }
 }
 
 extern "C" const char* sfs_sweep_error_string(int err) {

@@ -14,8 +14,8 @@ One call launches up to three grids, with no host synchronisation
 between them (the source's header says why the schedule is exact):
 
   A. the sequential sweep of the first :func:`prefix_rows` rows of every
-     partition (K = 16 blocks at the default block of 256), one CTA per
-     partition;
+     partition (K = 16 blocks at the default block of 256; past
+     :data:`NARROW_D`, :func:`entry_prefix`), one CTA per partition;
   B. a filter of every later row against the prefix window, on a grid
      of (row tiles x partitions), one grid for each 65,535 partitions;
   C. the sequential sweep of the rows B left alive.
@@ -23,11 +23,17 @@ between them (the source's header says why the schedule is exact):
 When the prefix covers a partition, A is the whole sweep and one grid
 runs.  Every d up to :data:`NARROW_D` runs the kernel's instantiation for
 that d; any wider d runs its wide variant, which takes d at run time
-(the source's header says how).  What bounds d is the footprint law
-(:func:`sweep_smem_bytes`): :func:`check_args` refuses a (d, block)
-whose CTA would take more than :data:`SMEM_LIMIT` bytes, and names the
-largest block that fits.  ``sfs_sweep_cuda.launches`` counts entry calls, not grids, so a
-run can show that its main path went through the kernel.
+(the source's header says how).  Past :data:`NARROW_D` three more grids
+run between B and C and take C's packed branch across the card: R ranks
+B's survivors into a coordinate-major scratch buffer, Q tests every
+survivor against the earlier ones (lower-triangular), S appends the
+undominated ones by rank.  Each CTA reads its partition's branch on the
+card; C then runs only where the count would pass ``wcap``.  What
+bounds d is the footprint law (:func:`sweep_smem_bytes`):
+:func:`check_args` refuses a (d, block) whose CTA would take more than
+:data:`SMEM_LIMIT` bytes, and names the largest block that fits.
+``sfs_sweep_cuda.launches`` counts entry calls, not grids, so a run can
+show that its main path went through the kernel.
 :func:`sweep_stages` runs the same grids with CUDA events between them,
 for measurement only.
 """
@@ -43,14 +49,20 @@ from repro_torch.kernels import build
 
 __all__ = ["sfs_sweep_cuda", "sweep_stages", "check_args",
            "sweep_smem_bytes", "resident_rows", "filter_tile_rows",
-           "largest_block", "prefix_rows", "NARROW_D", "MAX_BLOCK",
-           "MAX_PARTS", "PREFIX_ROWS", "SMEM_LIMIT"]
+           "largest_block", "prefix_rows", "entry_prefix", "NARROW_D",
+           "MAX_BLOCK", "MAX_PARTS", "PREFIX_ROWS", "WIDE_PREFIX_ROWS",
+           "WIDE_PREFIX_SHARE", "SMEM_LIMIT"]
 
 NARROW_D = 12        # widest d with an instantiation of its own
 MAX_BLOCK = 512      # one thread per candidate row of a block
 MAX_PARTS = 2 ** 31 - 1  # A and C take the partitions on x; B on y, in
 #                          slices of 65,535
 PREFIX_ROWS = 4096   # rows stage A sweeps, rounded up to whole blocks
+# past NARROW_D the entry sweeps npad / WIDE_PREFIX_SHARE rows in stage A,
+# within WIDE_PREFIX_ROWS: A runs on one SM and Q spreads over the card,
+# so a short prefix pays until the survivors grow large
+WIDE_PREFIX_ROWS = (512, 4096)
+WIDE_PREFIX_SHARE = 256
 SMEM_LIMIT = 232_448  # shared memory one CTA may take on sm_90
 
 # the constants of csrc/sfs_sweep.cu that its shared memory follows
@@ -59,6 +71,11 @@ _QUEUE_CAP = _SEQ_THREADS * 16 + _SEQ_THREADS   # kQueueCap
 _RESIDENT_BYTES = 131_072                       # kResidentBytes
 _FILTER_TILE_BYTES = 32_768                     # kFilterTileBytes
 _LANE_ROWS = 32                                 # kLaneRows
+_RANK_ROWS = 256 * 16                           # kRankRows, grids R and S
+_PAIR_ROWS = 256 * 4                            # kPairRows: Q's tile
+_PAIR_WAVES = 4                                 # kPairWaves
+_PAIR_PARTS = 8                                 # kPairParts
+_PAIR_MAX_SPLIT = 8                             # kPairMaxSplit
 # A and C's bytes apart from the candidates and resident rows: the queue,
 # the warp sums and the pending flags (kSeqFixedBytes)
 _SEQ_FIXED = 4 * _QUEUE_CAP + 4 * 32 + 4 * _SEQ_THREADS
@@ -76,6 +93,9 @@ def _lib() -> ctypes.CDLL:
     lib.sfs_sweep_filter_launch.argtypes = (
         [ptr] * 5 + [i64, ptr] + [i32] * 5 + [ptr])
     lib.sfs_sweep_filter_launch.restype = ctypes.c_int
+    lib.sfs_sweep_packed_launch.argtypes = (
+        [i32, ptr, ptr, i64] + [ptr] * 8 + [i32] * 5 + [ptr])
+    lib.sfs_sweep_packed_launch.restype = ctypes.c_int
     lib.sfs_sweep_smem_bytes.argtypes = [i32] * 5
     lib.sfs_sweep_smem_bytes.restype = i64
     lib.sfs_sweep_error_string.argtypes = [ctypes.c_int]
@@ -87,6 +107,18 @@ def prefix_rows(npad: int, block: int, rows: int = PREFIX_ROWS) -> int:
     """The rows stage A sweeps: ``rows`` rounded up to whole blocks, at
     most ``npad``."""
     return min(npad, -(-rows // block) * block)
+
+
+def entry_prefix(npad: int, d: int) -> int:
+    """The prefix rows :func:`sfs_sweep_cuda` asks stage A for (before
+    :func:`prefix_rows` rounds them): :data:`PREFIX_ROWS` up to
+    :data:`NARROW_D`; past it ``npad / WIDE_PREFIX_SHARE`` within
+    :data:`WIDE_PREFIX_ROWS`, chosen from stage times on the card
+    (``PERF.md``).  Pure schedule: no prefix changes a bit."""
+    if d <= NARROW_D:
+        return PREFIX_ROWS
+    lo, hi = WIDE_PREFIX_ROWS
+    return min(hi, max(lo, npad // WIDE_PREFIX_SHARE))
 
 
 def resident_rows(d: int, block: int) -> int:
@@ -120,12 +152,19 @@ def sweep_smem_bytes(d: int, block: int,
     queue (a chunk of flags plus a partial block), the warp sums, one
     pending flag per thread and the :func:`resident_rows` window rows.
     Stage B: one tile of the prefix window, :func:`filter_tile_rows` and
-    at most the prefix's ``min(prefix rows, wcap)`` rows.  Counterpart of
+    at most the prefix's ``min(prefix rows, wcap)`` rows.  Past
+    :data:`NARROW_D` also the grids of the packed branch: ``rank`` (R
+    and S: a tile's ranks and the warp sums) and ``pairs`` (Q: one tile
+    of :func:`filter_tile_rows` survivors).  Counterpart of
     ``repro.kernels.sfs.kernel.sweep_vmem_bytes``; the kernel's
     ``sfs_sweep_smem_bytes`` computes the same numbers."""
     seq = 4 * d * block + _SEQ_FIXED + 4 * d * resident_rows(d, block)
     tile = min(filter_tile_rows(d), prefix_rows(2 ** 31 - 1, block), wcap)
-    return {"prefix": seq, "filter": 4 * d * tile, "survivors": seq}
+    law = {"prefix": seq, "filter": 4 * d * tile, "survivors": seq}
+    if d > NARROW_D:
+        law.update(rank=4 * _RANK_ROWS + 4 * 32,
+                   pairs=4 * d * filter_tile_rows(d))
+    return law
 
 
 def largest_block(d: int, wcap: int = 2 ** 31 - 1) -> int:
@@ -172,12 +211,17 @@ def check_args(pts_s: torch.Tensor, mask_s: torch.Tensor, block: int,
                          f"{SMEM_LIMIT}; {fits}")
 
 
+# the events sweep_stages records, in launch order; a grid's ms is the
+# time from its event to the next
+_MARKS = ("a", "b", "rank", "pairs", "append", "c", "end")
+
+
 def _launch(pts_s, mask_s, block, wcap, sentinel, prefix, events=None):
-    """Allocate the outputs and scratch and launch the stages on the
-    current stream.  ``events``, when given, is a list of four CUDA
-    events recorded before A, B and C and after C.  Returns
-    ``(window, wmask, count, c_a, survivors)``; the last two are None
-    when stage A covers the sweep."""
+    """Allocate the outputs and scratch and launch the grids on the
+    current stream.  ``events``, when given, maps each name of
+    :data:`_MARKS` to a CUDA event recorded before that grid (``end``
+    after the last).  Returns ``(window, wmask, count, c_a,
+    survivors)``; the last two are None when stage A covers the sweep."""
     p, npad, d = pts_s.shape
     dev = pts_s.device
     window = torch.full((p, wcap, d), sentinel, dtype=torch.float32,
@@ -191,6 +235,13 @@ def _launch(pts_s, mask_s, block, wcap, sentinel, prefix, events=None):
         alive = torch.empty((p, stride), dtype=torch.uint8, device=dev)
         c_a = torch.empty((p,), dtype=torch.int32, device=dev)
         surv = torch.zeros((p,), dtype=torch.int32, device=dev)
+        if d > NARROW_D:
+            # the packed branch's scratch: the survivors by coordinate,
+            # their dominated bytes and one count per tile of R and S
+            sv = torch.empty((p, d, stride), dtype=torch.float32, device=dev)
+            dom = torch.empty((p, stride), dtype=torch.uint8, device=dev)
+            tiles = torch.empty((p, -(-(npad - r0) // _RANK_ROWS)),
+                                dtype=torch.int32, device=dev)
     lib = _lib()
     pts, mask = pts_s.data_ptr(), mask_s.data_ptr()
     win, wm = window.data_ptr(), wmask.data_ptr()
@@ -205,26 +256,34 @@ def _launch(pts_s, mask_s, block, wcap, sentinel, prefix, events=None):
         stream = torch.cuda.current_stream(dev)
         s = stream.cuda_stream
 
-        def mark(i):
+        def mark(name):
             if events is not None:
-                events[i].record(stream)
+                events[name].record(stream)
 
-        mark(0)
+        mark("a")
         check(lib.sfs_sweep_seq_launch(
             pts, mask, npad, 0, r0, win, wm, None, None,
             (count if c_a is None else c_a).data_ptr(), p, npad, d, block,
             wcap, s))
         if c_a is not None:
-            mark(1)
+            mark("b")
             check(lib.sfs_sweep_filter_launch(
                 pts, mask, win, c_a.data_ptr(), alive.data_ptr(), stride,
                 surv.data_ptr(), p, npad, d, r0, wcap, s))
-            mark(2)
+            if d > NARROW_D:
+                for grid, name in enumerate(("rank", "pairs", "append")):
+                    mark(name)
+                    check(lib.sfs_sweep_packed_launch(
+                        grid, pts, alive.data_ptr(), stride, sv.data_ptr(),
+                        dom.data_ptr(), tiles.data_ptr(), c_a.data_ptr(),
+                        surv.data_ptr(), win, wm, count.data_ptr(), p, npad,
+                        d, r0, wcap, s))
+            mark("c")
             check(lib.sfs_sweep_seq_launch(
                 pts, alive.data_ptr(), stride, r0, npad, win, wm,
                 c_a.data_ptr(), surv.data_ptr(), count.data_ptr(), p, npad,
                 d, block, wcap, s))
-        mark(3)
+        mark("end")
     return window, wmask, count, c_a, surv
 
 
@@ -243,8 +302,9 @@ def sfs_sweep_cuda(pts_s: torch.Tensor, mask_s: torch.Tensor, *,
     contract."""
     _check_device(pts_s, mask_s)
     check_args(pts_s, mask_s, block, wcap)
+    _, npad, d = pts_s.shape
     window, wmask, count, _, _ = _launch(pts_s, mask_s, block, wcap,
-                                         sentinel, PREFIX_ROWS)
+                                         sentinel, entry_prefix(npad, d))
     sfs_sweep_cuda.launches += 1
     return window, wmask, count
 
@@ -253,35 +313,41 @@ sfs_sweep_cuda.launches = 0
 
 
 def sweep_stages(pts_s: torch.Tensor, mask_s: torch.Tensor, *, block: int,
-                 wcap: int, sentinel: float, prefix: int = PREFIX_ROWS):
+                 wcap: int, sentinel: float, prefix: int | None = None):
     """The sweep with CUDA events around its grids, for measurement: it
     synchronises, and its launches do not count on
-    :func:`sfs_sweep_cuda`.  ``prefix`` sets stage A's rows.
+    :func:`sfs_sweep_cuda`.  ``prefix`` sets stage A's rows (by default
+    the entry's, :func:`entry_prefix`).
 
     Returns ``(outputs, info)``: the three outputs of the sweep, and per
     partition stage A's count ``c_a``, the rows B left alive
-    ``survivors`` and whether C ``packed`` them (None where A covered
-    the sweep), beside the ms of each grid (``a_ms``, ``b_ms``,
-    ``c_ms``; 0.0 for a grid that did not run) and ``prefix_rows``."""
+    ``survivors`` and whether the partition took the packed branch
+    (``packed``; None where A covered the sweep), beside the ms of each
+    grid (``a_ms``, ``b_ms``, ``c_ms`` and, past :data:`NARROW_D`, the
+    packed branch's ``rank_ms``, ``pairs_ms`` and ``append_ms``; 0.0 for
+    a grid that did not run) and ``prefix_rows``."""
     _check_device(pts_s, mask_s)
     check_args(pts_s, mask_s, block, wcap)
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    if prefix is None:
+        prefix = entry_prefix(pts_s.shape[1], pts_s.shape[2])
+    events = {k: torch.cuda.Event(enable_timing=True) for k in _MARKS}
     window, wmask, count, c_a, surv = _launch(pts_s, mask_s, block, wcap,
                                               sentinel, prefix, events)
-    events[3].synchronize()
-    p, npad, _ = pts_s.shape
+    events["end"].synchronize()
+    p, npad, d = pts_s.shape
     info = {"prefix_rows": prefix_rows(npad, block, prefix),
-            "a_ms": events[0].elapsed_time(events[3]), "b_ms": 0.0,
-            "c_ms": 0.0, "c_a": count.tolist(), "survivors": [0] * p,
+            "a_ms": events["a"].elapsed_time(events["end"]), "b_ms": 0.0,
+            "rank_ms": 0.0, "pairs_ms": 0.0, "append_ms": 0.0, "c_ms": 0.0,
+            "c_a": count.tolist(), "survivors": [0] * p,
             "packed": [None] * p}
     if c_a is not None:
-        info.update(
-            a_ms=events[0].elapsed_time(events[1]),
-            b_ms=events[1].elapsed_time(events[2]),
-            c_ms=events[2].elapsed_time(events[3]), c_a=c_a.tolist(),
-            survivors=surv.tolist(),
-            packed=[a + s <= wcap for a, s in zip(c_a.tolist(),
-                                                  surv.tolist())])
+        ran = ("a", "b") + (("rank", "pairs", "append") if d > NARROW_D
+                            else ()) + ("c", "end")
+        info.update({f"{k}_ms": events[k].elapsed_time(events[e])
+                     for k, e in zip(ran, ran[1:])})
+        info.update(c_a=c_a.tolist(), survivors=surv.tolist(),
+                    packed=[a + s <= wcap for a, s in zip(c_a.tolist(),
+                                                         surv.tolist())])
     return (window, wmask, count), info
 
 
@@ -292,6 +358,10 @@ def kernel_smem_bytes(d: int, block: int, wcap: int) -> dict[str, int]:
     lib = _lib()
     r0 = prefix_rows(2 ** 31 - 1, block)
     seq = lib.sfs_sweep_smem_bytes(0, d, block, r0, wcap)
-    return {"prefix": seq,
-            "filter": lib.sfs_sweep_smem_bytes(1, d, block, r0, wcap),
-            "survivors": seq}
+    built = {"prefix": seq,
+             "filter": lib.sfs_sweep_smem_bytes(1, d, block, r0, wcap),
+             "survivors": seq}
+    if d > NARROW_D:
+        built.update(rank=lib.sfs_sweep_smem_bytes(2, d, block, r0, wcap),
+                     pairs=lib.sfs_sweep_smem_bytes(3, d, block, r0, wcap))
+    return built

@@ -14,9 +14,15 @@ output window), and B testing each CTA's rows against A's window in
 tiles of ``tile`` rows, stopping when none is alive.  ``resident`` and
 ``tile`` default to the kernel's law at (d, block), which past d = 12
 (the wide variant) shrinks the resident rows as the candidate block
-grows.  It lives here and not in the package: the package's plain
-version stays the straightforward sweep.  Tolerance: zero (every leaf
-through its bits, so -0.0 must stay -0.0).
+grows.  Past d = 12 the packed branch is not C's: the wide variant runs
+it on three grids across the card (R ranks the survivors, Q tests each
+against the earlier ones in tiles of candidates and chunks of
+references along the lower triangle, S appends the undominated ones by
+rank), and ``_packed_wide`` models those.  It lives here and not in the
+package: the package's plain version stays the straightforward sweep.
+Compares flush subnormals to zeros of their sign, as the kernel and the
+plain version do.  Tolerance: zero (every leaf through its bits, so
+-0.0 must stay -0.0).
 
 The footprint law of the kernel (``kernel.sweep_smem_bytes``) is held
 here against the constants of the CUDA source and the card's per-CTA
@@ -24,6 +30,7 @@ limit.
 """
 
 import _torch_threads  # noqa: F401  (one torch thread)
+import math
 import re
 from pathlib import Path
 
@@ -36,6 +43,7 @@ from _hypothesis_compat import given, settings, st
 from repro.kernels.sfs import ops as jops
 from repro_torch.core import sfs as tsfs
 from repro_torch.core.dominance import SENTINEL
+from repro_torch.kernels.dominance.ref import flush_subnormal
 from repro_torch.kernels.sfs import kernel
 from repro_torch.kernels.sfs import ops as tops
 
@@ -46,6 +54,7 @@ FILTER_ROWS = 256 * 2        # stage B's rows a CTA (kFilterRows)
 
 def _pairs(refs, x):
     """(R, C) bool: row j of ``refs`` (R, d) dominates ``x[i]`` (C, d)."""
+    refs, x = flush_subnormal(refs), flush_subnormal(x)
     le = (refs[:, None, :] <= x[None]).all(-1)
     lt = (refs[:, None, :] < x[None]).any(-1)
     return le & lt
@@ -115,19 +124,73 @@ def _filter(x, mask, w, tile):
     return alive
 
 
+def _tri_root(u):
+    """The largest c with c (c + 1) / 2 <= u."""
+    return (math.isqrt(8 * u + 1) - 1) // 2
+
+
+def _packed_wide(x, alive, r0, win, wmask, count, *, tile, pair_rows,
+                 ctas):
+    """Grids R, Q and S on one partition that packs (d > 12); returns the
+    count.  R: the survivors in rank order.  Q: item w of ``g`` x the
+    lower triangle of candidate tiles, tile c against the references
+    ``[h * chunk, +chunk)`` before its end, ``chunk = pair_rows / g``
+    with ``g`` the smallest power of two up to 8 that makes the items at
+    least ``ctas``; references staged ``tile`` at a time, each counting
+    only before its candidate; a candidate marked when its item starts
+    is skipped.  S: the undominated survivors at ``count + rank``."""
+    v = x[r0:][alive]
+    n = v.shape[0]
+    dom = torch.zeros(n, dtype=torch.bool)
+    tiles = -(-n // pair_rows)
+    tri = tiles * (tiles + 1) // 2
+    g = 1
+    while g < kernel._PAIR_MAX_SPLIT and g * tri < ctas:
+        g *= 2
+    chunk = pair_rows // g
+    for w in range(g * tri if n >= 2 else 0):
+        c = _tri_root(w // g)
+        c0 = c * pair_rows
+        lo = (w - g * (c * (c + 1) // 2)) * chunk
+        hi = min(lo + chunk, c0 + pair_rows, n)
+        if lo >= hi:
+            continue
+        i = torch.arange(c0, min(c0 + pair_rows, n))
+        opened = (i > lo) & ~dom[i]
+        todo = opened.clone()
+        for t0 in range(lo, hi, tile):
+            if not bool(todo.any()):
+                break
+            j = torch.arange(t0, min(t0 + tile, hi))
+            todo &= ~(_pairs(v[j], v[i]) & (j[:, None] < i[None])).any(0)
+        dom[i[opened & ~todo]] = True
+    kept = v[~dom]
+    win[count:count + kept.shape[0]] = kept
+    wmask[count:count + kept.shape[0]] = True
+    return count + kept.shape[0]
+
+
 def staged_sweep(pts_s, mask_s, *, block, wcap, sentinel, k, chunk=8192,
-                 guard=True, resident=None, tile=None):
+                 guard=True, resident=None, tile=None, pair_rows=None,
+                 ctas=None):
     """The kernel's schedule with a prefix of ``k`` blocks.  Returns the
     sweep's three outputs and, per partition, stage A's count ``c_a``,
-    B's ``survivors`` and the ``branch`` C took (None where A covered
-    the sweep).  ``guard=False`` packs whatever the count: that is wrong
-    under overflow.  ``resident`` (A and C's resident window rows) and
-    ``tile`` (B's tile rows) default to the kernel's law."""
+    B's ``survivors`` and the ``branch`` it took (None where A covered
+    the sweep; past d = 12 the packed branch runs ``_packed_wide``, not
+    C).  ``guard=False`` packs whatever the count: that is wrong under
+    overflow.  ``resident`` (A and C's resident window rows) and ``tile``
+    (B's and Q's tile rows) default to the kernel's law, ``pair_rows``
+    (Q's candidate tile) and ``ctas`` (Q's grid a partition) to the
+    kernel's on a card of 132 multiprocessors."""
     p, npad, d = pts_s.shape
     if resident is None:
         resident = kernel.resident_rows(d, block)
     if tile is None:
         tile = kernel.filter_tile_rows(d)
+    if pair_rows is None:
+        pair_rows = kernel._PAIR_ROWS
+    if ctas is None:
+        ctas = -(-132 * kernel._PAIR_WAVES * min(p, kernel._PAIR_PARTS) // p)
     r0 = min(npad, k * block)
     window = torch.full((p, wcap, d), sentinel, dtype=pts_s.dtype)
     wmask = torch.zeros((p, wcap), dtype=torch.bool)
@@ -146,8 +209,12 @@ def staged_sweep(pts_s, mask_s, *, block, wcap, sentinel, k, chunk=8192,
             n_alive = int(alive.sum())
             packed = c + n_alive <= wcap or not guard
             b = "packed" if packed else "original"
-            c = _seq(x, alive, r0, npad, w, wm, c, min(c, wcap), packed,
-                     block, wcap, chunk, resident)
+            if packed and d > kernel.NARROW_D:
+                c = _packed_wide(x, alive, r0, w, wm, c, tile=tile,
+                                 pair_rows=pair_rows, ctas=ctas)
+            else:
+                c = _seq(x, alive, r0, npad, w, wm, c, min(c, wcap), packed,
+                         block, wcap, chunk, resident)
         count[i] = c
         info["survivors"].append(n_alive)
         info["branch"].append(b)
@@ -357,6 +424,144 @@ def test_wide_d_at_the_laws_sizes(d):
         _check(pts_p, mask_p, block=block, wcap=wcap, k=k, chunk=300)
 
 
+# -- the packed branch past d = 12: grids R, Q and S ------------------------
+
+PACKED_D = (13, 16, 32, 64, 128)
+# Q's candidate tile, grid and staged tile: one tile of 512 and the
+# card's grid (the defaults); tiles of 8 on one CTA (no split) and on
+# 1,000 (chunks of one reference); tiles of 16 on 5 CTAs in staged tiles
+# of 3 rows
+PACKED_VARIANTS = ({}, dict(pair_rows=8, ctas=1), dict(pair_rows=8,
+                   ctas=1000), dict(pair_rows=16, ctas=5, tile=3))
+
+
+def _wide_rows(rng, kind, p, n, d):
+    if kind == "scoretie":     # f32 score ties: a later row may dominate
+        x = rng.integers(0, 3, (p, n, d)).astype(np.float32)
+        x[..., 0] += 1e8
+    elif kind == "duplicates":
+        x = np.repeat(rng.random((p, -(-n // 3), d)), 3, 1)[:, :n]
+    elif kind == "signs":      # -0.0 against +0.0, subnormals against 0
+        x = rng.choice(np.asarray([0.0, -0.0, 1e-40, -1e-40, 0.5, 1.0],
+                                  np.float32), (p, n, d))
+    elif kind == "correlated":  # a small skyline at any d
+        x = np.round((rng.random((p, n, 1)) + 0.25 * rng.random((p, n, d)))
+                     * 16) / 16
+    else:                      # graded: rows dominate one another at any d
+        x = np.round((0.5 * rng.random((p, n, 1)) + rng.random((p, n, d)))
+                     * 8) / 8
+    return x.astype(np.float32)
+
+
+def _check_wide(pts_s, mask_s, *, block, wcap, k):
+    """Every variant of the model against the plain sweep and JAX's
+    per-pair sweep (computed once); returns the model's info."""
+    kw = dict(block=block, wcap=wcap, sentinel=SENTINEL)
+    want = [t.numpy() for t in tops.sfs_sweep_torch(pts_s, mask_s, **kw)]
+    ref = jops.sfs_sweep(jnp.asarray(pts_s.numpy()),
+                         jnp.asarray(mask_s.numpy()), spec="perpair", **kw)
+    _assert_leaves_equal(want, [np.asarray(r) for r in ref],
+                         f"plain sweep from JAX perpair (wcap={wcap})")
+    for v in PACKED_VARIANTS:
+        got, info = staged_sweep(pts_s, mask_s, k=k, **v, **kw)
+        _assert_leaves_equal([t.numpy() for t in got], want,
+                             f"(k={k}, wcap={wcap}, model {v})")
+    return info
+
+
+@pytest.mark.parametrize("d", PACKED_D)
+def test_packed_branch_wide(d):
+    """The packed branch on R, Q and S, bit for bit: score ties where a
+    later row dominates an earlier one, duplicates, -0.0 against +0.0
+    and subnormals, masked and sentinel rows (npad past n), an all-masked
+    partition and one whose prefix dominates every later row (zero
+    survivors both), survivor counts that are no multiple of a tile."""
+    rng = np.random.default_rng(2900 + d)
+    counts = []
+    for kind in ("scoretie", "duplicates", "signs", "graded"):
+        x = _wide_rows(rng, kind, 3, 150, d)
+        mask = rng.random((3, 150)) > 0.15
+        mask[1] = False                          # all masked
+        x[2, 0] = -1.0                           # dominates all of row 2's
+        mask[2, 0] = True
+        pts_p, mask_p, block, wcap = _sorted(x, mask, 150, 8)
+        assert pts_p.shape[1] == 152             # two sentinel rows
+        info = _check_wide(pts_p, mask_p, block=block, wcap=wcap, k=2)
+        assert info["branch"] == ["packed"] * 3, (kind, info)
+        assert info["survivors"][1:] == [0, 0], (kind, info)
+        counts.append(info["survivors"][0])
+        if kind == "signs":  # a signed zero kept in the window by R and S
+            got, _ = staged_sweep(pts_p, mask_p, block=block, wcap=wcap,
+                                  sentinel=SENTINEL, k=2)
+            kept = got[0][0, info["c_a"][0]:int(got[2][0])]
+            assert bool((torch.signbit(kept) & (kept == 0)).any())
+    assert any(n > 16 and n % 8 for n in counts), counts
+
+
+@pytest.mark.parametrize("d", PACKED_D)
+def test_packed_branch_wide_at_wcap(d):
+    """c_A + survivors == wcap packs (R, Q, S run), wcap + 1 keeps the
+    original blocks (C runs), each bit for bit; then one call with an
+    overflowing antichain, a packed partition and an all-masked one."""
+    rng = np.random.default_rng(2950 + d)
+    x = _wide_rows(rng, "graded", 1, 120, d)
+    pts_p, mask_p, block, _ = _sorted(x, np.ones((1, 120), bool), 120, 4)
+    _, info = staged_sweep(pts_p, mask_p, block=block, wcap=120,
+                           sentinel=SENTINEL, k=2)
+    edge = info["c_a"][0] + info["survivors"][0]
+    assert info["survivors"][0] > 1 and edge - 1 >= info["c_a"][0]
+    assert _check_wide(pts_p, mask_p, block=block, wcap=edge,
+                       k=2)["branch"] == ["packed"]
+    assert _check_wide(pts_p, mask_p, block=block, wcap=edge - 1,
+                       k=2)["branch"] == ["original"]
+    anti = rng.random((100, d)).astype(np.float32) + 1e-3
+    anti /= anti.sum(-1, keepdims=True)
+    pts = np.stack([anti, _wide_rows(rng, "correlated", 1, 100, d)[0],
+                    _wide_rows(rng, "signs", 1, 100, d)[0]])
+    mask = np.ones((3, 100), bool)
+    mask[2] = False
+    pts_p, mask_p, block, wcap = _sorted(pts, mask, 60, 4)
+    assert _check_wide(pts_p, mask_p, block=block, wcap=wcap,
+                       k=3)["branch"] == ["original", "packed", "packed"]
+
+
+def _law_before(d, block):
+    """The law of the tree before the packed branch's grids: A, B, C."""
+    law = kernel.sweep_smem_bytes(d, block)
+    return {k: law[k] for k in ("prefix", "filter", "survivors")}
+
+
+def test_check_args_accepts_what_it_accepted_before():
+    """The grids R, Q and S fit wherever A, B and C fit, so check_args
+    takes the same (d, block) set as before them: every d to 128 at
+    blocks to 256, to 89 at 512, to 1,480 at block 1, and no more."""
+    lim = kernel.SMEM_LIMIT
+    for d in range(1, 1601):
+        for block in (1, 2, 64, 255, 256, 257, 349, 350, 511, 512):
+            before = max(_law_before(d, block).values()) <= lim
+            after = max(kernel.sweep_smem_bytes(d, block).values()) <= lim
+            assert before == after, (d, block)
+            if d <= 128 and block <= 256 or d <= 89 or (d <= 1480
+                                                         and block == 1):
+                assert after, (d, block)
+    for d in (1, 12, 13, 16, 64, 88, 89, 90, 128, 129, 200, 1480, 1481):
+        assert kernel.largest_block(d) == max(
+            [0] + [b for b in range(1, 513)
+                   if max(_law_before(d, b).values()) <= lim]), d
+    assert (kernel.largest_block(89), kernel.largest_block(90),
+            kernel.largest_block(1480), kernel.largest_block(1481)) == (
+        512, 510, 1, 0)
+    for d, block, ok in ((128, 256, True), (89, 512, True), (90, 512, False),
+                         (1480, 1, True), (1481, 1, False)):
+        pts = torch.rand(1, block, d)
+        mask = torch.ones(1, block, dtype=torch.bool)
+        if ok:
+            kernel.check_args(pts, mask, block, 64)
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                kernel.check_args(pts, mask, block, 64)
+
+
 @settings(max_examples=25, deadline=None, database=None)
 @given(st.integers(1, 3), st.integers(0, 70), st.integers(1, 5),
        st.integers(0, 4), st.sampled_from([1, 2, 3, 8, 16]),
@@ -413,6 +618,18 @@ def test_law_mirrors_the_source():
                      r"4LL \* kSeqThreads;", src)
     assert kernel._SEQ_FIXED == (4 * kernel._QUEUE_CAP + 4 * 32
                                  + 4 * kernel._SEQ_THREADS)
+    # the packed branch's grids past d = 12
+    assert re.search(r"kRankRows = kRankThreads \* kFlagsPerThread;", src)
+    assert kernel._RANK_ROWS == c["kRankThreads"] * c["kFlagsPerThread"]
+    assert re.search(r"kPairRows = kFilterThreads \* kPairPer;", src)
+    assert kernel._PAIR_ROWS == c["kFilterThreads"] * c["kPairPer"]
+    assert c["kPairWaves"] == kernel._PAIR_WAVES
+    assert c["kPairParts"] == kernel._PAIR_PARTS
+    assert c["kPairMaxSplit"] == kernel._PAIR_MAX_SPLIT
+    assert re.search(r"kRankSmemBytes = 4LL \* kRankRows \+ 4LL \* 32;",
+                     src)
+    assert re.search(r"pairs_smem_bytes\(int d\) \{ return 4LL \* d \* "
+                     r"filter_tile_rows\(d\); \}", src)
 
 
 WIDE_D = (13, 16, 20, 24, 32, 48, 64, 96, 128)
@@ -428,7 +645,11 @@ def test_law_within_the_limit(d):
     blocks = (1, 2, 255, 256) + ((kernel.MAX_BLOCK,) if d <= 64 else ())
     for block in blocks:
         law = kernel.sweep_smem_bytes(d, block)
-        assert set(law) == {"prefix", "filter", "survivors"}
+        assert set(law) == {"prefix", "filter", "survivors"} | (
+            {"rank", "pairs"} if d > 12 else set())
+        if d > 12:
+            assert law["rank"] == 4 * 4096 + 4 * 32
+            assert law["pairs"] == 4 * d * max(32, 32_768 // (4 * d))
         assert all(0 < v <= kernel.SMEM_LIMIT for v in law.values()), law
         cap = 131_072 // (4 * d)
         room = (kernel.SMEM_LIMIT - 4 * (512 * 16 + 512) - 4 * 32 - 4 * 512
@@ -502,3 +723,16 @@ def test_prefix_rows():
     assert kernel.prefix_rows(10 ** 6, 300) == 4200       # whole blocks
     assert kernel.prefix_rows(1000, 200) == 1000          # A covers it
     assert kernel.prefix_rows(10 ** 6, 256, rows=0) == 0
+
+
+@pytest.mark.parametrize("npad,d,want", [
+    (10 ** 7, 4, 4096), (1000, 12, 4096),       # up to d = 12: PREFIX_ROWS
+    (4608, 16, 512), (65_536, 16, 512),         # past it: npad / 256 ...
+    (262_144, 13, 1024), (524_288, 32, 2048),
+    (1_048_576, 16, 4096), (2 ** 31 - 1, 128, 4096)])  # ... in [512, 4096]
+def test_entry_prefix(npad, d, want):
+    """The entry's prefix: PREFIX_ROWS up to d = 12 (unchanged), past it
+    npad / 256 rows within [512, 4096], which the sweep's law takes at
+    its largest (4096 rows)."""
+    assert kernel.entry_prefix(npad, d) == want
+    assert kernel.WIDE_PREFIX_ROWS[1] == kernel.PREFIX_ROWS
